@@ -1,0 +1,184 @@
+"""Minimal HTTP inference server over the micro-batching engine
+(counterpart of ``scouter_tpu/serve/server.py``).
+
+Standard library only (ThreadingHTTPServer): concurrent requests land in the
+InferenceEngine's queue and coalesce into bucketed batches.
+
+Endpoints:
+- ``POST /predict``: body = a raw ``.npy`` uint8 (H, W, C) array, or JPEG/PNG
+  bytes (decoded and resized with PIL, which is imported only for them).
+  Response JSON: ``{"pred": int, "logits": [...]}``; add ``?maps=1`` for the
+  per-class slot maps (base64 grayscale PNG each).
+- ``GET /healthz``: engine stats (requests, batches, padding).
+
+CLI: ``python -m scouter_tpu_torch.serve.server --device cuda --port 8000
+<model flags ...>`` serves ``{output_dir}/{checkpoint_name}.pth`` when it
+exists, fresh-init weights otherwise.
+"""
+
+from __future__ import annotations
+
+import base64
+import io
+import json
+import os
+import struct
+import time
+import zlib
+from http.server import BaseHTTPRequestHandler, ThreadingHTTPServer
+from typing import Tuple
+
+import numpy as np
+
+__all__ = ["main", "make_server"]
+
+
+def _decode_image(body: bytes, img_size: int, channels: int) -> np.ndarray:
+    if body[:6] == b"\x93NUMPY":  # .npy magic
+        arr = np.load(io.BytesIO(body), allow_pickle=False)
+        if arr.dtype != np.uint8:
+            raise ValueError(f"npy payload must be uint8, got {arr.dtype}")
+    else:
+        from PIL import Image
+
+        im = Image.open(io.BytesIO(body))
+        im = im.convert("L" if channels == 1 else "RGB")
+        im = im.resize((img_size, img_size), Image.BILINEAR)
+        arr = np.asarray(im, np.uint8)
+        if channels == 1:
+            arr = arr[..., None]
+    if arr.shape != (img_size, img_size, channels):
+        raise ValueError(f"expected ({img_size},{img_size},{channels}), got {arr.shape}")
+    return arr
+
+
+def _png_gray(arr: np.ndarray, level: int = 1) -> bytes:
+    """Minimal 8-bit grayscale PNG encoder: filter-0 scanlines, one zlib IDAT."""
+    h, w = arr.shape
+
+    def chunk(tag: bytes, data: bytes) -> bytes:
+        return (struct.pack(">I", len(data)) + tag + data +
+                struct.pack(">I", zlib.crc32(tag + data) & 0xFFFFFFFF))
+
+    ihdr = struct.pack(">IIBBBBB", w, h, 8, 0, 0, 0, 0)
+    raw = np.empty((h, w + 1), np.uint8)
+    raw[:, 0] = 0  # per-scanline filter byte: None
+    raw[:, 1:] = arr
+    idat = zlib.compress(raw.tobytes(), level)
+    return (b"\x89PNG\r\n\x1a\n" + chunk(b"IHDR", ihdr) +
+            chunk(b"IDAT", idat) + chunk(b"IEND", b""))
+
+
+def make_server(engine, img_size: int, channels: int,
+                address: Tuple[str, int] = ("127.0.0.1", 8000)) -> ThreadingHTTPServer:
+    """Build (not start) the HTTP server bound to ``address``; port 0 picks a
+    free port (``server.server_address`` reports the real one)."""
+
+    class Handler(BaseHTTPRequestHandler):
+        def _send(self, code: int, payload: dict):
+            blob = json.dumps(payload).encode()
+            self.send_response(code)
+            self.send_header("Content-Type", "application/json")
+            self.send_header("Content-Length", str(len(blob)))
+            self.end_headers()
+            self.wfile.write(blob)
+
+        def do_GET(self):
+            if self.path.startswith("/healthz"):
+                self._send(200, {"status": "ok", "stats": engine.stats()})
+            else:
+                self._send(404, {"error": f"unknown path {self.path}"})
+
+        def do_POST(self):
+            if not self.path.startswith("/predict"):
+                self._send(404, {"error": f"unknown path {self.path}"})
+                return
+            try:
+                body = self.rfile.read(int(self.headers.get("Content-Length", "0")))
+                out = engine.submit(_decode_image(body, img_size, channels)).result(timeout=60)
+                logits = np.asarray(out["logits"], np.float32)
+                payload = {"pred": int(logits.argmax()), "logits": [float(v) for v in logits]}
+                if "maps=1" in self.path and "slot_maps" in out:
+                    payload["slot_maps_png"] = [
+                        base64.b64encode(_png_gray(np.asarray(m, np.uint8))).decode("ascii")
+                        for m in out["slot_maps"]]
+            except Exception as exc:  # per-request isolation
+                self._send(400, {"error": f"{type(exc).__name__}: {exc}"})
+                return
+            self._send(200, payload)
+
+        def log_message(self, *args):  # quiet access log
+            pass
+
+    return ThreadingHTTPServer(address, Handler)
+
+
+def load_state_dict(cfg):
+    """The weights ``main`` serves: ``{output_dir}/{checkpoint_name}.pth`` (a
+    reference-format dict whose ``model`` entry is the state dict) when it
+    exists, else a fresh init from ``cfg.seed``. Returns (state_dict, source)."""
+    import argparse
+
+    import torch
+
+    from ..core.config import checkpoint_name
+    from ..models import build_slot_model
+
+    path = os.path.join(cfg.output_dir, checkpoint_name(cfg) + ".pth")
+    if not os.path.exists(path):
+        return build_slot_model(cfg, device="cpu").state_dict(), None
+    with torch.serialization.safe_globals([argparse.Namespace]):
+        ckpt = torch.load(path, map_location="cpu", weights_only=True)
+    # to_q exists in the reference but its forward bypasses it
+    sd = {k: v for k, v in ckpt["model"].items() if not k.startswith("slot.to_q.")}
+    return sd, path
+
+
+def main(argv=None):
+    import argparse
+
+    import torch
+
+    from ..core.config import check_serving_supported, config_from_args, get_args_parser
+    from .engine import InferenceEngine
+
+    parser = argparse.ArgumentParser(
+        "SCOUTER inference server (PyTorch/CUDA)", parents=[get_args_parser()])
+    parser.add_argument("--host", default="127.0.0.1")
+    parser.add_argument("--port", type=int, default=8000)
+    parser.add_argument("--buckets", default="1,4,16")
+    parser.add_argument("--max_wait_ms", type=float, default=2.0)
+    parser.add_argument("--max_inflight", type=int, default=8,
+                        help="batches dispatched and not yet fetched before the "
+                             "dispatcher blocks (pipelining depth)")
+    parser.add_argument("--resolvers", type=int, default=4,
+                        help="threads doing the device->host fetch")
+    ns = parser.parse_args(argv)
+    cfg = config_from_args(ns).replace(use_pre=False)
+    check_serving_supported(cfg)
+
+    state_dict, source = load_state_dict(cfg)
+    print(f"restored {source}" if source else "serving fresh-init weights", flush=True)
+    channels = 1 if cfg.dataset == "MNIST" else 3
+    buckets = [int(b) for b in ns.buckets.split(",")]
+    dtype = {"float32": None, "bfloat16": torch.bfloat16}[cfg.compute_dtype]
+    engine = InferenceEngine(cfg, state_dict, buckets=buckets, max_wait_ms=ns.max_wait_ms,
+                             compute_dtype=dtype, max_inflight=ns.max_inflight,
+                             resolvers=ns.resolvers, device=cfg.device)
+    # run every bucket once before accepting traffic (kernel build, cuDNN
+    # algorithm selection)
+    for b in sorted(buckets):
+        t0 = time.monotonic()
+        engine.infer_batch(np.zeros((b, cfg.img_size, cfg.img_size, channels), np.uint8))
+        print(f"warmed bucket {b} ({time.monotonic() - t0:.2f} s)", flush=True)
+    server = make_server(engine, cfg.img_size, channels, (ns.host, ns.port))
+    host, port = server.server_address[:2]
+    print(f"serving on http://{host}:{port} (POST /predict, GET /healthz)", flush=True)
+    try:
+        server.serve_forever()
+    finally:
+        engine.close()
+
+
+if __name__ == "__main__":
+    main()
