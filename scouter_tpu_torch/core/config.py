@@ -6,18 +6,22 @@ default, including the reference's string-typed sweepable flags
 (``num_classes``, ``lambda_value``, ``power``, ``slots_per_class``), which
 :func:`config_from_args` coerces to scalars. ``device`` is ``cuda`` (the
 default) or ``cpu``. Flags of features the port does not have yet (the device
-mesh, ZeRO-1, per-replica BN) parse, and :func:`check_serving_supported`
-refuses non-default values of them on the serving path.
+mesh, ZeRO-1, per-replica BN, preemption, async checkpoints, bf16 training)
+parse, and :func:`check_serving_supported` and
+:func:`check_training_supported` refuse non-default values of them.
+:func:`expand_sweep` is the reference's sweep over comma lists
+(``train.py:207-230``).
 """
 
 from __future__ import annotations
 
 import argparse
 import dataclasses
-from typing import Optional, Tuple
+from typing import Iterator, Optional, Tuple
 
-__all__ = ["ScouterConfig", "check_serving_supported", "checkpoint_name",
-           "config_from_args", "get_args_parser", "str2bool"]
+__all__ = ["ScouterConfig", "check_serving_supported", "check_training_supported",
+           "checkpoint_name", "config_from_args", "expand_sweep", "get_args_parser",
+           "str2bool"]
 
 _SWEEPABLE = ("num_classes", "lambda_value", "power", "slots_per_class")
 _SWEEP_TYPES = (int, float, int, int)
@@ -147,7 +151,8 @@ def get_args_parser() -> argparse.ArgumentParser:
                    help="comma list, e.g. '8' or '4,2' (data[,model]); not ported yet")
     p.add_argument("--sync_bn", default=True, type=str2bool,
                    help="False (per-replica BN) is not ported yet")
-    p.add_argument("--compute_dtype", default="float32", choices=["float32", "bfloat16"])
+    p.add_argument("--compute_dtype", default="float32", choices=["float32", "bfloat16"],
+                   help="bfloat16 serves; training in bfloat16 is not ported yet")
     p.add_argument("--slot_head_dtype", default="float32", choices=["float32", "compute"],
                    help="keep the slot head f32 under a bf16 backbone (default) "
                         "or follow compute_dtype")
@@ -156,6 +161,30 @@ def get_args_parser() -> argparse.ArgumentParser:
     p.add_argument("--ckpt_async", default=False, type=str2bool, help="not ported yet")
     p.add_argument("--seed", default=0, type=int)
     return p
+
+
+def expand_sweep(ns: argparse.Namespace) -> Iterator[Tuple[Optional[str], ScouterConfig]]:
+    """param_translation parity (``train.py:207-230``).
+
+    Yields (sweep_key or None, resolved config). A comma list in one of the
+    sweepable flags gives one config per value; the reference sweeps only
+    the first such flag, in ``_SWEEPABLE`` order."""
+    raw = {k: str(getattr(ns, k)) for k in _SWEEPABLE}
+    target = None
+    for name, typ in zip(_SWEEPABLE, _SWEEP_TYPES):
+        if target is None and raw[name].find(",") > 0:
+            target = (name, typ, raw[name].split(","))
+        else:
+            setattr(ns, name, typ(raw[name]))
+
+    if target is None:
+        yield None, config_from_args(ns)
+        return
+
+    name, typ, values = target
+    for v in values:
+        setattr(ns, name, typ(v))
+        yield f"{name}-{v}", config_from_args(ns)
 
 
 def config_from_args(ns: argparse.Namespace) -> ScouterConfig:
@@ -183,6 +212,22 @@ def check_serving_supported(cfg: ScouterConfig) -> None:
             raise NotImplementedError(
                 f"--{name}={getattr(cfg, name)!r} is not ported to the PyTorch "
                 "package yet (see ROADMAP.md)")
+
+
+# training-only flags -> their default; any other value is refused
+_NOT_PORTED_TRAINING = {"preempt_save": False, "ckpt_async": False, "compute_dtype": "float32"}
+
+
+def check_training_supported(cfg: ScouterConfig) -> None:
+    """Raise for a device the port does not know and for flags of training
+    features it has not ported yet: the device mesh, per-replica BN, ZeRO-1,
+    preemption snapshots, async checkpoints and bf16 training."""
+    check_serving_supported(cfg)
+    for name, default in _NOT_PORTED_TRAINING.items():
+        if getattr(cfg, name) != default:
+            raise NotImplementedError(
+                f"--{name}={getattr(cfg, name)!r} is not ported to the PyTorch "
+                "package's training yet (see ROADMAP.md)")
 
 
 def checkpoint_name(cfg: ScouterConfig, epoch: Optional[int] = None) -> str:

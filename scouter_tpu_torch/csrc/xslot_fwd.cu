@@ -9,13 +9,19 @@
 //     upd   = attn . v / d
 //     slots = GRU(upd, slots)                       (torch gate order r, z, n)
 // and writes the last iteration's upd (B,S,d) and attn (B,S,N). The last
-// iteration's GRU is skipped: nothing reads its output.
+// iteration's GRU is skipped: nothing reads its output. With a non-null
+// `hist` (training) the block also writes the slots entering each iteration
+// to hist[b, it] (B,iters,S,d), the checkpoints the backward rebuilds each
+// iteration from (_kernel's hist_ref, slot_pallas.py:57-58); inference
+// passes nullptr and writes nothing, as the emit_hist=False build does.
 //
 // What bounds it: at the serving shapes (S=30, N=49, d=64) the work per
 // element is ~0.9 MFLOP of f32 on ~25 KB of k and v, so neither the card's
 // f32 rate nor its memory rate is the limit; the block's serial chain of five
 // small products and three block-wide reductions per iteration is (latency
 // within one SM), and at small batch most SMs are idle (B blocks on 132 SMs).
+// The training build's hist adds B*iters*S*d floats of writes (1.6 MB at
+// B=70), which changes neither bound.
 // What the design does about it: k, v, the slots, the attention and the
 // updates stay in shared memory across the iterations, so device memory is
 // read once and written once; the rows of k are padded to d+1 floats so the
@@ -71,7 +77,8 @@ xslot_fwd_kernel(const float* __restrict__ k, const float* __restrict__ v,
                  const float* __restrict__ w_ih, const float* __restrict__ w_hh,
                  const float* __restrict__ b_ih, const float* __restrict__ b_hh,
                  float* __restrict__ upd_out, float* __restrict__ attn_out,
-                 int n, int s, int d, int iters, float scale) {
+                 float* __restrict__ hist_out, int n, int s, int d, int iters,
+                 float scale) {
   extern __shared__ __align__(16) float smem[];
   const int sd = s * d, nd = n * d, sn = s * n, kd = d + 1;
   float* slots = smem;
@@ -97,6 +104,12 @@ xslot_fwd_kernel(const float* __restrict__ k, const float* __restrict__ v,
 
   const float fd = (float)d;
   for (int it = 0; it < iters; ++it) {
+    // checkpoint the slots entering this iteration (only read here, so no
+    // barrier is needed before the products below read them too)
+    if (hist_out != nullptr) {
+      float* hb = hist_out + (b * iters + it) * sd;
+      for (int i = tid; i < sd; i += blockDim.x) hb[i] = slots[i];
+    }
     // dots = slots . k^T * scale
     for (int i = tid; i < sn; i += blockDim.x) {
       const int si = i / n, ni = i - si * n;
@@ -202,10 +215,12 @@ const char* xslot_fwd_error_string(int code) { return cudaGetErrorString((cudaEr
 
 // Launches on `stream`; returns cudaGetLastError() after the launch (0 = ok).
 // All pointers are contiguous f32 device arrays: k, v (B,N,d); slots0 (S,d);
-// w_ih, w_hh (3d,d); b_ih, b_hh (3d); upd (B,S,d); attn (B,S,N). d % 4 == 0.
+// w_ih, w_hh (3d,d); b_ih, b_hh (3d); upd (B,S,d); attn (B,S,N); hist
+// (B,iters,S,d) or nullptr. d % 4 == 0.
 int xslot_fwd(const void* k, const void* v, const void* slots0, const void* w_ih,
               const void* w_hh, const void* b_ih, const void* b_hh, void* upd, void* attn,
-              int batch, int n, int s, int d, int iters, float scale, void* stream) {
+              void* hist, int batch, int n, int s, int d, int iters, float scale,
+              void* stream) {
   const size_t smem = xslot_fwd_smem_bytes(n, s, d);
   cudaError_t err = cudaFuncSetAttribute(xslot_fwd_kernel,
                                          cudaFuncAttributeMaxDynamicSharedMemorySize, (int)smem);
@@ -213,7 +228,7 @@ int xslot_fwd(const void* k, const void* v, const void* slots0, const void* w_ih
   xslot_fwd_kernel<<<batch, kThreads, smem, (cudaStream_t)stream>>>(
       (const float*)k, (const float*)v, (const float*)slots0, (const float*)w_ih,
       (const float*)w_hh, (const float*)b_ih, (const float*)b_hh, (float*)upd, (float*)attn,
-      n, s, d, iters, scale);
+      (float*)hist, n, s, d, iters, scale);
   return (int)cudaGetLastError();
 }
 

@@ -1,7 +1,8 @@
 """NCHW layers for the backbones the port carries
 (counterpart of ``scouter_tpu/models/layers.py``).
 
-Torch conv padding, BatchNorm with eps 1e-5, and the pooling variants the
+Torch conv padding, BatchNorm with eps 1e-5 (and flax's running-variance
+update in train mode), and the pooling variants the
 ResNet/ResNeSt skips use. Module names follow timm's, so state dicts carry the
 reference's names.
 """
@@ -13,6 +14,7 @@ import torch.nn.functional as F
 from torch import nn
 
 __all__ = [
+    "BatchNorm2d",
     "SplitAttnConv",
     "avg_pool_ceil_exclude_pad",
     "avg_pool_include_pad",
@@ -40,9 +42,41 @@ def conv2d(in_channels: int, out_channels: int, kernel_size: int, *, stride: int
     return conv
 
 
-def batch_norm(num_features: int, *, eps: float = 1e-5) -> nn.BatchNorm2d:
-    """BatchNorm with torch defaults (momentum 0.1, eps 1e-5)."""
-    return nn.BatchNorm2d(num_features, eps=eps, momentum=0.1)
+class BatchNorm2d(nn.BatchNorm2d):
+    """``nn.BatchNorm2d`` whose train mode updates the running variance with
+    the biased batch variance, as flax's BatchNorm in the JAX package does
+    (``scouter_tpu/models/layers.py:104-106``); ``nn.BatchNorm2d`` itself
+    folds in the unbiased one, n/(n-1) larger per channel.
+
+    Train mode normalises with the batch statistics through the stock
+    ``F.batch_norm`` (cuDNN on the card) and hands it fresh per-channel
+    buffers with momentum 1, which it fills with the batch mean and unbiased
+    variance; the running stats then move by ``momentum`` towards the mean
+    and the variance rescaled by (n-1)/n. That is a few per-channel ops more
+    per layer and no extra pass over the activations. Eval mode is the stock
+    module, unchanged.
+    """
+
+    def forward(self, x: torch.Tensor) -> torch.Tensor:
+        if not self.training:
+            return super().forward(x)
+        c = x.shape[1]
+        n = x.numel() // c
+        mean = torch.zeros(c, dtype=self.running_mean.dtype, device=x.device)
+        var = torch.ones(c, dtype=self.running_var.dtype, device=x.device)
+        y = F.batch_norm(x, mean, var, self.weight, self.bias, True, 1.0, self.eps)
+        with torch.no_grad():
+            m = self.momentum
+            self.running_mean.mul_(1.0 - m).add_(mean, alpha=m)
+            self.running_var.mul_(1.0 - m).add_(var, alpha=m * (n - 1) / n)
+            self.num_batches_tracked.add_(1)
+        return y
+
+
+def batch_norm(num_features: int, *, eps: float = 1e-5) -> BatchNorm2d:
+    """BatchNorm with torch defaults (momentum 0.1, eps 1e-5), flax's
+    running-variance update in train mode (``BatchNorm2d``)."""
+    return BatchNorm2d(num_features, eps=eps, momentum=0.1)
 
 
 def max_pool_3x3_s2_p1(x: torch.Tensor) -> torch.Tensor:

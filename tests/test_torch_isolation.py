@@ -1,12 +1,13 @@
 """The port stands alone and runs on the card by default:
 
 - importing every ``scouter_tpu_torch`` module, ``chip_smoke`` and
-  ``examples/torch_profile_serve`` loads neither JAX, flax nor the JAX
+  ``examples/torch_profile_{serve,train}`` loads neither JAX, flax nor the JAX
   package (checked in a fresh interpreter,
   since this test process has JAX loaded already);
 - the entry points, with their default arguments, raise on a host without
   CUDA instead of running on the CPU;
-- the xSlot kernel's wrapper refuses inputs that require grad under grad mode.
+- under grad the xSlot kernel's wrapper goes through its checkpointed
+  gradient, on the CPU through the plain version.
 """
 
 import os
@@ -29,6 +30,7 @@ for name in names:
 import chip_smoke
 sys.path.insert(0, "examples")
 import torch_profile_serve
+import torch_profile_train
 bad = sorted(m for m in sys.modules
              if m.split(".")[0] in ("jax", "jaxlib", "flax", "scouter_tpu"))
 print(len(names), bad)
@@ -65,10 +67,12 @@ def test_defaults_target_cuda():
     assert get_args_parser().parse_args([]).device == "cuda"
 
 
-def test_entry_points_raise_without_cuda(no_cuda):
+def test_entry_points_raise_without_cuda(no_cuda, tmp_path):
     from scouter_tpu_torch.core import resolve_device
     from scouter_tpu_torch.models import build_slot_model
     from scouter_tpu_torch.serve import InferenceEngine, make_serving_fn
+    from scouter_tpu_torch.train import Trainer, run_training
+    from scouter_tpu_torch.train.cli import main as train_main
 
     cfg = tiny_cfg()
     state_dict = build_slot_model(cfg, device="cpu").state_dict()
@@ -80,6 +84,15 @@ def test_entry_points_raise_without_cuda(no_cuda):
         make_serving_fn(cfg, state_dict)
     with pytest.raises(RuntimeError, match="CUDA"):
         InferenceEngine(cfg, state_dict)
+    cfg = cfg.replace(output_dir=str(tmp_path), dataset_dir=str(tmp_path / "none"))
+    with pytest.raises(RuntimeError, match="CUDA"):
+        Trainer(cfg)
+    with pytest.raises(RuntimeError, match="CUDA"):
+        run_training(cfg)
+    with pytest.raises(RuntimeError, match="CUDA"):
+        train_main(["--model", "resnet10", "--num_classes", "2", "--img_size", "32",
+                    "--slots_per_class", "1", "--epochs", "1", "--pre_trained", "false",
+                    "--dataset_dir", str(tmp_path / "none"), "--output_dir", str(tmp_path)])
 
 
 def test_server_cli_raises_without_cuda(no_cuda, tmp_path):
@@ -98,7 +111,9 @@ def test_chip_smoke_fails_without_cuda(no_cuda):
 
 
 def test_xslot_kernel_wrapper_refuses_grad():
-    from scouter_tpu_torch.ops.slot_kernel import xslot_iterations_fused
+    # the refusal is gone: under grad the wrapper takes the checkpointed
+    # gradient (on CPU tensors through the plain version, launching nothing)
+    from scouter_tpu_torch.ops.slot_kernel import _XSlotFused, xslot_iterations_fused
 
     rng = np.random.RandomState(0)
     d = 8
@@ -106,8 +121,14 @@ def test_xslot_kernel_wrapper_refuses_grad():
             for s in ((2, 5, d), (2, 5, d), (3, d), (3 * d, d), (3 * d, d), (1, 3 * d),
                       (1, 3 * d))]
     args[3].requires_grad_(True)
-    with pytest.raises(NotImplementedError):
-        xslot_iterations_fused(*args)
+    launches = (xslot_iterations_fused.launches, xslot_iterations_fused.hist_launches)
+    upd, attn = xslot_iterations_fused(*args)
+    assert type(upd.grad_fn) is _XSlotFused._backward_cls
+    assert type(attn.grad_fn) is _XSlotFused._backward_cls
+    upd.sum().backward()
+    assert args[3].grad is not None and args[3].grad.shape == (3 * d, d)
     with torch.no_grad():
         upd, attn = xslot_iterations_fused(*args)
+    assert upd.grad_fn is None
     assert upd.shape == (2, 3, d) and attn.shape == (2, 3, 5)
+    assert (xslot_iterations_fused.launches, xslot_iterations_fused.hist_launches) == launches

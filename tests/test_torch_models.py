@@ -223,8 +223,10 @@ def test_preprocess_matches_jax():
     want = jax_preprocess(jnp.asarray(images), dataset="ImageNet", img_size=16)
     got = preprocess_batch(torch.from_numpy(images), dataset="ImageNet", img_size=16)
     np.testing.assert_allclose(got.numpy(), np.asarray(want), rtol=1e-6, atol=1e-6)
-    with pytest.raises(NotImplementedError):
-        preprocess_batch(torch.from_numpy(images), dataset="ImageNet", img_size=16, train=True)
+    # train mode without augmentation is the same transform, as in JAX
+    want = jax_preprocess(jnp.asarray(images), dataset="ImageNet", img_size=16, train=True)
+    got = preprocess_batch(torch.from_numpy(images), dataset="ImageNet", img_size=16, train=True)
+    np.testing.assert_allclose(got.numpy(), np.asarray(want), rtol=1e-6, atol=1e-6)
 
 
 def test_resize_bilinear_upscale_matches_jax():
