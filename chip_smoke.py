@@ -1,5 +1,5 @@
-"""Drive the PyTorch/CUDA port's serving and training paths on one NVIDIA
-GPU and check them.
+"""Drive the PyTorch/CUDA port's serving, training and explain paths on one
+NVIDIA GPU and check them.
 
     python3 chip_smoke.py
 
@@ -20,7 +20,18 @@ Phases (any failure exits non-zero; nothing is caught and passed over):
    synthetic ImageNet stand-in for two epochs, then resume for a third:
    finite metrics, the reference's checkpoint names, K1's hist launches equal
    to the train steps and its hist-free launches to the val batches;
-8. one train step at batch 4 on the card and on the CPU from the same
+8. explain (the reference's test.py) from that checkpoint through
+   ``scouter_tpu_torch.explain.cli.main``, its launches counted over the CLI
+   alone: K1 once, hist-free, for its one forward, and K2 never (as in the
+   JAX package, the CLI has no K2 caller); then K2's own path, the public op
+   ``render_heatmaps_fused`` on the class attention of a val batch of 70 and
+   of the vis image, counted on its own: one launch per call; the 21 PNGs
+   read back without Pillow and the card's overlays equal to the CPU's
+   rendering of the same slot maps bit for bit; the same checkpoint and
+   image on the card and on the CPU (class attention within 1e-4, uint8
+   maps within 1 level); K2 against its plain version with its times and
+   bound;
+9. one train step at batch 4 on the card and on the CPU from the same
    weights and batch: loss and updated weights within 1e-3; then f32 train
    throughput at batch 70 on one repeated batch, whose loss must fall.
 
@@ -351,19 +362,30 @@ def phase_throughput(cfg, state_dict, card: str):
               f"({dt * 1e3:.2f} ms/batch) on {card}", flush=True)
 
 
-def run_cli(flags):
-    """``scouter_tpu_torch.train.cli.main(flags)`` with its output echoed;
-    returns the printed lines."""
+def run_cli(main, flags):
+    """``main(flags)`` with its output echoed; returns (its result, the
+    printed lines)."""
     import contextlib
     import io
 
-    from scouter_tpu_torch.train import cli
-
     buf = io.StringIO()
     with contextlib.redirect_stdout(buf):
-        cli.main(flags)
+        result = main(flags)
     print(buf.getvalue(), end="", flush=True)
-    return buf.getvalue().splitlines()
+    return result, buf.getvalue().splitlines()
+
+
+def flagship_flags(tmp: str):
+    """The CLIs' flags for the flagship on the card, the synthetic stand-in
+    (nothing at ``--dataset_dir``) and ``tmp`` as the output directory."""
+    import os
+
+    return ["--device", "cuda", "--dataset", "ImageNet", "--model", "resnest26d",
+            "--num_classes", "10", "--channel", "2048", "--hidden_dim", "64",
+            "--slots_per_class", "3", "--to_k_layer", "3", "--power", "2",
+            "--loss_status", "1", "--lambda_value", "1", "--img_size", "224",
+            "--batch_size", "70", "--pre_trained", "false",
+            "--dataset_dir", os.path.join(tmp, "no_dataset"), "--output_dir", tmp]
 
 
 def logged_metrics(lines):
@@ -389,21 +411,17 @@ def phase_train(tmp: str):
     import os
 
     from scouter_tpu_torch.ops import slot_kernel
+    from scouter_tpu_torch.train import cli
 
     fused = slot_kernel.xslot_iterations_fused
-    flags = ["--device", "cuda", "--dataset", "ImageNet", "--model", "resnest26d",
-             "--num_classes", "10", "--channel", "2048", "--hidden_dim", "64",
-             "--slots_per_class", "3", "--to_k_layer", "3", "--power", "2",
-             "--loss_status", "1", "--lambda_value", "1", "--img_size", "224",
-             "--batch_size", "70", "--lr_drop", "1", "--pre_trained", "false",
-             "--dataset_dir", os.path.join(tmp, "no_dataset"), "--output_dir", tmp]
+    flags = flagship_flags(tmp) + ["--lr_drop", "1"]
     train_steps, val_batches = 256 // 70, -(-128 // 70)  # the synthetic stand-in
     launches = 0
     for run, (extra, epochs) in enumerate(((["--epochs", "2"], (0, 1)),
                                            (["--epochs", "3", "--resume", "true"], (2,)))):
         fused.launches = fused.hist_launches = 0
         t0 = time.monotonic()
-        lines = run_cli(flags + extra)
+        _, lines = run_cli(cli.main, flags + extra)
         seconds = time.monotonic() - t0
         hist, plain = fused.hist_launches, fused.launches - fused.hist_launches
         launches += fused.launches
@@ -432,6 +450,238 @@ def phase_train(tmp: str):
         fail(f"checkpoints missing: {missing} (have {sorted(os.listdir(tmp))})")
     print(f"train checkpoints: {', '.join(names)}", flush=True)
     return launches
+
+
+def render_bound(c, n):
+    """(bound ms, what bounds it) for K2 on (C, N): HBM over each input
+    float read once and each RGBA float written once, against the card's
+    f32 rate over 23 operations per element (min and max; subtract, divide,
+    4v; per channel two adds, a min, two clamps and the x255)."""
+    t_bytes = 20 * c * n / HBM_BYTES_PER_S
+    t_ops = 23 * c * n / F32_PEAK_FLOPS
+    return max(t_ops, t_bytes) * 1e3, ("operations" if t_ops >= t_bytes else "bytes")
+
+
+def graph_ms(fn, reps: int = 100, iters: int = 20) -> float:
+    """Device time of one ``fn()``: ``reps`` calls captured in one CUDA graph,
+    replayed ``iters`` times, so the host's launch cost is not in it."""
+    import torch
+
+    side = torch.cuda.Stream()
+    side.wait_stream(torch.cuda.current_stream())
+    with torch.cuda.stream(side):
+        for _ in range(3):
+            fn()
+    torch.cuda.current_stream().wait_stream(side)
+    graph = torch.cuda.CUDAGraph()
+    with torch.cuda.graph(graph):
+        for _ in range(reps):
+            fn()
+    return cuda_ms(graph.replay, iters, warmup=2) / reps
+
+
+def phase_explain(tmp: str):
+    """The explain path (the reference's test.py) on the card, from the
+    checkpoint phase 7 wrote: ``scouter_tpu_torch.explain.cli.main``, with
+    the launches read right after it; then K2's own path, the public op on
+    the class attention of one val batch of 70 and of the vis image from the
+    restored model, with K2's count zeroed just before it and read just
+    after. Returns those launches and what the checks after it need."""
+    import os
+
+    import torch
+
+    from scouter_tpu_torch.core import ScouterConfig
+    from scouter_tpu_torch.data import preprocess_batch, select_dataset
+    from scouter_tpu_torch.explain import cli
+    from scouter_tpu_torch.ops import class_attention_maps, render_kernel, slot_kernel
+    from scouter_tpu_torch.train import restore_inference_state
+
+    fused, render = slot_kernel.xslot_iterations_fused, render_kernel.render_heatmaps_fused
+    cfg = ScouterConfig(**FLAGSHIP).replace(
+        device="cuda", output_dir=tmp, dataset_dir=os.path.join(tmp, "no_dataset"))
+    run_dir = os.path.join(tmp, "explain")
+    os.makedirs(run_dir)
+    fused.launches = fused.hist_launches = render.launches = 0
+    t0 = time.monotonic()
+    cwd = os.getcwd()
+    os.chdir(run_dir)  # the CLI writes to ./sloter_vis
+    try:
+        path, lines = run_cli(cli.main, flagship_flags(tmp))
+    finally:
+        os.chdir(cwd)
+    torch.cuda.synchronize()
+    cli_seconds = time.monotonic() - t0
+    k1, k1_hist, k2_cli = fused.launches, fused.hist_launches, render.launches
+    print(f"explain: CLI {cli_seconds:.2f} s; in it xslot_fwd launches {k1} (hist {k1_hist}) "
+          f"for its one forward, render_heatmaps launches {k2_cli}", flush=True)
+    if k1_hist or k1 != 1:
+        fail(f"explain CLI: xslot_fwd launches {k1} (hist {k1_hist}), expected 1 hist-free")
+    if k2_cli:
+        fail(f"explain CLI: render_heatmaps launches {k2_cli}; the CLI has no K2 caller")
+    if path != os.path.join(tmp, "ImageNet_use_slot_checkpoint.pth"):
+        fail(f"the explain CLI restored {path}")
+    if len(lines) < 2 or int(lines[-1]) not in range(cfg.num_classes):
+        fail(f"the explain CLI printed no prediction: {lines}")
+
+    t1 = time.monotonic()
+    model, _, _ = restore_inference_state(cfg, device="cuda")
+    torch.cuda.synchronize()
+    restore_seconds = time.monotonic() - t1
+    val = select_dataset(cfg, train=False)
+
+    def slot_attention(images_u8):
+        x = preprocess_batch(torch.from_numpy(images_u8).cuda(), dataset=cfg.dataset,
+                             img_size=cfg.img_size)
+        with torch.no_grad():
+            return model(x.permute(0, 3, 1, 2).contiguous())["attn"]
+
+    def class_rows(attn):
+        return class_attention_maps(attn, cfg.num_classes, cfg.slots_per_class).reshape(
+            -1, attn.shape[-1])
+
+    vis_image = val.images[cfg.vis_id]
+    batch_attn = class_rows(slot_attention(val.images[:cfg.batch_size]))
+    vis_slot_attn = slot_attention(vis_image[None])[0]
+    vis_attn = class_rows(vis_slot_attn[None])
+
+    # K2's own path: the public op, which has no other caller (as in JAX)
+    render.launches = 0
+    t2 = time.monotonic()
+    heat = [render(batch_attn), render(vis_attn)]
+    torch.cuda.synchronize()
+    render_seconds = time.monotonic() - t2
+    k2 = render.launches
+    print(f"explain: a warm restore_inference_state on its own after the CLI "
+          f"{restore_seconds:.2f} s; render_heatmaps_fused on the class attention "
+          f"{tuple(batch_attn.shape)} and {tuple(vis_attn.shape)} {render_seconds * 1e3:.3f} ms, "
+          f"render_heatmaps launches {k2}", flush=True)
+    if k2 != 2:
+        fail(f"render_heatmaps_fused: {k2} launches for 2 calls")
+    for attn, out in zip((batch_attn, vis_attn), heat):
+        if out.shape != attn.shape + (4,) or not bool(((out >= 0) & (out <= 255)).all()):
+            fail(f"render_heatmaps_fused on {tuple(attn.shape)}: shape {tuple(out.shape)} "
+                 "or values outside [0, 255]")
+    return dict(cfg=cfg, vis_dir=os.path.join(run_dir, "sloter_vis"), vis_image=vis_image,
+                vis_slot_attn=vis_slot_attn, batch_attn=batch_attn, vis_attn=vis_attn,
+                k1=k1, k2=k2, k2_cli=k2_cli)
+
+
+def phase_explain_outputs(data):
+    """The CLI's 21 files, read back without Pillow; each overlay equals the
+    CPU's rendering of the CLI's own slot map, bit for bit."""
+    import os
+
+    import numpy as np
+    import torch
+
+    from scouter_tpu_torch.core.png import read_png
+    from scouter_tpu_torch.explain import apply_colormap_on_image
+    from scouter_tpu_torch.explain._imaging import resize_bilinear_u8
+
+    cfg, vis_dir, image = data["cfg"], data["vis_dir"], data["vis_image"]
+    names = (["image.png"] + [f"slot_{i}.png" for i in range(cfg.num_classes)]
+             + [f"slot_mask_{i}.png" for i in range(cfg.num_classes)])
+    if sorted(os.listdir(vis_dir)) != sorted(names):
+        fail(f"explain CLI files: {sorted(os.listdir(vis_dir))}")
+    if not np.array_equal(read_png(os.path.join(vis_dir, "image.png")), image):
+        fail("image.png differs from the vis image")
+    h, w = image.shape[:2]
+    for i in range(cfg.num_classes):
+        slot = read_png(os.path.join(vis_dir, f"slot_{i}.png"))
+        mask = read_png(os.path.join(vis_dir, f"slot_mask_{i}.png"))
+        if slot.shape != (7, 7) or mask.shape != (h, w, 4):
+            fail(f"slot_{i}.png {slot.shape}, slot_mask_{i}.png {mask.shape}")
+        resized = resize_bilinear_u8(torch.from_numpy(slot), h, w)
+        _, overlaid = apply_colormap_on_image(torch.from_numpy(image), resized)
+        if not np.array_equal(overlaid.numpy(), mask):
+            fail(f"slot_mask_{i}.png (rendered on the card) differs from the CPU's rendering")
+    print(f"explain files: {len(names)} PNGs read back; the card's overlays equal the CPU's "
+          "rendering of the same slot maps bit for bit", flush=True)
+
+
+def phase_explain_gpu_vs_cpu(data):
+    """The same checkpoint and image on the card and on the CPU: class
+    attention within 1e-4, uint8 maps within 1 level. (That the card renders
+    given maps as the CPU does, bit for bit, is phase_explain_outputs'.)"""
+    import torch
+
+    from scouter_tpu_torch.data import preprocess_batch
+    from scouter_tpu_torch.explain import attention_to_maps
+    from scouter_tpu_torch.ops import class_attention_maps
+    from scouter_tpu_torch.train import restore_inference_state
+
+    cfg, image = data["cfg"].replace(device="cpu"), data["vis_image"]
+    model, _, _ = restore_inference_state(cfg, device="cpu")
+    x = preprocess_batch(torch.from_numpy(image[None]), dataset=cfg.dataset,
+                         img_size=cfg.img_size)
+    with torch.no_grad():
+        slot_cpu = model(x.permute(0, 3, 1, 2).contiguous())["attn"][0]
+    slot_gpu = data["vis_slot_attn"]
+    class_gpu = class_attention_maps(slot_gpu[None], cfg.num_classes, cfg.slots_per_class)
+    class_cpu = class_attention_maps(slot_cpu[None], cfg.num_classes, cfg.slots_per_class)
+    err = (class_gpu.cpu() - class_cpu).abs().max().item()
+    maps_gpu = attention_to_maps(slot_gpu, cfg.num_classes, cfg.slots_per_class)
+    maps_cpu = attention_to_maps(slot_cpu, cfg.num_classes, cfg.slots_per_class)
+    diff = (maps_gpu.cpu().int() - maps_cpu.int()).abs()
+    print(f"explain gpu vs cpu: max|d class attention| {err:.3e} (bar 1e-4); uint8 maps: "
+          f"{int((diff > 0).sum())} of {diff.numel()} pixels differ, by at most "
+          f"{int(diff.max())} (bar 1)", flush=True)
+    if not err <= 1e-4:
+        fail(f"class attention on the card differs from the CPU's by {err:.3e}")
+    if int(diff.max()) > 1:
+        fail("uint8 slot maps on the card differ from the CPU's by more than 1 level")
+
+
+def phase_render_kernel(data):
+    """K2 against its plain version on the explain path's class attention
+    (700, 49) and (10, 49), on (2000, 81), a constant row and a row holding
+    a NaN; bar max abs 1e-4 on the [0, 255] scale (tests/test_render_pallas.py:18),
+    NaN where the plain version has NaN. Returns K2's kernels-line entry."""
+    import numpy as np
+    import torch
+
+    from scouter_tpu_torch.ops import render_kernel
+
+    fused, ref = render_kernel.render_heatmaps_fused, render_kernel.render_heatmaps_ref
+    batch, vis = data["batch_attn"], data["vis_attn"]
+    special = batch[:4].clone()
+    special[1] = 0.3  # constant: blue
+    special[2, 5] = float("nan")
+    rand = torch.from_numpy(np.random.RandomState(5).rand(2000, 81).astype(np.float32) * 3).cuda()
+    worst = 0.0
+    for name, attn in ((f"explain batch {tuple(batch.shape)}", batch),
+                       (f"vis image {tuple(vis.shape)}", vis), ("random (2000, 81)", rand),
+                       ("constant row and NaN row (4, 49)", special)):
+        got, want = fused(attn), ref(attn)
+        torch.cuda.synchronize()
+        nan_same = torch.equal(torch.isnan(got), torch.isnan(want))
+        ok = ~torch.isnan(want)
+        err = (got[ok] - want[ok]).abs().max().item()
+        print(f"render_heatmaps {name}: max|d| {err:.3e} (bar 1e-4), NaN positions "
+              f"{'equal' if nan_same else 'DIFFER'}", flush=True)
+        if not (err <= 1e-4 and nan_same):
+            fail(f"render_heatmaps disagrees with its plain version on {name}")
+        worst = max(worst, err)
+    if not torch.isnan(fused(special)[2, :, :3]).all():
+        fail("render_heatmaps: a NaN did not spread over its row")
+
+    entry = {"name": "render_heatmaps", "route": "cuda",
+             "source": "scouter_tpu_torch/csrc/render_heatmaps.cu",
+             "replaces": "scouter_tpu/ops/render_pallas.py:53", "launches": data["k2"],
+             "explain_cli_launches": data["k2_cli"], "max_abs_err": worst, "library_ms": None}
+    for key, attn in (("", batch), ("_10x49", vis)):
+        c, n = attn.shape
+        ms = cuda_ms(lambda: fused(attn), 200)
+        plain_ms = cuda_ms(lambda: ref(attn), 200)
+        device_ms = graph_ms(lambda: fused(attn))
+        bound_ms, bound_by = render_bound(c, n)
+        print(f"render_heatmaps C={c} N={n}: kernel {ms:.5f} ms per eager call, "
+              f"{device_ms:.5f} ms per launch in a CUDA graph, plain {plain_ms:.5f} ms, "
+              f"bound {bound_ms:.6f} ms ({bound_by})", flush=True)
+        entry.update({f"ms{key}": ms, f"device_ms{key}": device_ms, f"plain_ms{key}": plain_ms,
+                      f"bound_ms{key}": bound_ms, f"bound_by{key}": bound_by})
+    return entry
 
 
 def phase_train_gpu_vs_cpu(cfg):
@@ -548,12 +798,17 @@ def main() -> int:
     phase_throughput(cfg, state_dict, card)
     with tempfile.TemporaryDirectory() as tmp:
         entry["launches"] = phase_train(tmp)
+        explain = phase_explain(tmp)
+        entry["explain_launches"] = explain["k1"]
+        phase_explain_outputs(explain)
+        phase_explain_gpu_vs_cpu(explain)
+        render_entry = phase_render_kernel(explain)
     phase_train_gpu_vs_cpu(cfg)
     phase_train_throughput(cfg, card)
     print(f"chip_smoke finished in {time.monotonic() - t0:.1f} s after the build started",
           flush=True)
 
-    print(json.dumps({"kernels": [entry]}), flush=True)
+    print(json.dumps({"kernels": [entry, render_entry]}), flush=True)
     print(json.dumps({"ok": True, "device": {"platform": "gpu",
                                              "kind": torch.cuda.get_device_name(0),
                                              "count": torch.cuda.device_count()}}), flush=True)

@@ -14,6 +14,7 @@ written through a temporary file and ``os.replace``.
 
 from __future__ import annotations
 
+import argparse
 import dataclasses
 import os
 from typing import Any, Dict, Optional, Tuple
@@ -50,12 +51,22 @@ def save_checkpoint(output_dir: str, cfg: ScouterConfig, state, epoch: int) -> T
     return tuple(paths)
 
 
-def restore_checkpoint(path: str, state) -> Tuple[Any, int, Dict[str, Any]]:
-    """Load a checkpoint into ``state`` (model and optimizer, in place, on
-    the model's device). Returns (state, epoch, config dict)."""
+def restore_checkpoint(path: str, state, *, optimizer: bool = True
+                       ) -> Tuple[Any, int, Optional[Dict[str, Any]]]:
+    """Load a checkpoint into ``state`` (model and, with ``optimizer``, the
+    optimizer, in place, on the model's device). Returns (state, epoch,
+    config dict).
+
+    A checkpoint of the reference's train.py reads too: its ``args`` entry
+    is an ``argparse.Namespace``, its model's ``slot.to_q.*`` entries are
+    dropped (the forward bypasses to_q), and the step, epoch and config it
+    lacks come back as 0, -1 and None."""
     device = next(state.model.parameters()).device
-    payload = torch.load(path, map_location=device, weights_only=True)
-    state.model.load_state_dict(payload["model"])
-    state.optimizer.load_state_dict(payload["optimizer"])
-    state.step = int(payload["step"])
-    return state, int(payload["epoch"]), payload["config"]
+    with torch.serialization.safe_globals([argparse.Namespace]):
+        payload = torch.load(path, map_location=device, weights_only=True)
+    state.model.load_state_dict({k: v for k, v in payload["model"].items()
+                                 if not k.startswith("slot.to_q.")})
+    if optimizer:
+        state.optimizer.load_state_dict(payload["optimizer"])
+    state.step = int(payload.get("step", 0))
+    return state, int(payload.get("epoch", -1)), payload.get("config")

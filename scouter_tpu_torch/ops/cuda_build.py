@@ -27,7 +27,7 @@ CSRC = Path(__file__).resolve().parents[1] / "csrc"
 BUILD_DIR = Path(__file__).resolve().parents[2] / "build" / "kernels"
 NVCC_FLAGS = ("-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17", "-O3",
               "-shared", "-Xcompiler", "-fPIC")
-SOURCES = ("xslot_fwd",)
+SOURCES = ("xslot_fwd", "render_heatmaps")
 
 _lock = threading.Lock()
 _loaded: Dict[str, ctypes.CDLL] = {}

@@ -21,14 +21,13 @@ from __future__ import annotations
 import base64
 import io
 import json
-import os
-import struct
 import time
-import zlib
 from http.server import BaseHTTPRequestHandler, ThreadingHTTPServer
 from typing import Tuple
 
 import numpy as np
+
+from ..core.png import encode_png
 
 __all__ = ["main", "make_server"]
 
@@ -50,23 +49,6 @@ def _decode_image(body: bytes, img_size: int, channels: int) -> np.ndarray:
     if arr.shape != (img_size, img_size, channels):
         raise ValueError(f"expected ({img_size},{img_size},{channels}), got {arr.shape}")
     return arr
-
-
-def _png_gray(arr: np.ndarray, level: int = 1) -> bytes:
-    """Minimal 8-bit grayscale PNG encoder: filter-0 scanlines, one zlib IDAT."""
-    h, w = arr.shape
-
-    def chunk(tag: bytes, data: bytes) -> bytes:
-        return (struct.pack(">I", len(data)) + tag + data +
-                struct.pack(">I", zlib.crc32(tag + data) & 0xFFFFFFFF))
-
-    ihdr = struct.pack(">IIBBBBB", w, h, 8, 0, 0, 0, 0)
-    raw = np.empty((h, w + 1), np.uint8)
-    raw[:, 0] = 0  # per-scanline filter byte: None
-    raw[:, 1:] = arr
-    idat = zlib.compress(raw.tobytes(), level)
-    return (b"\x89PNG\r\n\x1a\n" + chunk(b"IHDR", ihdr) +
-            chunk(b"IDAT", idat) + chunk(b"IEND", b""))
 
 
 def make_server(engine, img_size: int, channels: int,
@@ -100,7 +82,7 @@ def make_server(engine, img_size: int, channels: int,
                 payload = {"pred": int(logits.argmax()), "logits": [float(v) for v in logits]}
                 if "maps=1" in self.path and "slot_maps" in out:
                     payload["slot_maps_png"] = [
-                        base64.b64encode(_png_gray(np.asarray(m, np.uint8))).decode("ascii")
+                        base64.b64encode(encode_png(np.asarray(m, np.uint8), 1)).decode("ascii")
                         for m in out["slot_maps"]]
             except Exception as exc:  # per-request isolation
                 self._send(400, {"error": f"{type(exc).__name__}: {exc}"})
@@ -114,24 +96,15 @@ def make_server(engine, img_size: int, channels: int,
 
 
 def load_state_dict(cfg):
-    """The weights ``main`` serves: ``{output_dir}/{checkpoint_name}.pth`` (a
-    reference-format dict whose ``model`` entry is the state dict) when it
-    exists, else a fresh init from ``cfg.seed``. Returns (state_dict, source)."""
-    import argparse
+    """The weights ``main`` serves, on the CPU: ``{output_dir}/{checkpoint_name}.pth``
+    (the port's or the reference's format; the bypassed ``slot.to_q.*`` is
+    dropped) when it exists, else a fresh init from ``cfg.seed``, restored
+    through ``train.state.restore_inference_state`` as the explain CLI
+    restores. Returns (state_dict, source path or None)."""
+    from ..train.state import restore_inference_state
 
-    import torch
-
-    from ..core.config import checkpoint_name
-    from ..models import build_slot_model
-
-    path = os.path.join(cfg.output_dir, checkpoint_name(cfg) + ".pth")
-    if not os.path.exists(path):
-        return build_slot_model(cfg, device="cpu").state_dict(), None
-    with torch.serialization.safe_globals([argparse.Namespace]):
-        ckpt = torch.load(path, map_location="cpu", weights_only=True)
-    # to_q exists in the reference but its forward bypasses it
-    sd = {k: v for k, v in ckpt["model"].items() if not k.startswith("slot.to_q.")}
-    return sd, path
+    model, _, path = restore_inference_state(cfg, device="cpu")
+    return model.state_dict(), path
 
 
 def main(argv=None):

@@ -28,7 +28,7 @@ import torch
 from torch import nn
 
 __all__ = ["TrainState", "create_train_state", "make_freeze_labels", "make_optimizer",
-           "step_lr", "sync_batch_stats"]
+           "restore_inference_state", "step_lr", "sync_batch_stats"]
 
 
 @dataclasses.dataclass
@@ -90,6 +90,33 @@ def create_train_state(model: nn.Module, base_lr: float, freeze_layers: int = 0,
         if p.requires_grad:
             trainable.append(p)
     return TrainState(model=model, optimizer=make_optimizer(trainable, base_lr))
+
+
+def restore_inference_state(cfg, *, fused_slot: bool = True, require: bool = False,
+                            device="cuda"):
+    """Build the model and train state on ``device`` and restore the
+    config-derived checkpoint (the reference's test.py flow, ``test.py:59-62``).
+    Returns ``(model, state, restored_path_or_None)``; without a checkpoint
+    the model keeps its fresh init from ``cfg.seed``, or, with ``require``,
+    ``FileNotFoundError`` is raised. Shared by the explain CLI and the
+    server so the restore recipe cannot diverge between them.
+
+    The optimizer is not restored: inference does not read it, and a
+    reference checkpoint's optimizer also holds the bypassed ``to_q``."""
+    import os
+
+    from ..core.checkpoint import checkpoint_path, restore_checkpoint
+    from ..models import build_slot_model
+
+    model = build_slot_model(cfg, fused_slot=fused_slot, device=device)
+    state = create_train_state(model, cfg.lr)
+    path = checkpoint_path(cfg.output_dir, cfg)
+    if not os.path.exists(path):
+        if require:
+            raise FileNotFoundError(f"no checkpoint at {path}")
+        return model, state, None
+    state, _, _ = restore_checkpoint(path, state, optimizer=False)
+    return model, state, path
 
 
 def sync_batch_stats(state: TrainState, mesh=None) -> TrainState:

@@ -7,7 +7,10 @@
 - the entry points, with their default arguments, raise on a host without
   CUDA instead of running on the CPU;
 - under grad the xSlot kernel's wrapper goes through its checkpointed
-  gradient, on the CPU through the plain version.
+  gradient, on the CPU through the plain version;
+- the explain path runs with neither Pillow nor matplotlib importable, as
+  on the card's machine, and the heatmap kernel's wrapper launches nothing
+  for CPU tensors.
 """
 
 import os
@@ -101,6 +104,58 @@ def test_server_cli_raises_without_cuda(no_cuda, tmp_path):
     with pytest.raises(RuntimeError, match="CUDA"):
         main(["--model", "resnet10", "--num_classes", "2", "--img_size", "32",
               "--slots_per_class", "1", "--output_dir", str(tmp_path), "--port", "0"])
+
+
+def test_explain_cli_raises_without_cuda(no_cuda, tmp_path):
+    from scouter_tpu_torch.explain.cli import main
+
+    with pytest.raises(RuntimeError, match="CUDA"):
+        main(["--model", "resnet10", "--num_classes", "2", "--img_size", "32",
+              "--slots_per_class", "1", "--pre_trained", "false",
+              "--dataset_dir", str(tmp_path / "none"), "--output_dir", str(tmp_path)])
+
+
+_NO_PIL_PROBE = r"""
+import sys
+sys.modules["PIL"] = None
+sys.modules["matplotlib"] = None
+import numpy as np
+from scouter_tpu_torch.core import ScouterConfig
+from scouter_tpu_torch.core.png import read_png
+from scouter_tpu_torch.explain.cli import render_explanations
+from scouter_tpu_torch.models import build_slot_model
+from scouter_tpu_torch.train import create_train_state
+
+cfg = ScouterConfig(model="resnet10", dataset="MNIST", num_classes=2, img_size=32,
+                    slots_per_class=1, pre_trained=False, cal_area_size=True, device="cpu")
+model = build_slot_model(cfg, fused_slot=True, device="cpu")
+image = np.random.RandomState(0).randint(0, 256, (28, 28, 1)).astype(np.uint8)
+ratio = render_explanations(cfg, create_train_state(model, cfg.lr), model, image, 1, sys.argv[1])
+mask = read_png(sys.argv[1] + "/slot_mask_1.png")
+print(ratio, mask.shape, sorted(m for m in sys.modules if m.split(".")[0] in ("PIL", "matplotlib")
+                               and sys.modules[m] is not None))
+"""
+
+
+def test_explain_path_needs_neither_pil_nor_matplotlib(tmp_path):
+    env = dict(os.environ, PYTHONPATH=str(ROOT))
+    out = subprocess.run([sys.executable, "-c", _NO_PIL_PROBE, str(tmp_path)], cwd=ROOT, env=env,
+                         capture_output=True, text=True, timeout=300)
+    assert out.returncode == 0, out.stderr
+    ratio, rest = out.stdout.strip().splitlines()[-1].split(" ", 1)
+    assert 0.0 <= float(ratio) <= 1.0
+    assert rest == "(28, 28, 4) []"
+
+
+def test_render_kernel_wrapper_on_cpu_tensors_launches_nothing():
+    from scouter_tpu_torch.ops.render_kernel import render_heatmaps_fused, render_heatmaps_ref
+
+    attn = torch.from_numpy(np.random.RandomState(0).rand(5, 9).astype(np.float32))
+    launches = render_heatmaps_fused.launches
+    torch.testing.assert_close(render_heatmaps_fused(attn), render_heatmaps_ref(attn),
+                               rtol=0, atol=0)
+    assert render_heatmaps_fused(attn[:0]).shape == (0, 9, 4)
+    assert render_heatmaps_fused.launches == launches
 
 
 def test_chip_smoke_fails_without_cuda(no_cuda):

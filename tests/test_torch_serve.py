@@ -21,7 +21,8 @@ import torch
 from scouter_tpu_torch.core import ScouterConfig, check_serving_supported, checkpoint_name
 from scouter_tpu_torch.models import build_slot_model
 from scouter_tpu_torch.serve import InferenceEngine, engine as engine_mod, make_serving_fn
-from scouter_tpu_torch.serve.server import _png_gray, load_state_dict, make_server
+from scouter_tpu_torch.core.png import encode_png
+from scouter_tpu_torch.serve.server import load_state_dict, make_server
 
 ROOT = Path(__file__).resolve().parents[1]
 TOL = dict(rtol=1e-5, atol=1e-5)
@@ -237,7 +238,7 @@ class TestHTTPServer:
         rng = np.random.RandomState(31)
         for arr in (np.zeros((1, 1), np.uint8), np.full((3, 7), 255, np.uint8),
                     rng.randint(0, 256, (224, 96), np.uint8)):
-            back = np.asarray(Image.open(io.BytesIO(_png_gray(arr))))
+            back = np.asarray(Image.open(io.BytesIO(encode_png(arr, 1))))
             np.testing.assert_array_equal(back, arr)
 
     def test_predict_and_health_round_trip(self, served):
