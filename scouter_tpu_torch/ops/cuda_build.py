@@ -3,8 +3,9 @@
 Each ``csrc/<name>.cu`` compiles on its own into a shared library with a
 plain C interface (no PyTorch headers, so a build takes seconds). Libraries go
 to ``build/kernels/`` beside the package, a git-ignored directory, under a name
-that carries the hash of the source and the flags: an edited source is rebuilt
-at its next use, an unchanged one is loaded as it is.
+that carries the hash of the source, of the ``csrc/*.cuh`` headers it
+includes and of the flags: an edited source or header is rebuilt at its next
+use, an unchanged one is loaded as it is.
 
 Nothing here runs at import time. ``load(name)`` builds on first use;
 ``build_all()`` starts one nvcc per source, all at once.
@@ -15,6 +16,7 @@ from __future__ import annotations
 import ctypes
 import hashlib
 import os
+import re
 import shutil
 import subprocess
 import threading
@@ -27,7 +29,7 @@ CSRC = Path(__file__).resolve().parents[1] / "csrc"
 BUILD_DIR = Path(__file__).resolve().parents[2] / "build" / "kernels"
 NVCC_FLAGS = ("-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17", "-O3",
               "-shared", "-Xcompiler", "-fPIC")
-SOURCES = ("xslot_fwd", "render_heatmaps")
+SOURCES = ("xslot_fwd", "xslot_bwd", "render_heatmaps")
 
 _lock = threading.Lock()
 _loaded: Dict[str, ctypes.CDLL] = {}
@@ -46,7 +48,9 @@ def _nvcc() -> str:
 
 def _lib_path(name: str) -> Path:
     src = (CSRC / f"{name}.cu").read_bytes()
-    digest = hashlib.sha256(src + " ".join(NVCC_FLAGS).encode()).hexdigest()[:16]
+    headers = sorted(set(re.findall(rb'#include "([\w.]+\.cuh)"', src)))
+    content = src + b"".join((CSRC / h.decode()).read_bytes() for h in headers)
+    digest = hashlib.sha256(content + " ".join(NVCC_FLAGS).encode()).hexdigest()[:16]
     return BUILD_DIR / f"lib{name}-{digest}.so"
 
 

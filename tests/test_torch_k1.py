@@ -1,0 +1,188 @@
+"""K1's redesign on the CPU: bfloat16 inputs through the port's xSlot op
+against the Pallas kernel (interpret mode) on the same bfloat16 inputs, the
+hand-written backward ``xslot_bwd_ref`` against JAX's checkpointed ``_bwd``
+fed the same residuals and cotangents, and the cluster plan of the CUDA
+kernels. Inputs are made from a seed with numpy and fed to both sides."""
+
+import numpy as np
+import jax.numpy as jnp
+import pytest
+import torch
+
+from scouter_tpu.ops.slot_pallas import _bwd as jax_bwd
+from scouter_tpu.ops.slot_pallas import _fused_forward as jax_fused_forward
+from scouter_tpu_torch.ops.slot_kernel import (_plan, _smem_bytes, xslot_bwd_ref,
+                                               xslot_iterations_fused)
+
+TOL = dict(rtol=1e-4, atol=1e-5)  # tests/test_slot_pallas.py:30-31
+H100_SMEM, H100_SMS = 232448, 132  # opt-in shared memory per CTA, SMs
+# CTAs per SM that each kernel's __launch_bounds__ keeps registers for, by
+# (kind, resident), and the shared memory the card reserves per CTA (sm_90)
+REG_CTAS = {("fwd", True): 1, ("fwd", False): 2, ("bwd", False): 1}
+SMEM_RESERVED = 1024
+
+
+def h100_plan(b, n, s, kind, d=64):
+    """``_plan`` on a model of the H100: the kernels' shared-memory layouts,
+    and for cudaOccupancyMaxActiveClusters the CTAs per SM that shared
+    memory, 2048 threads and registers allow, over all SMs (it ignores how
+    the SMs group into GPCs)."""
+    def smem(s_cta, resident):
+        return _smem_bytes(kind, n, s_cta, d, resident)
+
+    def active(c, s_cta, resident):
+        per_sm = min((H100_SMEM + SMEM_RESERVED) // (smem(s_cta, resident) + SMEM_RESERVED),
+                     2048 // 256, REG_CTAS[kind, resident])
+        return H100_SMS * per_sm // c
+
+    return _plan(b, n, s, d, kind, H100_SMEM, H100_SMS, smem, active)
+
+
+def k1_inputs(seed, b, n, s, d=64, magnitudes="tests"):
+    """``tests/test_slot_pallas.py`` magnitudes, or ``bench.py:67-74``'s."""
+    rng = np.random.RandomState(seed)
+    if magnitudes == "tests":
+        scales = (1.0, 1.0, 1.0, 0.2, 0.2, 0.1, 0.1)
+    else:
+        scales = (0.1, 0.1, 0.02, 0.05, 0.05, 0.05, 0.05)
+    shapes = ((b, n, d), (b, n, d), (s, d), (3 * d, d), (3 * d, d), (1, 3 * d), (1, 3 * d))
+    return [(rng.randn(*sh) * sc).astype(np.float32) for sh, sc in zip(shapes, scales)]
+
+
+# ------------------------------------------------------------------ bfloat16
+
+@pytest.mark.parametrize("b,n,s,seed,magnitudes",
+                         [(2, 49, 30, 0, "bench"), (2, 81, 10, 2, "tests")])
+def test_bf16_inputs_match_pallas_on_the_same_bf16_inputs(b, n, s, seed, magnitudes):
+    args = [torch.from_numpy(a).to(torch.bfloat16)
+            for a in k1_inputs(seed, b, n, s, magnitudes=magnitudes)]
+    jargs = [jnp.asarray(a.float().numpy()).astype(jnp.bfloat16) for a in args]
+    upd_j, attn_j = jax_fused_forward(*jargs, iters=3, interpret=True, emit_hist=False)
+    with torch.no_grad():
+        upd, attn = xslot_iterations_fused(*args)
+    assert upd.dtype == attn.dtype == torch.float32
+    np.testing.assert_allclose(upd.numpy(), np.asarray(upd_j), **TOL)
+    np.testing.assert_allclose(attn.numpy(), np.asarray(attn_j), **TOL)
+
+
+def test_bf16_under_grad_is_refused():
+    args = [torch.from_numpy(a).to(torch.bfloat16) for a in k1_inputs(0, 2, 9, 4, d=8)]
+    args[3].requires_grad_(True)
+    with pytest.raises(TypeError, match="float32 only"):
+        xslot_iterations_fused(*args)
+
+
+# ------------------------------------------------------------------ backward
+
+def jax_and_port_bwd(args, seed, iters=3):
+    """(JAX's _bwd, xslot_bwd_ref, xslot_bwd_ref in float64) on the residuals
+    of the Pallas forward with hist and on seeded cotangents."""
+    k, v, slots0, w_ih, w_hh, b_ih, b_hh = args
+    _, _, hist = jax_fused_forward(*[jnp.asarray(a) for a in args], iters=iters,
+                                   interpret=True, emit_hist=True)
+    rng = np.random.RandomState(seed)
+    b, n, d = k.shape
+    s = slots0.shape[0]
+    du = rng.randn(b, s, d).astype(np.float32)
+    dattn = rng.randn(b, s, n).astype(np.float32)
+    residuals = (k, v, w_ih, w_hh, b_ih, b_hh, np.array(hist))
+    want = jax_bwd(iters, True, tuple(jnp.asarray(a) for a in residuals),
+                   (jnp.asarray(du), jnp.asarray(dattn)))
+    ours = [[g.numpy() for g in xslot_bwd_ref(*[torch.from_numpy(a.astype(dtype))
+                                                for a in residuals + (du, dattn)])]
+            for dtype in (np.float32, np.float64)]
+    return [np.asarray(w) for w in want], *ours
+
+
+@pytest.mark.parametrize("s,seed", [(10, 0), (10, 8), (30, 9)])
+def test_bwd_ref_matches_jax_bwd(s, seed):
+    # bench.py:67-74 magnitudes with unit cotangents. On some such draws a
+    # row sum near zero puts even JAX's f32 gradient past this bar of the
+    # float64 one; these draws are not such, which the first loop checks
+    args = k1_inputs(seed, 2, 81, s, magnitudes="bench")
+    want, got, exact = jax_and_port_bwd(args, seed + 10)
+    for w, x in zip(want, exact):
+        np.testing.assert_allclose(w, x, **TOL)
+    for g, w in zip(got, want):
+        assert g.shape == w.shape
+        np.testing.assert_allclose(g, w, **TOL)
+
+
+@pytest.mark.parametrize("s,seed", [(10, 1), (30, 3)])
+def test_bwd_ref_matches_jax_bwd_on_ill_conditioned_inputs(s, seed):
+    # tests/test_slot_pallas.py magnitudes: a row sum near zero amplifies f32
+    # rounding, so the bar is chip_smoke.py's, 1e-4 x max(1, max |reference|)
+    want, got, _ = jax_and_port_bwd(k1_inputs(seed, 2, 81, s), seed + 10)
+    for g, w in zip(got, want):
+        assert np.abs(g - w).max() <= 1e-4 * max(1.0, np.abs(w).max())
+
+
+@pytest.mark.parametrize("iters", [1, 2])
+def test_bwd_ref_matches_jax_bwd_at_other_depths(iters):
+    want, got, _ = jax_and_port_bwd(k1_inputs(5, 2, 49, 6, magnitudes="bench"), 7, iters)
+    for g, w in zip(got, want):
+        np.testing.assert_allclose(g, w, **TOL)
+
+
+def test_cpu_backward_is_uncounted():
+    args = [torch.from_numpy(a).requires_grad_() for a in k1_inputs(4, 2, 9, 4, d=8)]
+    before = (xslot_iterations_fused.launches, xslot_iterations_fused.hist_launches,
+              xslot_iterations_fused.bwd_launches)
+    upd, attn = xslot_iterations_fused(*args)
+    (upd.sum() + attn.sum()).backward()
+    assert all(a.grad is not None for a in args)
+    assert (xslot_iterations_fused.launches, xslot_iterations_fused.hist_launches,
+            xslot_iterations_fused.bwd_launches) == before
+
+
+# ---------------------------------------------------------------------- plan
+
+@pytest.mark.parametrize("kind", ["fwd", "bwd"])
+@pytest.mark.parametrize("b,n,s", [(70, 49, 30), (16, 49, 30), (16, 81, 10), (16, 81, 125),
+                                   (1, 49, 30), (4, 49, 30)])
+def test_plan_fits_every_chip_smoke_shape(kind, b, n, s):
+    plan = h100_plan(b, n, s, kind)
+    assert 1 <= plan.cluster <= min(8, s)
+    assert plan.slots_per_cta == -(-s // plan.cluster)
+    assert plan.smem_bytes == _smem_bytes(kind, n, plan.slots_per_cta, 64,
+                                          plan.resident) <= H100_SMEM
+    assert kind == "fwd" or not plan.resident  # the backward streams its GRU weights
+    assert plan.ctas_per_sm >= 1
+    assert b <= plan.clusters  # one wave
+    assert b * plan.cluster <= H100_SMS * plan.ctas_per_sm
+
+
+def test_plan_of_the_cub_config_forward():
+    # bench.py:64: S=1000 at N=81, B=16
+    plan = h100_plan(16, 81, 1000, "fwd")
+    assert plan.cluster <= 8 and plan.smem_bytes <= H100_SMEM
+    # 125 slots per CTA leave no room for the whole of the GRU weights
+    assert not plan.resident
+
+
+def test_plan_of_the_flagship_is_one_wave_and_splits_small_batches():
+    fwd = h100_plan(70, 49, 30, "fwd")
+    assert 70 * fwd.cluster <= H100_SMS * fwd.ctas_per_sm and fwd.resident
+    assert h100_plan(1, 49, 30, "fwd").cluster == 8
+
+
+@pytest.mark.parametrize("kind,s", [("fwd", 2000), ("bwd", 1000)])
+def test_plan_past_eight_ctas_raises(kind, s):
+    with pytest.raises(ValueError, match="cluster of 8"):
+        h100_plan(16, 81, s, kind)
+
+
+def test_plan_takes_the_cards_footprint_and_occupancy():
+    # the plan reads both from what it is given, not from the Python layout
+    seen = []
+
+    def active(c, s_cta, resident):
+        seen.append((c, s_cta, resident))
+        return 6 if c <= 4 else 0  # clusters of more than 4 do not fit
+
+    plan = _plan(4, 49, 30, 64, "bwd", 1000, 132, lambda s_cta, resident: 10 * s_cta, active)
+    assert (plan.cluster, plan.slots_per_cta, plan.smem_bytes, plan.clusters) == (4, 8, 80, 6)
+    assert plan.ctas_per_sm == 1 and not plan.resident
+    assert all(not r for _, _, r in seen)
+    with pytest.raises(ValueError, match="cluster of 8"):
+        _plan(4, 49, 30, 64, "fwd", 1000, 132, lambda s_cta, resident: 1001, active)
