@@ -17,7 +17,13 @@ Phases (any failure exits non-zero; nothing is caught and passed over):
    against ``xslot_bwd_ref`` at the three gradient shapes and at B = 1, 4
    and 16, equal bit for bit across two calls, with its time at B = 1, 4,
    16 and 70, and the op's gradient against autograd through the plain
-   version;
+   version; then the backward where no cluster of 8 holds an element's
+   share, on its tiled route, at the CUB recipe's (16, 81, 1000) and 448
+   px's (70, 196, 30), and on a cluster at d=48 (16, 49, 30): the forward
+   with hist against its plain version, the backward against
+   ``xslot_bwd_ref`` and the op's gradient against autograd through the
+   plain version, bit for bit across two calls, with plans, times and
+   bounds;
 4. serve flagship resnest26d + xSlot (f32, seeded random weights) through
    ``InferenceEngine`` (requests from several threads) and the HTTP server
    (``.npy`` bodies, one with ``?maps=1``, and ``/healthz``), counting the
@@ -42,7 +48,17 @@ Phases (any failure exits non-zero; nothing is caught and passed over):
    bound;
 9. one train step at batch 4 on the card and on the CPU from the same
    weights and batch: loss and updated weights within 1e-3; then f32 train
-   throughput at batch 70 on one repeated batch, whose loss must fall.
+   throughput at batch 70 on one repeated batch, whose loss must fall;
+10. the CUB-200 recipe (resnest50d, 200 x 5 slots, 260 px) in bf16 through
+   ``scouter_tpu_torch.train.cli.main`` for one epoch at batch 16 on the
+   synthetic CUB stand-in: 16 train steps and 8 val batches, K1's counts
+   zeroed just before and read just after (forward with hist 16, without
+   8, the backward's tiled route 16), f32 parameters and AdamW state in the
+   checkpoint, which the server's ``load_state_dict`` restores and an
+   ``InferenceEngine`` answers a request from; the val loss of those weights
+   in bf16 and in f32 within 0.08 x max(1, |f32 loss|)
+   (tests/test_train.py:139-150); bf16 and f32 train img/s at batch 16 on
+   one repeated batch, whose loss must fall, with f32 state after the steps.
 
 The line before the last is the kernels' JSON; the last line is
 ``{"ok": true, "device": {...}}``. Without a CUDA device, or without the
@@ -69,6 +85,11 @@ FLAGSHIP = dict(model="resnest26d", dataset="ImageNet", num_classes=10, channel=
                 to_k_layer=3, lambda_value=1.0, img_size=224, batch_size=70,
                 pre_trained=False, seed=0)
 BUCKETS = (1, 4, 16)
+# the CUB-200 recipe (bench.py:105-109) in bf16 at batch 16 (bench.py:64)
+CUB = dict(model="resnest50d", dataset="CUB200", num_classes=200, channel=2048,
+           use_slot=True, slots_per_class=5, hidden_dim=64, power=2, loss_status=1,
+           to_k_layer=3, lambda_value=10.0, img_size=260, batch_size=16,
+           pre_trained=False, seed=0, compute_dtype="bfloat16")
 
 
 def fail(msg: str) -> None:
@@ -142,6 +163,10 @@ def check_plan(kind, b, n, s, d, device, bf16=False):
     from scouter_tpu_torch.ops import slot_kernel
 
     plan = slot_kernel.launch_plan(kind, b, n, s, d, device, bf16)
+    if plan.tiled:
+        print(f"xslot_{kind} plan B={b} N={n} S={s} d={d}: tiled route (no cluster of 8 "
+              "holds an element's share)", flush=True)
+        return plan
     py_bytes = slot_kernel._smem_bytes(kind, n, plan.slots_per_cta, d, plan.resident)
     print(f"xslot_{kind} plan B={b} N={n} S={s} d={d}: cluster {plan.cluster}, "
           f"{plan.slots_per_cta} slots and {plan.smem_bytes} bytes of shared memory per CTA "
@@ -183,8 +208,7 @@ def phase_kernels():
     for (b, n, s, dd), dtype, bar_upd, bar_attn in cases:
         args = [a.to(dtype) for a in xslot_inputs(b, n, s, dd, "cuda")]
         plan = check_plan("fwd", b, n, s, dd, args[0].device, dtype == torch.bfloat16)
-        if s <= 125 and dd == d:  # the backward runs at these shapes; past them it raises
-            check_plan("bwd", b, n, s, dd, args[0].device)
+        check_plan("bwd", b, n, s, dd, args[0].device)
         plans[f"{b},{n},{s}" + ("" if dd == d else f",d={dd}")
               + ("" if dtype == torch.float32 else ",bf16")] = [
             plan.cluster, plan.ctas_per_sm, plan.resident]
@@ -410,6 +434,78 @@ def phase_kernel_grad(entry):
             "autograd_engine_ms_runs": engine_runs, "plans": plans,
             "ms_by_batch": {str(k): t[0] for k, t in sorted(times.items())},
             "bound_ms_by_batch": {str(k): t[1] for k, t in sorted(times.items())}}
+
+
+def phase_kernel_grad_tiled():
+    """K1's backward where it leaves the cluster: at the CUB recipe's (16,
+    81, 1000) and 448 px's (70, 196, 30) on its tiled route, and at d=48
+    (16, 49, 30) on a cluster. At each, the forward with hist against its
+    plain version to bench.py:85-86's S=1000 bars, the backward against
+    ``xslot_bwd_ref`` and the op's gradient against autograd through the
+    plain version to chip_smoke's gradient bar, two backward calls equal bit
+    for bit, its plan, time in a CUDA graph and bound. Returns the tiled
+    route's kernels-line entry."""
+    import torch
+
+    from scouter_tpu_torch.ops import slot_kernel
+
+    fused, ref = slot_kernel.xslot_iterations_fused, slot_kernel.xslot_iterations_ref
+    names = ("k", "v", "initial_slots", "w_ih", "w_hh", "b_ih", "b_hh")
+    worst, times, tiled = 0.0, {}, {}
+    for b, n, s, d in ((16, 81, 1000, 64), (70, 196, 30, 64), (16, 49, 30, 48)):
+        label = f"{b},{n},{s},d={d}"
+        args = xslot_inputs(b, n, s, d, "cuda")
+        check_plan("fwd", b, n, s, d, args[0].device)
+        plan = check_plan("bwd", b, n, s, d, args[0].device)
+        with torch.no_grad():
+            upd, attn, hist = slot_kernel._launch(*args, 3, emit_hist=True)
+            upd_r, attn_r, hist_r = slot_kernel.xslot_fwd_ref(*args, emit_hist=True)
+        e_upd = max((upd - upd_r).abs().max().item(), (hist - hist_r).abs().max().item())
+        e_attn = (attn - attn_r).abs().max().item()
+        print(f"xslot_fwd+hist B={b} N={n} S={s} d={d}: max|d upd, hist| {e_upd:.3e} (bar "
+              f"1e-3), max|d attn| {e_attn:.3e} (bar 2e-2)", flush=True)
+        if not (e_upd < 1e-3 and e_attn < 2e-2):
+            fail(f"xslot_fwd with hist disagrees with xslot_fwd_ref at {label}")
+        args64 = [a.double() for a in args]
+        with torch.no_grad():
+            upd64, attn64 = ref(*args64)
+        cot64 = (2 * upd64, torch.ones_like(attn64))
+        cot = tuple(t.float() for t in cot64)
+        res = (args[0], args[1], args[3], args[4], args[5], args[6], hist)
+        with torch.no_grad():
+            got = slot_kernel._launch_bwd(*res, *cot)
+            again = slot_kernel._launch_bwd(*res, *cot)
+            want = slot_kernel.xslot_bwd_ref(*res, *cot)
+            exact = slot_kernel.xslot_bwd_ref(*(t.double() for t in res), *cot64)
+        err = check_grads("xslot_bwd vs xslot_bwd_ref", b, n, s, names, got, want, exact)
+        same = all(torch.equal(x, y) for x, y in zip(got, again))
+        route = "tiled route" if plan.tiled else f"cluster {plan.cluster}"
+        print(f"xslot_bwd B={b} N={n} S={s} d={d} ({route}): two calls on the same inputs "
+              f"{'equal bit for bit' if same else 'DIFFER'}", flush=True)
+        if not same:
+            fail(f"xslot_bwd is not deterministic at {label}")
+        got, want = xslot_grads(fused, args, cot), xslot_grads(ref, args, cot)
+        check_grads("xslot grad", b, n, s, names, got, want, xslot_grads(ref, args64, cot64))
+        with torch.no_grad():
+            ms = graph_ms(lambda: slot_kernel._launch_bwd(*res, *cot), reps=10, iters=10)
+            plain_ms = cuda_ms(lambda: slot_kernel.xslot_bwd_ref(*res, *cot), 10)
+        bound_ms, bound_by = xslot_bwd_bound(b, n, s, d)
+        print(f"xslot_bwd B={b} N={n} S={s} d={d} ({route}): {ms:.5f} ms in a CUDA graph, "
+              f"xslot_bwd_ref {plain_ms:.4f} ms, bound {bound_ms:.5f} ms ({bound_by})",
+              flush=True)
+        times[label] = dict(route=route, ms=ms, plain_ms=plain_ms, bound_ms=bound_ms,
+                            bound_by=bound_by)
+        if plan.tiled:
+            tiled[label] = times[label]
+            worst = max(worst, err)
+    if list(tiled) != ["16,81,1000,d=64", "70,196,30,d=64"]:
+        fail(f"xslot_bwd took its tiled route at {list(tiled)}")
+    cub = tiled["16,81,1000,d=64"]
+    return {"name": "xslot_bwd_tiled", "route": "cuda",
+            "source": "scouter_tpu_torch/csrc/xslot_bwd.cu",
+            "replaces": "scouter_tpu/ops/slot_pallas.py:168", "max_abs_err": worst,
+            "ms": cub["ms"], "plain_ms": cub["plain_ms"], "bound_ms": cub["bound_ms"],
+            "bound_by": cub["bound_by"], "library_ms": None, "by_shape": times}
 
 
 def post(url: str, body: bytes) -> dict:
@@ -650,6 +746,170 @@ def phase_train(tmp: str):
     return launches, bwd_launches
 
 
+def cub_flags(tmp: str):
+    """The train CLI's flags for the CUB-200 recipe in bf16 on the card, one
+    epoch on the synthetic stand-in, ``tmp`` as the output directory. The
+    CUB scan reads three metadata files before it looks for images (both
+    packages raise without them); empty ones list no image, so the run
+    takes the stand-in."""
+    import os
+
+    data = os.path.join(tmp, "no_dataset")
+    os.makedirs(data, exist_ok=True)
+    for name in ("images.txt", "image_class_labels.txt", "train_test_split.txt"):
+        open(os.path.join(data, name), "w").close()
+    return ["--device", "cuda", "--dataset", "CUB200", "--model", "resnest50d",
+            "--num_classes", "200", "--channel", "2048", "--slots_per_class", "5",
+            "--power", "2", "--loss_status", "1", "--to_k_layer", "3", "--lambda_value", "10",
+            "--img_size", "260", "--compute_dtype", "bfloat16", "--batch_size", "16",
+            "--epochs", "1", "--pre_trained", "false",
+            "--dataset_dir", os.path.join(tmp, "no_dataset"), "--output_dir", tmp]
+
+
+def check_f32_state(what, model_sd, opt_state):
+    """Every floating tensor of a state dict and every AdamW moment is f32."""
+    import torch
+
+    bad = [k for k, v in model_sd.items() if v.is_floating_point() and v.dtype != torch.float32]
+    moments = [v for st in opt_state.values() for k, v in st.items()
+               if k in ("exp_avg", "exp_avg_sq")]
+    bad += [f"AdamW moment {v.dtype}" for v in moments if v.dtype != torch.float32]
+    if bad or not moments:
+        fail(f"{what}: not float32: {bad[:5]}, {len(moments)} AdamW moments")
+    return len(model_sd), len(moments)
+
+
+def phase_cub_train(tmp: str):
+    """The CUB-200 recipe in bf16 through the train CLI on the card for one
+    epoch, K1's counts zeroed just before and read just after; the
+    checkpoint's state in f32, restored by the server's ``load_state_dict``
+    and answered from by an ``InferenceEngine``. Returns (K1's forward
+    launches, its tiled backward's, the config, the checkpoint's weights)."""
+    import math
+    import os
+
+    import numpy as np
+    import torch
+
+    from scouter_tpu_torch.core import ScouterConfig
+    from scouter_tpu_torch.ops import slot_kernel
+    from scouter_tpu_torch.serve import InferenceEngine
+    from scouter_tpu_torch.serve.server import load_state_dict
+    from scouter_tpu_torch.train import cli
+
+    fused = slot_kernel.xslot_iterations_fused
+    train_steps, val_batches = 256 // 16, 128 // 16  # the synthetic stand-in
+    plain_bwd, cuda_plain_calls = slot_kernel.xslot_bwd_ref, []
+
+    def watched_plain_bwd(*args):
+        cuda_plain_calls.extend(a for a in args if a.is_cuda)
+        return plain_bwd(*args)
+
+    fused.launches = fused.hist_launches = fused.bwd_launches = fused.bwd_tiled_launches = 0
+    t0 = time.monotonic()
+    slot_kernel.xslot_bwd_ref = watched_plain_bwd
+    try:
+        _, lines = run_cli(cli.main, cub_flags(tmp))
+    finally:
+        slot_kernel.xslot_bwd_ref = plain_bwd
+    torch.cuda.synchronize()
+    seconds = time.monotonic() - t0
+    hist, plain = fused.hist_launches, fused.launches - fused.hist_launches
+    tiled, clustered = fused.bwd_tiled_launches, fused.bwd_launches
+    metrics = logged_metrics(lines)
+    values = [v for vs in metrics.values() for v in vs]
+    print(f"CUB bf16 train: 1 epoch, {train_steps} train steps and {val_batches} val batches "
+          f"in {seconds:.2f} s with data, eval and the checkpoint; xslot_fwd launches with "
+          f"hist {hist}, without {plain}; xslot_bwd launches on its tiled route {tiled}, on a "
+          f"cluster {clustered}; xslot_bwd_ref given "
+          f"{len(cuda_plain_calls)} CUDA tensors", flush=True)
+    if cuda_plain_calls:
+        fail("CUB train: xslot_bwd_ref got CUDA tensors")
+    if len(metrics["train loss:"]) != 1 or not all(map(math.isfinite, values)):
+        fail(f"CUB train: logged metrics {metrics}")
+    if (hist, plain, tiled, clustered) != (train_steps, val_batches, train_steps, 0):
+        fail(f"CUB train: launches hist {hist}, hist-free {plain}, tiled backward {tiled}, "
+             f"clustered backward {clustered}; expected {train_steps}, {val_batches}, "
+             f"{train_steps}, 0")
+    path = os.path.join(tmp, "CUB200_use_slot_checkpoint.pth")
+    payload = torch.load(path, map_location="cpu", weights_only=True)
+    tensors, moments = check_f32_state("CUB checkpoint", payload["model"],
+                                       payload["optimizer"]["state"])
+    cfg = ScouterConfig(**CUB).replace(device="cuda", output_dir=tmp,
+                                       dataset_dir=os.path.join(tmp, "no_dataset"))
+    state_dict, source = load_state_dict(cfg)
+    if source != path:
+        fail(f"the server restored {source}, not {path}")
+    image = np.random.RandomState(6).randint(0, 256, (260, 260, 3), np.uint8)
+    with InferenceEngine(cfg, state_dict, buckets=(1,), device="cuda") as eng:
+        result = eng.submit(image).result(timeout=300)
+    if result["logits"].shape != (200,) or not np.isfinite(result["logits"]).all():
+        fail(f"CUB engine logits malformed: {result['logits']}")
+    if result["slot_maps"].shape != (200, 9, 9):
+        fail(f"CUB engine slot_maps shape {result['slot_maps'].shape}")
+    print(f"CUB checkpoint {os.path.basename(path)}: {tensors} model tensors and {moments} "
+          "AdamW moments, all float32; restored by the server's load_state_dict and "
+          "answered one request through InferenceEngine (logits (200,), slot maps "
+          "(200, 9, 9))", flush=True)
+    return hist + plain, tiled, cfg, state_dict
+
+
+def phase_cub_dtypes(cfg, state_dict, card: str):
+    """The same CUB weights on the card in bf16 and in f32: the val loss
+    within 0.08 x max(1, |f32 loss|) (tests/test_train.py:139-150); then
+    each dtype's train img/s at batch 16 on one repeated batch (3 warm-up
+    steps, 10 timed ones ending in a synchronize), whose loss must fall, the
+    state f32 after the steps."""
+    import torch
+
+    from scouter_tpu_torch.data import preprocess_batch, select_dataset
+    from scouter_tpu_torch.train import Trainer
+
+    datasets = (select_dataset(cfg, train=True), select_dataset(cfg, train=False))
+    val = {}
+    for name in ("bfloat16", "float32"):
+        trainer = Trainer(cfg.replace(compute_dtype=name), datasets=datasets)
+        trainer.model.load_state_dict(state_dict)
+        val[name] = trainer.run_epoch(0, "val")["loss"]
+    gap = abs(val["bfloat16"] - val["float32"])
+    print(f"CUB val loss of the checkpoint's weights: bf16 {val['bfloat16']:.6f}, f32 "
+          f"{val['float32']:.6f}, |d| {gap:.3e} (bar 0.08 x max(1, |f32|))", flush=True)
+    if not gap <= 0.08 * max(1.0, abs(val["float32"])):
+        fail("the CUB val loss in bf16 leaves the bar of the f32 one")
+
+    bs, ds = cfg.batch_size, datasets[0]
+    images = preprocess_batch(torch.from_numpy(ds.images[:bs]).cuda(), dataset=cfg.dataset,
+                              img_size=cfg.img_size).permute(0, 3, 1, 2).contiguous()
+    batch = {"image": images, "label": torch.from_numpy(ds.labels[:bs]).long().cuda()}
+    rates = {}
+    for name in ("bfloat16", "float32"):
+        trainer = Trainer(cfg.replace(compute_dtype=name), datasets=datasets)
+        state, step = trainer.state, trainer.train_step
+        losses = []
+        for _ in range(3):
+            state, m = step(state, batch)
+            losses.append(m["loss"])
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        for _ in range(10):
+            state, m = step(state, batch)
+            losses.append(m["loss"])
+        torch.cuda.synchronize()
+        dt = (time.perf_counter() - t0) / 10
+        losses = torch.stack(losses).tolist()
+        check_f32_state(f"CUB {name} train state", state.model.state_dict(),
+                        state.optimizer.state)
+        print(f"CUB {name} train loss on one repeated batch of {bs}, 13 steps: "
+              f"{', '.join(f'{v:.4f}' for v in losses)}", flush=True)
+        if not losses[-1] < losses[0]:
+            fail(f"CUB {name}: the loss did not fall on a repeated batch: {losses}")
+        rates[name] = bs / dt
+        print(f"CUB train throughput {name} bs={bs}: {bs / dt:.1f} img/s "
+              f"({dt * 1e3:.2f} ms/step) on {card}", flush=True)
+        del trainer, state
+    return val, rates
+
+
 def render_bound(c, n):
     """(bound ms, what bounds it) for K2 on (C, N): HBM over each input
     float read once and each RGBA float written once, against the card's
@@ -868,15 +1128,26 @@ def phase_render_kernel(data):
              "source": "scouter_tpu_torch/csrc/render_heatmaps.cu",
              "replaces": "scouter_tpu/ops/render_pallas.py:53", "launches": data["k2"],
              "explain_cli_launches": data["k2_cli"], "max_abs_err": worst, "library_ms": None}
-    for key, attn in (("", batch), ("_10x49", vis)):
+    # the explain path's shapes, the CUB recipe's class attention (200 classes
+    # at N=81) and a size where the bytes outweigh a launch
+    rng = np.random.RandomState(7)
+    cub, big = (torch.from_numpy(rng.rand(c, 81).astype(np.float32)).cuda()
+                for c in (200, 16384))
+    for key, attn in (("", batch), ("_10x49", vis), ("_200x81", cub), ("_16384x81", big)):
         c, n = attn.shape
+        if key in ("_200x81", "_16384x81"):
+            err = (fused(attn) - ref(attn)).abs().max().item()
+            if not err <= 1e-4:
+                fail(f"render_heatmaps disagrees with its plain version at ({c}, {n}): {err}")
+            worst = entry["max_abs_err"] = max(worst, err)
         ms = cuda_ms(lambda: fused(attn), 200)
         plain_ms = cuda_ms(lambda: ref(attn), 200)
         device_ms = graph_ms(lambda: fused(attn))
         bound_ms, bound_by = render_bound(c, n)
         print(f"render_heatmaps C={c} N={n}: kernel {ms:.5f} ms per eager call, "
-              f"{device_ms:.5f} ms per launch in a CUDA graph, plain {plain_ms:.5f} ms, "
-              f"bound {bound_ms:.6f} ms ({bound_by})", flush=True)
+              f"{device_ms:.5f} ms per launch in a CUDA graph ({bound_ms / device_ms:.3f} of "
+              f"its bound), plain {plain_ms:.5f} ms, bound {bound_ms:.6f} ms ({bound_by})",
+              flush=True)
         entry.update({f"ms{key}": ms, f"device_ms{key}": device_ms, f"plain_ms{key}": plain_ms,
                       f"bound_ms{key}": bound_ms, f"bound_by{key}": bound_by})
     return entry
@@ -988,6 +1259,7 @@ def main() -> int:
 
     entry = phase_kernels()
     bwd_entry = phase_kernel_grad(entry)
+    tiled_entry = phase_kernel_grad_tiled()
 
     cfg = ScouterConfig(**FLAGSHIP)
     state_dict = build_slot_model(cfg, device="cpu").state_dict()
@@ -1003,10 +1275,14 @@ def main() -> int:
         render_entry = phase_render_kernel(explain)
     phase_train_gpu_vs_cpu(cfg)
     phase_train_throughput(cfg, card)
+    with tempfile.TemporaryDirectory() as tmp:
+        entry["cub_launches"], tiled_entry["launches"], cub_cfg, cub_sd = phase_cub_train(tmp)
+        tiled_entry["cub_val_loss"], tiled_entry["cub_train_img_per_s"] = phase_cub_dtypes(
+            cub_cfg, cub_sd, card)
     print(f"chip_smoke finished in {time.monotonic() - t0:.1f} s after the build started",
           flush=True)
 
-    print(json.dumps({"kernels": [entry, bwd_entry, render_entry]}), flush=True)
+    print(json.dumps({"kernels": [entry, bwd_entry, tiled_entry, render_entry]}), flush=True)
     print(json.dumps({"ok": True, "device": {"platform": "gpu",
                                              "kind": torch.cuda.get_device_name(0),
                                              "count": torch.cuda.device_count()}}), flush=True)

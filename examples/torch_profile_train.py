@@ -1,10 +1,13 @@
-"""Where the time of the PyTorch port's flagship train step goes, on one GPU.
+"""Where the time of the PyTorch port's train step goes, on one GPU.
 
-    python examples/torch_profile_train.py [--batch 70] [--iters 10] [--out FILE]
+    python examples/torch_profile_train.py [--config flagship|cub] [--batch B]
+        [--compute_dtype float32|bfloat16] [--iters 10] [--out FILE]
 
-Builds the flagship resnest26d + xSlot (seeded random weights, the config of
-``chip_smoke.py``) and runs ``train.make_train_step`` in f32 on one repeated
-batch of the synthetic ImageNet stand-in. It reports, as one JSON line:
+Builds the flagship resnest26d + xSlot (default, batch 70, f32) or the
+CUB-200 recipe (resnest50d, 200 x 5 slots, 260 px; batch 16, bf16) with
+seeded random weights, the configs of ``chip_smoke.py``, and runs
+``train.make_train_step`` on one repeated batch of the synthetic stand-in.
+It reports, as one JSON line:
 
 - ``stages_ms``: device time per step of the forward (split into backbone,
   head and xSlot), the loss and backward (with the part spent in K1's
@@ -127,7 +130,10 @@ def bn_route_ms(step, state, batch, iters):
 
 def main(argv=None) -> int:
     p = argparse.ArgumentParser(description=__doc__.split("\n")[0])
-    p.add_argument("--batch", type=int, default=70)
+    p.add_argument("--config", choices=("flagship", "cub"), default="flagship")
+    p.add_argument("--batch", type=int, default=None, help="default: the config's")
+    p.add_argument("--compute_dtype", choices=("float32", "bfloat16"), default=None,
+                   help="default: the config's")
     p.add_argument("--iters", type=int, default=10)
     p.add_argument("--out", default=None, help="also write the JSON line to this file")
     args = p.parse_args(argv)
@@ -139,8 +145,9 @@ def main(argv=None) -> int:
         return 1
     torch.backends.cuda.matmul.allow_tf32 = False
     torch.backends.cudnn.allow_tf32 = False
-    from chip_smoke import FLAGSHIP
+    from chip_smoke import CUB, FLAGSHIP
     from scouter_tpu_torch.core import ScouterConfig
+    from scouter_tpu_torch.core.config import compute_dtype
     from scouter_tpu_torch.data import _synthetic_folder, preprocess_batch
     from scouter_tpu_torch.models import build_slot_model
     from scouter_tpu_torch.ops import slot_kernel
@@ -150,20 +157,25 @@ def main(argv=None) -> int:
     card = subprocess.run(
         ["nvidia-smi", "--query-gpu=name,power.limit", "--format=csv,noheader"],
         capture_output=True, text=True, check=True).stdout.strip().splitlines()[0]
-    cfg = ScouterConfig(**FLAGSHIP)
+    cfg = ScouterConfig(**(CUB if args.config == "cub" else FLAGSHIP))
+    cfg = cfg.replace(batch_size=args.batch or cfg.batch_size,
+                      compute_dtype=args.compute_dtype or cfg.compute_dtype)
+    args.batch = cfg.batch_size
     ds = _synthetic_folder(cfg.dataset, cfg.num_classes, cfg.img_size, train=True)
     images = preprocess_batch(torch.from_numpy(ds.images[:args.batch]).cuda(),
                               dataset=cfg.dataset, img_size=cfg.img_size)
     batch = {"image": images.permute(0, 3, 1, 2).contiguous(),
              "label": torch.from_numpy(ds.labels[:args.batch]).long().cuda()}
-    state = create_train_state(build_slot_model(cfg, fused_slot=True, device="cuda"), cfg.lr)
+    state = create_train_state(build_slot_model(cfg, fused_slot=True, device="cuda",
+                                                compute_dtype=compute_dtype(cfg)), cfg.lr)
     step = make_train_step(cfg.lambda_value)
     for _ in range(3):
         step(state, batch)
     torch.cuda.synchronize()
     fused = slot_kernel.xslot_iterations_fused
     fused.launches = fused.hist_launches = 0
-    record = {"card": card, "batch": args.batch, "dtype": "float32",
+    record = {"card": card, "config": args.config, "batch": args.batch,
+              "dtype": cfg.compute_dtype,
               "stages_ms": stage_times(step, state, batch, args.iters)}
     record.update(profile_kernels(lambda b: step(state, b), batch, args.iters))
     record["peak_memory_gib"] = torch.cuda.max_memory_allocated() / 2**30

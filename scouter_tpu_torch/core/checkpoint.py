@@ -9,7 +9,9 @@ CLI, so it is a de-facto API; the extension is the reference's ``.pth``.
 
 Contents: a ``torch.save`` dict of ``model`` (state dict), ``optimizer``
 (state dict), ``epoch``, ``step`` and ``config`` (the dataclass as a dict),
-written through a temporary file and ``os.replace``.
+written through a temporary file and ``os.replace``. Parameters, BN
+statistics and AdamW state are f32 whatever ``--compute_dtype`` trained
+them, so a bf16 run's checkpoint restores to any build.
 """
 
 from __future__ import annotations

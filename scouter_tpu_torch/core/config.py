@@ -6,9 +6,9 @@ default, including the reference's string-typed sweepable flags
 (``num_classes``, ``lambda_value``, ``power``, ``slots_per_class``), which
 :func:`config_from_args` coerces to scalars. ``device`` is ``cuda`` (the
 default) or ``cpu``. Flags of features the port does not have yet (the device
-mesh, ZeRO-1, per-replica BN, preemption, async checkpoints, bf16 training)
-parse, and :func:`check_serving_supported` and
-:func:`check_training_supported` refuse non-default values of them.
+mesh, ZeRO-1, per-replica BN, preemption, async checkpoints, a bf16 slot head
+in training) parse, and :func:`check_serving_supported` and
+:func:`check_training_supported` refuse them.
 :func:`expand_sweep` is the reference's sweep over comma lists
 (``train.py:207-230``).
 """
@@ -20,8 +20,8 @@ import dataclasses
 from typing import Iterator, Optional, Tuple
 
 __all__ = ["ScouterConfig", "check_serving_supported", "check_training_supported",
-           "checkpoint_name", "config_from_args", "expand_sweep", "get_args_parser",
-           "str2bool"]
+           "checkpoint_name", "compute_dtype", "config_from_args", "expand_sweep",
+           "get_args_parser", "str2bool"]
 
 _SWEEPABLE = ("num_classes", "lambda_value", "power", "slots_per_class")
 _SWEEP_TYPES = (int, float, int, int)
@@ -152,7 +152,7 @@ def get_args_parser() -> argparse.ArgumentParser:
     p.add_argument("--sync_bn", default=True, type=str2bool,
                    help="False (per-replica BN) is not ported yet")
     p.add_argument("--compute_dtype", default="float32", choices=["float32", "bfloat16"],
-                   help="bfloat16 serves; training in bfloat16 is not ported yet")
+                   help="the backbone's compute dtype; parameters stay float32 in training")
     p.add_argument("--slot_head_dtype", default="float32", choices=["float32", "compute"],
                    help="keep the slot head f32 under a bf16 backbone (default) "
                         "or follow compute_dtype")
@@ -215,19 +215,33 @@ def check_serving_supported(cfg: ScouterConfig) -> None:
 
 
 # training-only flags -> their default; any other value is refused
-_NOT_PORTED_TRAINING = {"preempt_save": False, "ckpt_async": False, "compute_dtype": "float32"}
+_NOT_PORTED_TRAINING = {"preempt_save": False, "ckpt_async": False}
 
 
 def check_training_supported(cfg: ScouterConfig) -> None:
     """Raise for a device the port does not know and for flags of training
     features it has not ported yet: the device mesh, per-replica BN, ZeRO-1,
-    preemption snapshots, async checkpoints and bf16 training."""
+    preemption snapshots, async checkpoints, and a slot head that follows a
+    bf16 compute dtype (K1's gradient is f32 only)."""
     check_serving_supported(cfg)
     for name, default in _NOT_PORTED_TRAINING.items():
         if getattr(cfg, name) != default:
             raise NotImplementedError(
                 f"--{name}={getattr(cfg, name)!r} is not ported to the PyTorch "
                 "package's training yet (see ROADMAP.md)")
+    if cfg.compute_dtype != "float32" and cfg.slot_head_dtype == "compute":
+        raise NotImplementedError(
+            f"--compute_dtype={cfg.compute_dtype!r} with --slot_head_dtype='compute' (a "
+            "bf16 slot head and K1 gradient) is not ported to the PyTorch package's "
+            "training yet (see ROADMAP.md)")
+
+
+def compute_dtype(cfg: ScouterConfig):
+    """The torch dtype of ``cfg.compute_dtype`` for a training build, or None
+    for float32 (the parameters' own)."""
+    import torch
+
+    return torch.bfloat16 if cfg.compute_dtype == "bfloat16" else None
 
 
 def checkpoint_name(cfg: ScouterConfig, epoch: Optional[int] = None) -> str:

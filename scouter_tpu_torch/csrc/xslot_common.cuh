@@ -269,12 +269,13 @@ __device__ inline void cols_times(float* out, const float* a, int rows, const fl
 // -------------------------------------------------------------------- GRU
 
 // Columns [c0, c0 + cols) of W_ih and W_hh into w[m][row][0 .. cols) (m = 0
-// for W_ih, 1 for W_hh), row stride cols + 4: consecutive threads take
-// consecutive 16-byte pieces of a row.
+// for W_ih, 1 for W_hh), row stride ld: consecutive threads take consecutive
+// 16-byte pieces of a row.
 template <typename T>
 __device__ inline void stage_columns(float* w, const T* __restrict__ w_ih,
-                                     const T* __restrict__ w_hh, int d, int c0, int cols) {
-  const int q4 = cols >> 2, per = 3 * d * q4, ld = cols + 4;
+                                     const T* __restrict__ w_hh, int d, int c0, int cols,
+                                     int ld) {
+  const int q4 = cols >> 2, per = 3 * d * q4;
   for (int e = threadIdx.x; e < 2 * per; e += blockDim.x) {
     const int m = e >= per, rem = e - m * per, row = rem / q4, c = 4 * (rem - row * q4);
     copy4(w + ((size_t)m * 3 * d + row) * ld + c, (m ? w_hh : w_ih) + (size_t)row * d + c0 + c);
@@ -286,7 +287,7 @@ __device__ inline void stage_columns(float* w, const T* __restrict__ w_ih,
 template <typename T>
 __device__ inline void stage_all(float* w, const T* __restrict__ w_ih,
                                  const T* __restrict__ w_hh, int d) {
-  stage_columns(w, w_ih, w_hh, d, 0, d);
+  stage_columns(w, w_ih, w_hh, d, 0, d, w_ld(d, true));
   copy_commit();
 }
 
@@ -294,13 +295,30 @@ __device__ inline void stage_all(float* w, const T* __restrict__ w_ih,
 // with consecutive q hold consecutive j.
 __device__ __forceinline__ int gru_col(int q, int u, int d) { return q + u * (d >> 2); }
 
+// The GRU's thread tile: thread t takes column quad q = t % (d/4) of the
+// slot pair t / (d/4); `pairs` = kThreads / (d/4) whole pairs of threads, so
+// where d/4 does not divide kThreads the last kThreads % (d/4) threads hold
+// no pair (they only stage weights). A CTA's slots go in chunks of 2 * pairs.
+struct GruTile {
+  int q, pair, pairs;
+  __device__ explicit GruTile(int d)
+      : q(threadIdx.x % (d >> 2)), pair(threadIdx.x / (d >> 2)), pairs(kThreads / (d >> 2)) {}
+  __device__ int chunk() const { return 2 * pairs; }
+  // the first of the thread's two slots in the chunk at `base`, or -1
+  __device__ int first(int base, int sl) const {
+    const int sa = base + 2 * pair;
+    return pair < pairs && sa < sl ? sa : -1;
+  }
+};
+
 // gi[s][g][u] = x[sa+s] . W_ih[g*d + j] and gh[s][g][u] = h[sa+s] .
 // W_hh[g*d + j] for the thread's two slots sa, sa+1 (s = 0, 1), gates g =
 // r, z, n and four outputs j = gru_col(q, u, d), without biases. x and h are (slp, d) in
 // shared memory with row stride row_ld(d). With `resident`, `tiles` holds all
 // of the weights (stage_all) and the call has no barrier; otherwise it
 // streams the tiles through two buffers, every thread of the CTA calls it
-// (it stages the weights for all) and an inactive thread only stages.
+// (it stages the weights for all) and an inactive thread only stages. The
+// last tile is 4 columns wide where d % kTileC == 4.
 struct GruAcc {
   float gi[2][3][4];
   float gh[2][3][4];
@@ -316,16 +334,19 @@ __device__ inline void gru_products(GruAcc& acc, const float* x, const float* h,
     for (int g = 0; g < 3; ++g)
 #pragma unroll
       for (int u = 0; u < 4; ++u) acc.gi[s][g][u] = acc.gh[s][g][u] = 0.0f;
-  const int ld = row_ld(d), wld = w_ld(d, resident), ntiles = d / kTileC;
+  const int ld = row_ld(d), wld = w_ld(d, resident), ntiles = (d + kTileC - 1) / kTileC;
   const size_t mat = (size_t)3 * d * wld;  // one matrix; a streamed buffer holds two
   if (!resident) {
-    stage_columns(tiles, w_ih, w_hh, d, 0, kTileC);
+    stage_columns(tiles, w_ih, w_hh, d, 0, min(kTileC, d), wld);
     copy_commit();
   }
   for (int t = 0; t < ntiles; ++t) {
+    const int cols = min(kTileC, d - t * kTileC);
     if (!resident) {
       if (t + 1 < ntiles) {
-        stage_columns(tiles + ((t + 1) & 1) * 2 * mat, w_ih, w_hh, d, (t + 1) * kTileC, kTileC);
+        const int c1 = (t + 1) * kTileC;
+        stage_columns(tiles + ((t + 1) & 1) * 2 * mat, w_ih, w_hh, d, c1,
+                      min(kTileC, d - c1), wld);
         copy_commit();
         copy_wait<1>();
       } else {
@@ -339,6 +360,7 @@ __device__ inline void gru_products(GruAcc& acc, const float* x, const float* h,
       const float* wh = wi + mat;
 #pragma unroll
       for (int c4 = 0; c4 < kTileC; c4 += 4) {
+        if (c4 >= cols) break;
         const int c = t * kTileC + c4;
         const float4 xv[2] = {*reinterpret_cast<const float4*>(x + sa * ld + c),
                               *reinterpret_cast<const float4*>(x + (sa + 1) * ld + c)};

@@ -105,8 +105,7 @@ xslot_fwd_kernel(const T* __restrict__ k, const T* __restrict__ v, const T* __re
   }
   __syncthreads();
 
-  const int nq = d >> 2, chunk = 2 * (kThreads / nq);
-  const int q = threadIdx.x % nq, pair = threadIdx.x / nq;
+  const GruTile tile(d);
   for (int it = 0; it < iters; ++it) {
     if (hist_out != nullptr) {
       store_rows(hist_out + ((b * iters + it) * s + s0) * d, slots, ld, sl, d);
@@ -128,17 +127,17 @@ xslot_fwd_kernel(const T* __restrict__ k, const T* __restrict__ v, const T* __re
       copy_wait<0>();
       __syncthreads();
     }
-    for (int base = 0; base < sl; base += chunk) {
-      const int sa = base + 2 * pair;
+    for (int base = 0; base < sl; base += tile.chunk()) {
+      const int sa = tile.first(base, sl);
       GruAcc acc;
-      gru_products(acc, upd, slots, sa, q, sa < sl, tiles, w_ih, w_hh, d, kResident);
+      gru_products(acc, upd, slots, sa, tile.q, sa >= 0, tiles, w_ih, w_hh, d, kResident);
 #pragma unroll
       for (int r = 0; r < 2; ++r) {
         const int si = sa + r;
-        if (si >= sl) break;
+        if (sa < 0 || si >= sl) break;
 #pragma unroll
         for (int u = 0; u < 4; ++u) {
-          const int j = gru_col(q, u, d);
+          const int j = gru_col(tile.q, u, d);
           const float ir = acc.gi[r][0][u] + to_f32(b_ih[j]);
           const float iz = acc.gi[r][1][u] + to_f32(b_ih[d + j]);
           const float in = acc.gi[r][2][u] + to_f32(b_ih[2 * d + j]);
@@ -211,7 +210,7 @@ int xslot_fwd_max_clusters(int n, int s_cta, int d, int resident, int bf16, int 
 // are contiguous device arrays: k, v (B,N,d); slots0 (S,d); w_ih, w_hh
 // (3d,d); b_ih, b_hh (3d), all f32 (bf16 == 0) or all bf16
 // (bf16 == 1); upd (B,S,d), attn (B,S,N) and hist (B,iters,S,d) or nullptr,
-// f32. d % 8 == 0 and 256 % (d/4) == 0.
+// f32. d % 4 == 0 and d <= 4 * kThreads.
 int xslot_fwd(const void* k, const void* v, const void* slots0, const void* w_ih,
               const void* w_hh, const void* b_ih, const void* b_hh, void* upd, void* attn,
               void* hist, int batch, int n, int s, int d, int iters, float scale, int bf16,

@@ -81,21 +81,28 @@ def init_weights(model: nn.Module, generator: torch.Generator) -> None:
 
 
 def build_slot_model(cfg, fused_slot: bool = False, dtype: Optional[torch.dtype] = None,
-                     device="cuda", generator: Optional[torch.Generator] = None) -> SlotModel:
+                     device="cuda", generator: Optional[torch.Generator] = None,
+                     compute_dtype: Optional[torch.dtype] = None) -> SlotModel:
     """Build the SlotModel of a ScouterConfig in eval mode on ``device``.
 
     - MNIST swaps the stem conv for Conv(1->64, 3x3, s2, p1)
     - slot mode reads the backbone's features (no classifier is built)
     - no-slot mode keeps the backbone's ``num_classes`` classifier
-    - ``dtype`` (e.g. bf16) is the backbone's; the slot head stays f32 unless
-      ``cfg.slot_head_dtype == 'compute'``
+    - ``dtype`` (e.g. bf16, serving) casts the backbone's parameters to it;
+      the slot head stays f32 unless ``cfg.slot_head_dtype == 'compute'``
+    - ``compute_dtype`` (e.g. bf16, training) keeps every parameter f32 and
+      runs the backbone's convs, BatchNorms and classifier in it, as the JAX
+      package's ``build_slot_model(cfg, dtype=...)`` (flax's ``dtype`` over
+      f32 ``param_dtype``); the slot head computes in f32 (the refusal of
+      ``slot_head_dtype='compute'`` in training is ``check_training_supported``'s)
     - ``fused_slot`` runs the xSlot loop through the CUDA kernel
       (``ops.slot_kernel``); ``generator`` seeds the init (default: cfg.seed)
     """
     dev = resolve_device(device)
     mnist = cfg.dataset == "MNIST"
     backbone = create_model(cfg.model, num_classes=0 if cfg.use_slot else cfg.num_classes,
-                            in_chans=1 if mnist else 3, mnist_stem=mnist)
+                            in_chans=1 if mnist else 3, mnist_stem=mnist,
+                            compute_dtype=compute_dtype)
     model = SlotModel(
         backbone=backbone,
         use_slot=cfg.use_slot,

@@ -5,6 +5,12 @@ Torch conv padding, BatchNorm with eps 1e-5 (and flax's running-variance
 update in train mode), and the pooling variants the
 ResNet/ResNeSt skips use. Module names follow timm's, so state dicts carry the
 reference's names.
+
+A ``compute_dtype`` (e.g. bf16) is flax's ``dtype`` with f32 ``param_dtype``:
+``Conv2d`` and ``Linear`` cast their input and their f32 parameters to it at
+use, and ``BatchNorm2d`` takes its statistics in f32 from an input in it and
+returns it, with f32 scale, bias and running stats. ``None`` computes in the
+parameters' own dtype (serving's ``model.to(dtype)``).
 """
 
 from __future__ import annotations
@@ -15,6 +21,8 @@ from torch import nn
 
 __all__ = [
     "BatchNorm2d",
+    "Conv2d",
+    "Linear",
     "SplitAttnConv",
     "avg_pool_ceil_exclude_pad",
     "avg_pool_include_pad",
@@ -31,13 +39,46 @@ def torch_conv_padding(kernel_size: int, stride: int, dilation: int = 1) -> int:
     return ((stride - 1) + dilation * (kernel_size - 1)) // 2
 
 
+class Conv2d(nn.Conv2d):
+    """``nn.Conv2d`` computing in ``compute_dtype`` where one is given: the
+    input, weight and bias are cast to it at use (the ``dtype`` of
+    ``scouter_tpu/models/layers.py:88``), the parameters keep their dtype."""
+
+    def __init__(self, *args, compute_dtype=None, **kw):
+        super().__init__(*args, **kw)
+        self.compute_dtype = compute_dtype
+
+    def forward(self, x: torch.Tensor) -> torch.Tensor:
+        dt = self.compute_dtype
+        if dt is None:
+            return super().forward(x)
+        bias = None if self.bias is None else self.bias.to(dt)
+        return self._conv_forward(x.to(dt), self.weight.to(dt), bias)
+
+
+class Linear(nn.Linear):
+    """``nn.Linear`` computing in ``compute_dtype`` where one is given, as
+    ``Conv2d``."""
+
+    def __init__(self, *args, compute_dtype=None, **kw):
+        super().__init__(*args, **kw)
+        self.compute_dtype = compute_dtype
+
+    def forward(self, x: torch.Tensor) -> torch.Tensor:
+        dt = self.compute_dtype
+        if dt is None:
+            return super().forward(x)
+        return F.linear(x.to(dt), self.weight.to(dt), self.bias.to(dt))
+
+
 def conv2d(in_channels: int, out_channels: int, kernel_size: int, *, stride: int = 1,
-           padding=None, dilation: int = 1, groups: int = 1, bias: bool = False) -> nn.Conv2d:
-    """``nn.Conv2d`` with timm's symmetric padding. Marked for the fan-out
+           padding=None, dilation: int = 1, groups: int = 1, bias: bool = False,
+           compute_dtype=None) -> Conv2d:
+    """``Conv2d`` with timm's symmetric padding. Marked for the fan-out
     truncated-normal init of the JAX package's ``conv2d`` (models/__init__.py)."""
     p = torch_conv_padding(kernel_size, stride, dilation) if padding is None else padding
-    conv = nn.Conv2d(in_channels, out_channels, kernel_size, stride=stride, padding=p,
-                     dilation=dilation, groups=groups, bias=bias)
+    conv = Conv2d(in_channels, out_channels, kernel_size, stride=stride, padding=p,
+                  dilation=dilation, groups=groups, bias=bias, compute_dtype=compute_dtype)
     conv.fan_out_init = True
     return conv
 
@@ -55,9 +96,21 @@ class BatchNorm2d(nn.BatchNorm2d):
     and the variance rescaled by (n-1)/n. That is a few per-channel ops more
     per layer and no extra pass over the activations. Eval mode is the stock
     module, unchanged.
+
+    With ``compute_dtype`` (flax's BatchNorm ``dtype``,
+    ``scouter_tpu/models/layers.py:94-106``) the input is cast to it and
+    normalised by ``F.batch_norm`` with the f32 scale, bias and statistics:
+    the statistics and the arithmetic are f32, the output is in
+    ``compute_dtype``.
     """
 
+    def __init__(self, *args, compute_dtype=None, **kw):
+        super().__init__(*args, **kw)
+        self.compute_dtype = compute_dtype
+
     def forward(self, x: torch.Tensor) -> torch.Tensor:
+        if self.compute_dtype is not None:
+            x = x.to(self.compute_dtype)
         if not self.training:
             return super().forward(x)
         c = x.shape[1]
@@ -73,10 +126,10 @@ class BatchNorm2d(nn.BatchNorm2d):
         return y
 
 
-def batch_norm(num_features: int, *, eps: float = 1e-5) -> BatchNorm2d:
+def batch_norm(num_features: int, *, eps: float = 1e-5, compute_dtype=None) -> BatchNorm2d:
     """BatchNorm with torch defaults (momentum 0.1, eps 1e-5), flax's
     running-variance update in train mode (``BatchNorm2d``)."""
-    return BatchNorm2d(num_features, eps=eps, momentum=0.1)
+    return BatchNorm2d(num_features, eps=eps, momentum=0.1, compute_dtype=compute_dtype)
 
 
 def max_pool_3x3_s2_p1(x: torch.Tensor) -> torch.Tensor:
@@ -110,18 +163,19 @@ class SplitAttnConv(nn.Module):
 
     def __init__(self, in_channels: int, out_channels: int, kernel_size: int = 3,
                  stride: int = 1, padding: int = 1, dilation: int = 1, groups: int = 1,
-                 radix: int = 2, reduction_factor: int = 4):
+                 radix: int = 2, reduction_factor: int = 4, compute_dtype=None):
         super().__init__()
         self.radix, self.groups = radix, groups
         mid_chs = out_channels * radix
         attn_chs = max(in_channels * radix // reduction_factor, 32)
-        self.conv = nn.Conv2d(in_channels, mid_chs, kernel_size, stride=stride,
-                              padding=padding, dilation=dilation, groups=groups * radix,
-                              bias=False)
-        self.bn0 = batch_norm(mid_chs)
-        self.fc1 = nn.Conv2d(out_channels, attn_chs, 1, groups=groups)
-        self.bn1 = batch_norm(attn_chs)
-        self.fc2 = nn.Conv2d(attn_chs, mid_chs, 1, groups=groups)
+        dt = compute_dtype
+        self.conv = Conv2d(in_channels, mid_chs, kernel_size, stride=stride, padding=padding,
+                           dilation=dilation, groups=groups * radix, bias=False,
+                           compute_dtype=dt)
+        self.bn0 = batch_norm(mid_chs, compute_dtype=dt)
+        self.fc1 = Conv2d(out_channels, attn_chs, 1, groups=groups, compute_dtype=dt)
+        self.bn1 = batch_norm(attn_chs, compute_dtype=dt)
+        self.fc2 = Conv2d(attn_chs, mid_chs, 1, groups=groups, compute_dtype=dt)
 
     def forward(self, x: torch.Tensor) -> torch.Tensor:
         x = torch.relu(self.bn0(self.conv(x)))

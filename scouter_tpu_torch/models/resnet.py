@@ -14,6 +14,7 @@ import torch
 from torch import nn
 
 from .layers import (
+    Linear,
     SplitAttnConv,
     avg_pool_ceil_exclude_pad,
     avg_pool_include_pad,
@@ -39,29 +40,34 @@ class _AvgPoolCeilExcludePad(nn.Module):
         return avg_pool_ceil_exclude_pad(x, 2, self.stride)
 
 
-def _downsample(in_channels: int, out_channels: int, stride: int, avg_down: bool) -> nn.Sequential:
+def _downsample(in_channels: int, out_channels: int, stride: int, avg_down: bool,
+                compute_dtype=None) -> nn.Sequential:
     """Skip projection with timm's Sequential indices: conv path
     [conv(0), bn(1)]; avg path [pool(0), conv(1), bn(2)]
     (``timm/models/resnet.py:277-306``)."""
+    dt = compute_dtype
     if avg_down:
         pool = _AvgPoolCeilExcludePad(stride) if stride != 1 else nn.Identity()
-        return nn.Sequential(pool, conv2d(in_channels, out_channels, 1, padding=0),
-                             batch_norm(out_channels))
-    return nn.Sequential(conv2d(in_channels, out_channels, 1, stride=stride, padding=0),
-                         batch_norm(out_channels))
+        return nn.Sequential(pool, conv2d(in_channels, out_channels, 1, padding=0,
+                                          compute_dtype=dt),
+                             batch_norm(out_channels, compute_dtype=dt))
+    return nn.Sequential(conv2d(in_channels, out_channels, 1, stride=stride, padding=0,
+                                compute_dtype=dt),
+                         batch_norm(out_channels, compute_dtype=dt))
 
 
 class _BasicBlock(nn.Module):
     """conv3x3(stride)-bn-relu-conv3x3-bn [+proj] -relu (resnet.py:142-199)."""
 
     def __init__(self, inplanes: int, planes: int, stride: int = 1,
-                 has_downsample: bool = False, avg_down: bool = False):
+                 has_downsample: bool = False, avg_down: bool = False, compute_dtype=None):
         super().__init__()
-        self.conv1 = conv2d(inplanes, planes, 3, stride=stride, padding=1)
-        self.bn1 = batch_norm(planes)
-        self.conv2 = conv2d(planes, planes, 3, padding=1)
-        self.bn2 = batch_norm(planes)
-        self.downsample = (_downsample(inplanes, planes, stride, avg_down)
+        dt = compute_dtype
+        self.conv1 = conv2d(inplanes, planes, 3, stride=stride, padding=1, compute_dtype=dt)
+        self.bn1 = batch_norm(planes, compute_dtype=dt)
+        self.conv2 = conv2d(planes, planes, 3, padding=1, compute_dtype=dt)
+        self.bn2 = batch_norm(planes, compute_dtype=dt)
+        self.downsample = (_downsample(inplanes, planes, stride, avg_down, dt)
                            if has_downsample else None)
 
     def forward(self, x):
@@ -76,8 +82,10 @@ class _ResNestBottleneck(nn.Module):
 
     def __init__(self, inplanes: int, planes: int, stride: int = 1, cardinality: int = 1,
                  base_width: int = 64, radix: int = 2, avd: bool = True,
-                 avd_first: bool = False, has_downsample: bool = False, avg_down: bool = True):
+                 avd_first: bool = False, has_downsample: bool = False, avg_down: bool = True,
+                 compute_dtype=None):
         super().__init__()
+        dt = compute_dtype
         group_width = int(planes * (base_width / 64.0)) * cardinality
         outplanes = planes * 4
         # avd: the stride moves out of the 3x3 conv into a 3x3 avg pool
@@ -86,13 +94,13 @@ class _ResNestBottleneck(nn.Module):
         else:
             self.avd_stride, conv_stride = 0, stride
         self.avd_first = avd_first
-        self.conv1 = conv2d(inplanes, group_width, 1, padding=0)
-        self.bn1 = batch_norm(group_width)
+        self.conv1 = conv2d(inplanes, group_width, 1, padding=0, compute_dtype=dt)
+        self.bn1 = batch_norm(group_width, compute_dtype=dt)
         self.conv2 = SplitAttnConv(group_width, group_width, 3, stride=conv_stride, padding=1,
-                                   groups=cardinality, radix=radix)
-        self.conv3 = conv2d(group_width, outplanes, 1, padding=0)
-        self.bn3 = batch_norm(outplanes)
-        self.downsample = (_downsample(inplanes, outplanes, stride, avg_down)
+                                   groups=cardinality, radix=radix, compute_dtype=dt)
+        self.conv3 = conv2d(group_width, outplanes, 1, padding=0, compute_dtype=dt)
+        self.bn3 = batch_norm(outplanes, compute_dtype=dt)
+        self.downsample = (_downsample(inplanes, outplanes, stride, avg_down, dt)
                            if has_downsample else None)
 
     def forward(self, x):
@@ -114,13 +122,16 @@ class ResNet(nn.Module):
     ``block``: 'basic' | 'resnest'. ``stem_type``: '' (7x7) | 'deep' (3x 3x3).
     ``mnist_stem``: the stem conv becomes Conv(in_chans->64, 3x3, s2, p1), the
     reference's MNIST surgery (``sloter/slot_model.py:23-24``).
+    ``compute_dtype``: the dtype the layers compute in over f32 parameters
+    (flax's ``dtype``), or None for the parameters' own.
     """
 
     def __init__(self, block: str = "basic", layers: Sequence[int] = (2, 2, 2, 2),
                  num_classes: int = 1000, in_chans: int = 3, cardinality: int = 1,
                  base_width: int = 64, stem_width: int = 64, stem_type: str = "",
                  avg_down: bool = False, output_stride: int = 32, radix: int = 2,
-                 avd: bool = True, avd_first: bool = False, mnist_stem: bool = False):
+                 avd: bool = True, avd_first: bool = False, mnist_stem: bool = False,
+                 compute_dtype=None):
         super().__init__()
         if block not in _EXPANSION:
             raise NotImplementedError(
@@ -132,21 +143,22 @@ class ResNet(nn.Module):
         self.block = block
         deep_stem = stem_type == "deep"
         inplanes = stem_width * 2 if deep_stem else 64
+        dt = compute_dtype
 
         if mnist_stem:
-            self.conv1 = conv2d(in_chans, 64, 3, stride=2, padding=1)
+            self.conv1 = conv2d(in_chans, 64, 3, stride=2, padding=1, compute_dtype=dt)
             inplanes = 64
         elif deep_stem:
             self.conv1 = nn.Sequential(
-                conv2d(in_chans, stem_width, 3, stride=2, padding=1),
-                batch_norm(stem_width), nn.ReLU(),
-                conv2d(stem_width, stem_width, 3, padding=1),
-                batch_norm(stem_width), nn.ReLU(),
-                conv2d(stem_width, inplanes, 3, padding=1),
+                conv2d(in_chans, stem_width, 3, stride=2, padding=1, compute_dtype=dt),
+                batch_norm(stem_width, compute_dtype=dt), nn.ReLU(),
+                conv2d(stem_width, stem_width, 3, padding=1, compute_dtype=dt),
+                batch_norm(stem_width, compute_dtype=dt), nn.ReLU(),
+                conv2d(stem_width, inplanes, 3, padding=1, compute_dtype=dt),
             )
         else:
-            self.conv1 = conv2d(in_chans, inplanes, 7, stride=2, padding=3)
-        self.bn1 = batch_norm(inplanes)
+            self.conv1 = conv2d(in_chans, inplanes, 7, stride=2, padding=3, compute_dtype=dt)
+        self.bn1 = batch_norm(inplanes, compute_dtype=dt)
 
         expansion = _EXPANSION[block]
         current = inplanes
@@ -157,18 +169,19 @@ class ResNet(nn.Module):
                 stride = stage_stride if block_idx == 0 else 1
                 needs_ds = block_idx == 0 and (stride != 1 or current != planes * expansion)
                 if block == "basic":
-                    blocks.append(_BasicBlock(current, planes, stride, needs_ds, avg_down))
+                    blocks.append(_BasicBlock(current, planes, stride, needs_ds, avg_down, dt))
                 else:
                     blocks.append(_ResNestBottleneck(
                         current, planes, stride, cardinality=cardinality,
                         base_width=base_width, radix=radix, avd=avd, avd_first=avd_first,
-                        has_downsample=needs_ds, avg_down=avg_down))
+                        has_downsample=needs_ds, avg_down=avg_down, compute_dtype=dt))
                 current = planes * expansion
             self.add_module(f"layer{stage_idx}", nn.Sequential(*blocks))
         self.num_features = current
         # num_classes=0 builds no classifier (timm's convention): the slot
         # model reads features only, and the reference checkpoint has no fc
-        self.fc = nn.Linear(current, num_classes) if num_classes > 0 else None
+        self.fc = (Linear(current, num_classes, compute_dtype=dt) if num_classes > 0
+                   else None)
 
     def forward(self, x: torch.Tensor, features_only: bool = False) -> torch.Tensor:
         """x: (B, C, H, W). Returns the (B, num_features, h, w) map when

@@ -20,7 +20,10 @@ gradient formulas out by hand in plain ops, in the kernel's order; it is the
 backward's CPU path.
 
 Each batch element runs on one thread-block cluster of ``c`` CTAs that split
-its slots; ``_plan`` chooses ``c``. The wrapper takes the plain versions only
+its slots; ``_plan`` chooses ``c``. Where the backward's share of an element
+does not fit in a cluster of 8 (S=1000 at N=81, N=196 at S=30), it takes its
+tiled route instead: each iteration a chain of launches over the batch, with
+its intermediates in device memory. The wrapper takes the plain versions only
 for tensors on the CPU; for CUDA tensors it launches the kernels or raises,
 with or without grad.
 """
@@ -148,7 +151,8 @@ class Plan(NamedTuple):
     ``smem_bytes`` of dynamic shared memory; ``resident``: all of the GRU
     weights in shared memory (else they stream through it in tiles);
     ``clusters``: how many such clusters the card holds at once, and
-    ``ctas_per_sm`` the CTAs that makes on one SM when it is full."""
+    ``ctas_per_sm`` the CTAs that makes on one SM when it is full. The
+    backward's tiled route is ``cluster`` 0 (``TILED``)."""
 
     cluster: int
     slots_per_cta: int
@@ -156,6 +160,13 @@ class Plan(NamedTuple):
     ctas_per_sm: int
     resident: bool
     clusters: int
+
+    @property
+    def tiled(self) -> bool:
+        return self.cluster == 0
+
+
+TILED = Plan(0, 0, 0, 0, False, 0)
 
 
 def _smem_bytes(kind: str, n: int, s_cta: int, d: int, resident: bool = False) -> int:
@@ -185,8 +196,8 @@ def _plan(b: int, n: int, s: int, d: int, kind: str, max_smem: int, sms: int, sm
     of the slots fits, raised while the launch still fits in one wave (B
     clusters at once: the SMs of a cluster share one GPC), ``c`` <= 8 and
     ``c`` <= S. The forward keeps the GRU weights resident where they fit
-    beside its share. Raises ``ValueError`` where 8 CTAs cannot hold the
-    shares."""
+    beside its share. Where 8 CTAs cannot hold the shares the backward takes
+    its tiled route (``TILED``) and the forward raises ``ValueError``."""
     top = min(_MAX_CLUSTER, s)
 
     def share(c):
@@ -202,6 +213,8 @@ def _plan(b: int, n: int, s: int, d: int, kind: str, max_smem: int, sms: int, sm
         return active(c, share(c), resident) if nbytes <= max_smem else 0
 
     fits = [c for c in range(1, top + 1) if clusters(c) > 0]
+    if not fits and kind == "bwd":
+        return TILED
     if not fits:
         raise ValueError(
             f"xslot {kind} kernel: S={s}, N={n}, d={d} needs {footprint(top)[0]} bytes of "
@@ -235,7 +248,7 @@ def _library(name: str):
         clusters.argtypes = [ctypes.c_int] * (6 if name == "xslot_fwd" else 4)
         clusters.restype = ctypes.c_int
         if name == "xslot_bwd":
-            lib.xslot_bwd_scratch_floats.argtypes = [ctypes.c_int] * 4
+            lib.xslot_bwd_scratch_floats.argtypes = [ctypes.c_int] * 5
             lib.xslot_bwd_scratch_floats.restype = ctypes.c_size_t
         lib.xslot_max_smem.argtypes = [ctypes.c_int]
         lib.xslot_max_smem.restype = ctypes.c_int
@@ -261,15 +274,17 @@ def _check_cuda_inputs(named, want, dtype):
 
 
 def _check_dim(d):
-    # the GRU's thread tile: d/4 column quads must divide the CTA's threads,
-    # and the weight tiles are 8 columns deep
-    if d % _TILE_C or _THREADS % (d // 4):
-        raise ValueError(f"xslot kernel needs d % 8 == 0 and d/4 dividing {_THREADS}, got d={d}")
+    # rows are loaded four floats at a time, and the GRU's thread tile gives
+    # each of a CTA's threads at most one column quad
+    if d % 4 or not 4 <= d <= 4 * _THREADS:
+        raise ValueError(f"xslot kernel needs d a multiple of 4 up to {4 * _THREADS}, got d={d}")
 
 
 def launch_plan(kind: str, b: int, n: int, s: int, d: int, device, bf16: bool = False) -> Plan:
     """``_plan`` for the card that holds ``device``, with its own count of
-    the clusters it holds at once."""
+    the clusters it holds at once. The backward plans where the forward
+    does (it reads the forward's hist): past the forward's limit its tiled
+    route raises the forward's ``ValueError``."""
     dev = device.index if device.index is not None else torch.cuda.current_device()
     return _device_plan(kind, b, n, s, d, dev, bf16)
 
@@ -291,7 +306,10 @@ def _device_plan(kind, b, n, s, d, dev, bf16):
             _raise_on(lib, -got, f"xslot {kind} occupancy query")
         return got
 
-    return _plan(b, n, s, d, kind, lib.xslot_max_smem(dev), sms, smem, active)
+    plan = _plan(b, n, s, d, kind, lib.xslot_max_smem(dev), sms, smem, active)
+    if plan.tiled:
+        _device_plan("fwd", b, n, s, d, dev, False)
+    return plan
 
 
 def _raise_on(lib, err, what):
@@ -358,7 +376,7 @@ def _launch_bwd(k, v, w_ih, w_hh, b_ih, b_hh, hist, du, dattn):
     if b == 0:
         return tuple(g.zero_() for g in grads)
     lib = _library("xslot_bwd")
-    scratch = torch.empty(lib.xslot_bwd_scratch_floats(b, s, d, plan.cluster),
+    scratch = torch.empty(lib.xslot_bwd_scratch_floats(b, n, s, d, plan.cluster),
                           dtype=torch.float32, device=k.device)
     with torch.cuda.device(k.device):
         stream = torch.cuda.current_stream(k.device).cuda_stream
@@ -366,7 +384,10 @@ def _launch_bwd(k, v, w_ih, w_hh, b_ih, b_hh, hist, du, dattn):
                             *(g.data_ptr() for g in grads), scratch.data_ptr(),
                             b, n, s, d, iters, float(d) ** -0.5, plan.cluster, stream)
     _raise_on(lib, err, "xslot backward kernel")
-    xslot_iterations_fused.bwd_launches += 1
+    if plan.tiled:
+        xslot_iterations_fused.bwd_tiled_launches += 1
+    else:
+        xslot_iterations_fused.bwd_launches += 1
     return grads
 
 
@@ -412,11 +433,11 @@ def xslot_iterations_fused(k, v, initial_slots, w_ih, w_hh, b_ih, b_hh, iters: i
     runs without hist. CPU tensors take the plain versions either way.
 
     Limits of the CUDA kernels, each raising ``ValueError``: d a multiple of
-    8 with d/4 dividing 256 (8, 16, 32, 64, 128, ...); each CTA of a cluster
-    of at most 8 holds all of k and v (the backward also dk and dv) and its
-    share of the slots in shared memory, so at d=64 the forward runs up to
-    N=343 at S=30 and S=1000 at N=81, and the backward up to N=166 at S=30
-    (img_size 384 at stride 32) and S=125 at N=81, not S=1000.
+    4 up to 1024; each CTA of a cluster of at most 8 holds all of k and v
+    and its share of the slots in shared memory, so at d=64 the forward runs
+    up to N=343 at S=30 and S=1024 at N=81 (S=416 at N=196). The backward
+    runs wherever the forward does: on a cluster where its share fits (at
+    d=64 up to N=166 at S=30 and S=125 at N=81), else on its tiled route.
     """
     args = (k, v, initial_slots, w_ih, w_hh, b_ih, b_hh)
     if torch.is_grad_enabled() and any(t.requires_grad for t in args):
@@ -430,8 +451,10 @@ def xslot_iterations_fused(k, v, initial_slots, w_ih, w_hh, b_ih, b_hh, iters: i
 
 
 # launches of the forward kernel, with and without hist (the CPU path does not
-# count), of those the launches that emitted hist, and calls of the backward
-# kernel (each one gradient launch and its fixed-order sum)
+# count), of those the launches that emitted hist, calls of the backward
+# kernel on a cluster (each one gradient launch and its fixed-order sum) and
+# calls of its tiled route (each its chain of launches)
 xslot_iterations_fused.launches = 0
 xslot_iterations_fused.hist_launches = 0
 xslot_iterations_fused.bwd_launches = 0
+xslot_iterations_fused.bwd_tiled_launches = 0

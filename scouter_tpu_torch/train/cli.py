@@ -27,14 +27,16 @@ __all__ = ["main", "model_cost", "param_translation"]
 
 
 def model_cost(cfg) -> List[float]:
-    """[params_M, GFLOPs] of one forward at (1, C, 260, 260) on cfg.device.
-    The slot loop runs as plain ops here so that the counter sees it."""
+    """[params_M, GFLOPs] of one forward at (1, C, 260, 260) on cfg.device,
+    in the config's compute dtype. The slot loop runs as plain ops here so
+    that the counter sees it."""
     import torch
     from torch.utils.flop_counter import FlopCounterMode
 
+    from ..core.config import compute_dtype
     from ..models import build_slot_model
 
-    model = build_slot_model(cfg, device=cfg.device)
+    model = build_slot_model(cfg, device=cfg.device, compute_dtype=compute_dtype(cfg))
     chans = 1 if cfg.dataset == "MNIST" else 3
     x = torch.zeros((1, chans, 260, 260), device=next(model.parameters()).device)
     n_params = sum(p.numel() for p in model.parameters())

@@ -13,6 +13,11 @@ JAX trainer builds ``fused_slot=False`` because XLA fuses the plain slot ops;
 eager PyTorch does not, so the port trains through the hand-written kernel.
 The numbers are the same: the kernel's forward and gradient equal the plain
 loop's.
+
+``compute_dtype='bfloat16'`` trains as the JAX package's Trainer does
+(``scouter_tpu/train/loop.py:71-77``): the backbone's convs and BatchNorms
+compute in bf16 from f32 master parameters, the slot head (and so K1) and
+the loss stay f32, AdamW's state is f32, and checkpoints hold f32 weights.
 """
 
 from __future__ import annotations
@@ -24,7 +29,7 @@ from typing import Dict, List
 import torch
 
 from ..core.checkpoint import checkpoint_path, restore_checkpoint, save_checkpoint
-from ..core.config import ScouterConfig, check_training_supported
+from ..core.config import ScouterConfig, check_training_supported, compute_dtype
 from ..core.device import resolve_device
 from ..data import Loader, select_dataset
 from ..models import build_slot_model
@@ -66,7 +71,8 @@ class Trainer:
         check_training_supported(cfg)
         self.cfg = cfg
         self.device = resolve_device(cfg.device)
-        self.model = build_slot_model(cfg, fused_slot=True, device=self.device)
+        self.model = build_slot_model(cfg, fused_slot=True, device=self.device,
+                                      compute_dtype=compute_dtype(cfg))
         if datasets is None:
             datasets = (select_dataset(cfg, train=True), select_dataset(cfg, train=False))
         ds_train, ds_val = datasets

@@ -81,7 +81,9 @@ def make_optimizer(params, base_lr: float) -> torch.optim.AdamW:
 def create_train_state(model: nn.Module, base_lr: float, freeze_layers: int = 0,
                        pre_trained: bool = False) -> TrainState:
     """Mark the frozen parameters ``requires_grad=False`` and build AdamW over
-    the rest. A fresh optimizer state each call (``load_variables`` parity)."""
+    the rest. A fresh optimizer state each call (``load_variables`` parity).
+    AdamW's moments take the parameters' dtype: f32, also under a bf16
+    compute dtype (``build_slot_model(..., compute_dtype=...)``)."""
     labels = make_freeze_labels((n for n, _ in model.named_parameters()),
                                 freeze_layers, pre_trained)
     trainable = []

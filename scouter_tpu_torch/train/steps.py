@@ -6,7 +6,9 @@ training; forward and metrics under ``torch.no_grad()`` for eval. Metrics
 the epoch loop sums them there and fetches once per epoch, where the
 reference syncs with ``.item()`` every batch (``engine.py:36``).
 
-Mode switches are part of the step: ``build_slot_model`` returns the model in
+Under a bf16 compute dtype the model's logits may be bf16; the loss and the
+metrics are reduced in f32 (``ops.losses`` upcasts the logits), as in
+``scouter_tpu/train/steps.py``. Mode switches are part of the step: ``build_slot_model`` returns the model in
 eval mode, the train step puts it in train mode (batch statistics, running
 stats updated) and the eval step back in eval mode, so the slot head's K1
 call takes the hist build under grad and the hist-free build in eval.

@@ -364,8 +364,11 @@ def test_expand_sweep_matches_jax(argv):
     ("ckpt_async", True), ("compute_dtype", "bfloat16")])
 def test_training_refuses_what_is_not_ported(flag, value):
     check_training_supported(ScouterConfig(device="cpu"))
+    # bf16 training is ported; a slot head that follows it (a bf16 K1
+    # gradient) is not
+    extra = {"slot_head_dtype": "compute"} if flag == "compute_dtype" else {}
     with pytest.raises(NotImplementedError, match=flag):
-        check_training_supported(ScouterConfig(device="cpu", **{flag: value}))
+        check_training_supported(ScouterConfig(device="cpu", **{flag: value}, **extra))
 
 
 def test_cli_sweep_trains_on_the_cpu(tmp_path, capsys):
