@@ -20,16 +20,19 @@ Phases (any failure exits non-zero; nothing is caught and passed over):
    version; then the backward where no cluster of 8 holds an element's
    share, on its tiled route, at the CUB recipe's (16, 81, 1000) and 448
    px's (70, 196, 30), and on a cluster at d=48 (16, 49, 30): the forward
-   with hist against its plain version, the backward against
-   ``xslot_bwd_ref`` and the op's gradient against autograd through the
-   plain version, bit for bit across two calls, with plans, times and
-   bounds;
+   with hist against its plain version (and its time at (16, 81, 1000)),
+   the backward against ``xslot_bwd_ref`` and the op's gradient against
+   autograd through the plain version, bit for bit across two calls, with
+   plans, times and bounds, and the tiled route's plan (tile widths, pieces,
+   scratch, launches a call) from the C library held to its Python copy;
 4. serve flagship resnest26d + xSlot (f32, seeded random weights) through
    ``InferenceEngine`` (requests from several threads) and the HTTP server
    (``.npy`` bodies, one with ``?maps=1``, and ``/healthz``), counting the
    kernel launches of this phase;
 5. the same weights on the card and on the CPU: logits within 1e-3;
-6. serving throughput of ``make_serving_fn`` at batch 70, f32 and bf16;
+6. serving throughput of ``make_serving_fn`` at batch 70, f32 and bf16, the
+   bf16 model's BatchNorm tensors f32 and its uint8 slot maps' largest level
+   difference from f32's;
 7. train the flagship through ``scouter_tpu_torch.train.cli.main`` on the
    synthetic ImageNet stand-in for two epochs, then resume for a third:
    finite metrics, the reference's checkpoint names, K1's hist launches and
@@ -436,15 +439,45 @@ def phase_kernel_grad(entry):
             "bound_ms_by_batch": {str(k): t[1] for k, t in sorted(times.items())}}
 
 
-def phase_kernel_grad_tiled():
+def check_tiled_plans(shapes):
+    """The tiled route's plan from the C library (``xslot_tiled_plan`` and the
+    scratch it sizes) against ``slot_kernel.tiled_plan``, its Python copy, at
+    each (B, N, S, d); returns the library's plans."""
+    import torch
+
+    from scouter_tpu_torch.ops import slot_kernel
+
+    sms = torch.cuda.get_device_properties(0).multi_processor_count
+    plans = {}
+    for b, n, s, d in shapes:
+        plan = slot_kernel.launch_tiled_plan(b, n, s, d, 3, torch.device("cuda"))
+        py = slot_kernel.tiled_plan(b, n, s, d, 3, sms)
+        prods = ", ".join(f"{k} {p.rows} rows x {p.tile_cols}-column tiles"
+                          + (f" in {p.pieces} pieces" if p.pieces > 1 else "")
+                          for k, p in plan.products.items())
+        print(f"xslot_bwd tiled plan B={b} N={n} S={s} d={d}: {plan.launches} launches a call, "
+              f"{plan.scratch_floats} scratch floats, row passes "
+              f"{'in the epilogues' if plan.fused else 'apart'}; {prods}", flush=True)
+        if plan != py:
+            fail(f"the tiled route's plan at B={b} N={n} S={s} d={d} is {plan} in the C "
+                 f"library and {py} in slot_kernel.tiled_plan")
+        if plan.launches > 50:
+            fail(f"the tiled route makes {plan.launches} launches a call at B={b} N={n} S={s}")
+        plans[f"{b},{n},{s},d={d}"] = plan
+    return plans
+
+
+def phase_kernel_grad_tiled(entry):
     """K1's backward where it leaves the cluster: at the CUB recipe's (16,
     81, 1000) and 448 px's (70, 196, 30) on its tiled route, and at d=48
     (16, 49, 30) on a cluster. At each, the forward with hist against its
     plain version to bench.py:85-86's S=1000 bars, the backward against
     ``xslot_bwd_ref`` and the op's gradient against autograd through the
     plain version to chip_smoke's gradient bar, two backward calls equal bit
-    for bit, its plan, time in a CUDA graph and bound. Returns the tiled
-    route's kernels-line entry."""
+    for bit, its plan, time in a CUDA graph and bound; the tiled plans held
+    to their Python copy (also at (64, 81, 1000)). Adds the forward with
+    hist's time at (16, 81, 1000) to the forward's ``entry``; returns the
+    tiled route's kernels-line entry."""
     import torch
 
     from scouter_tpu_torch.ops import slot_kernel
@@ -452,6 +485,7 @@ def phase_kernel_grad_tiled():
     fused, ref = slot_kernel.xslot_iterations_fused, slot_kernel.xslot_iterations_ref
     names = ("k", "v", "initial_slots", "w_ih", "w_hh", "b_ih", "b_hh")
     worst, times, tiled = 0.0, {}, {}
+    tiled_plans = check_tiled_plans(((16, 81, 1000, 64), (64, 81, 1000, 64), (70, 196, 30, 64)))
     for b, n, s, d in ((16, 81, 1000, 64), (70, 196, 30, 64), (16, 49, 30, 48)):
         label = f"{b},{n},{s},d={d}"
         args = xslot_inputs(b, n, s, d, "cuda")
@@ -466,6 +500,15 @@ def phase_kernel_grad_tiled():
               f"1e-3), max|d attn| {e_attn:.3e} (bar 2e-2)", flush=True)
         if not (e_upd < 1e-3 and e_attn < 2e-2):
             fail(f"xslot_fwd with hist disagrees with xslot_fwd_ref at {label}")
+        if (b, n, s) == (16, 81, 1000):  # the CUB train step's forward
+            with torch.no_grad():
+                hist_ms = graph_ms(lambda: slot_kernel._launch(*args, 3, emit_hist=True),
+                                   reps=20, iters=10)
+            hist_bound_ms, hist_bound_by = xslot_bound(b, n, s, d, hist_iters=3)
+            print(f"xslot_fwd+hist B={b} N={n} S={s} d={d}: {hist_ms:.5f} ms in a CUDA graph, "
+                  f"bound {hist_bound_ms:.5f} ms ({hist_bound_by})", flush=True)
+            entry.update(cub_hist_ms=hist_ms, cub_hist_bound_ms=hist_bound_ms,
+                         cub_hist_bound_by=hist_bound_by)
         args64 = [a.double() for a in args]
         with torch.no_grad():
             upd64, attn64 = ref(*args64)
@@ -500,12 +543,16 @@ def phase_kernel_grad_tiled():
             worst = max(worst, err)
     if list(tiled) != ["16,81,1000,d=64", "70,196,30,d=64"]:
         fail(f"xslot_bwd took its tiled route at {list(tiled)}")
+    for label, plan in tiled_plans.items():
+        if label in times:
+            times[label]["launches_per_call"] = plan.launches
     cub = tiled["16,81,1000,d=64"]
     return {"name": "xslot_bwd_tiled", "route": "cuda",
             "source": "scouter_tpu_torch/csrc/xslot_bwd.cu",
             "replaces": "scouter_tpu/ops/slot_pallas.py:168", "max_abs_err": worst,
             "ms": cub["ms"], "plain_ms": cub["plain_ms"], "bound_ms": cub["bound_ms"],
-            "bound_by": cub["bound_by"], "library_ms": None, "by_shape": times}
+            "bound_by": cub["bound_by"], "library_ms": None,
+            "launches_per_call": tiled_plans["16,81,1000,d=64"].launches, "by_shape": times}
 
 
 def post(url: str, body: bytes) -> dict:
@@ -611,6 +658,10 @@ def phase_gpu_vs_cpu(cfg, state_dict):
 
 
 def phase_throughput(cfg, state_dict, card: str):
+    """Serving img/s in f32 and bf16; the bf16 model's BatchNorm weights,
+    biases and running statistics must be f32 (flax's f32 ``param_dtype``),
+    and the largest level difference of its uint8 maps from f32's is
+    printed."""
     import numpy as np
     import torch
 
@@ -619,8 +670,18 @@ def phase_throughput(cfg, state_dict, card: str):
     bs = cfg.batch_size
     images = torch.from_numpy(np.random.RandomState(3).randint(
         0, 256, (bs, cfg.img_size, cfg.img_size, 3), np.uint8)).cuda()
+    maps = {}
     for name, dtype in (("float32", None), ("bfloat16", torch.bfloat16)):
         fn = make_serving_fn(cfg, state_dict, compute_dtype=dtype, device="cuda")
+        bns = [m for m in fn.model.modules() if isinstance(m, torch.nn.BatchNorm2d)]
+        wrong = [t.dtype for m in bns
+                 for t in (m.weight, m.bias, m.running_mean, m.running_var)
+                 if t.dtype != torch.float32]
+        print(f"serving {name}: {len(bns)} BatchNorms, their parameters and running "
+              f"statistics {'f32' if not wrong else wrong}", flush=True)
+        if not bns or wrong:
+            fail(f"{name} serving holds BatchNorm tensors in {set(wrong)}, not float32")
+        maps[name] = fn(images)["slot_maps"].cpu().numpy().astype(int)
         for _ in range(3):
             fn(images)
         torch.cuda.synchronize()
@@ -634,6 +695,10 @@ def phase_throughput(cfg, state_dict, card: str):
             fail(f"non-finite logits in the {name} throughput run")
         print(f"throughput make_serving_fn bs={bs} {name}: {bs / dt:.1f} img/s "
               f"({dt * 1e3:.2f} ms/batch) on {card}", flush=True)
+    gap = np.abs(maps["bfloat16"] - maps["float32"])
+    print(f"serving bs={bs}: bf16 vs f32 uint8 slot maps on the card, max level "
+          f"difference {gap.max()}, mean {gap.mean():.3f}, share of pixels more than 2 "
+          f"levels apart {(gap > 2).mean():.4f}", flush=True)
 
 
 def run_cli(main, flags):
@@ -1259,7 +1324,7 @@ def main() -> int:
 
     entry = phase_kernels()
     bwd_entry = phase_kernel_grad(entry)
-    tiled_entry = phase_kernel_grad_tiled()
+    tiled_entry = phase_kernel_grad_tiled(entry)
 
     cfg = ScouterConfig(**FLAGSHIP)
     state_dict = build_slot_model(cfg, device="cpu").state_dict()

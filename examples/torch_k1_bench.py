@@ -13,7 +13,8 @@ calls, all five and their median). Timers and inputs are chip_smoke.py's.
 With ``--tiled`` it times instead the backward's tiled route at the CUB
 recipe's (16, 81, 1000) and (64, 81, 1000) and at 448 px's (70, 196, 30)
 in a CUDA graph, and splits one call's device time by kernel under
-``torch.profiler``. Prints one JSON line with the card's name and power
+``torch.profiler``, whose events also count the call's launches and give
+each launch's device time in order. Prints one JSON line with the card's name and power
 limit; ``--out`` also appends it to a file.
 """
 
@@ -87,7 +88,7 @@ def tiled_backward(slot_kernel):
 
     from chip_smoke import graph_ms, xslot_inputs
 
-    out = {"tiled_bwd_device_ms": {}, "tiled_bwd_kernels_ms": {}}
+    out = {"tiled_bwd_device_ms": {}, "tiled_bwd_kernels_ms": {}, "tiled_bwd_launches": {}}
     for b, n, s in ((16, 81, 1000), (64, 81, 1000), (70, 196, 30)):
         args = xslot_inputs(b, n, s, 64, "cuda")
         with torch.no_grad():
@@ -100,6 +101,10 @@ def tiled_backward(slot_kernel):
             with profile(activities=[ProfilerActivity.CUDA]) as prof:
                 slot_kernel._launch_bwd(*res, *cot)
                 torch.cuda.synchronize()
+        out.setdefault("tiled_bwd_launch_us", {})[key] = [
+            [ev.name[:48], round(ev.time_range.elapsed_us(), 2)]
+            for ev in sorted(prof.events(), key=lambda e: e.time_range.start)
+            if ev.device_type == torch.autograd.DeviceType.CUDA]
         kernels = {}
         for ev in prof.key_averages():
             ms = getattr(ev, "device_time_total", getattr(ev, "cuda_time_total", 0)) / 1e3
@@ -107,6 +112,7 @@ def tiled_backward(slot_kernel):
                 kernels[ev.key[:60]] = [ev.count, ms]
         out["tiled_bwd_kernels_ms"][key] = dict(
             sorted(kernels.items(), key=lambda kv: -kv[1][1]))
+        out["tiled_bwd_launches"][key] = sum(count for count, _ in kernels.values())
     return out
 
 

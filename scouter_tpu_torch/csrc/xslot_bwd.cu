@@ -266,16 +266,18 @@ xslot_bwd_kernel(const float* __restrict__ k, const float* __restrict__ v,
   if (c > 1) cluster.sync();
 }
 
-// The sums over the batch, each added in a fixed order: the CTAs' dW and db
-// partials (partial p at partials + p * per_cta) into dw_ih, dw_hh (3d x d),
-// db_ih, db_hh (3d), and the elements' rows of dslots0 (B, S*d) into d_init.
-__global__ void xslot_bwd_sum_kernel(const float* __restrict__ partials, int nparts,
-                                     const float* __restrict__ dslots0, int batch, int sd, int d,
-                                     float* __restrict__ dw_ih, float* __restrict__ dw_hh,
-                                     float* __restrict__ db_ih, float* __restrict__ db_hh,
-                                     float* __restrict__ d_init) {
+// Output e of the sums over the batch, each added in a fixed order: the CTAs'
+// dW and db partials (partial p at partials + p * per_cta) into dw_ih, dw_hh
+// (3d x d), db_ih, db_hh (3d), and the elements' rows of dslots0 (B, S*d)
+// into d_init.
+__device__ __forceinline__ void sum_partials(int e, const float* __restrict__ partials,
+                                             int nparts, const float* __restrict__ dslots0,
+                                             int batch, int sd, int d, float* __restrict__ dw_ih,
+                                             float* __restrict__ dw_hh,
+                                             float* __restrict__ db_ih,
+                                             float* __restrict__ db_hh,
+                                             float* __restrict__ d_init) {
   const int per_cta = (int)partial_floats(d), dd = 3 * d * d;
-  const int e = blockIdx.x * blockDim.x + threadIdx.x;
   if (e < per_cta) {
     float acc = 0.0f;
     for (int i = 0; i < nparts; ++i) acc += partials[(size_t)i * per_cta + e];
@@ -296,24 +298,63 @@ __global__ void xslot_bwd_sum_kernel(const float* __restrict__ partials, int npa
   }
 }
 
+// The cluster route's sums over the batch (sum_partials), one thread an output.
+__global__ void xslot_bwd_sum_kernel(const float* __restrict__ partials, int nparts,
+                                     const float* __restrict__ dslots0, int batch, int sd, int d,
+                                     float* __restrict__ dw_ih, float* __restrict__ dw_hh,
+                                     float* __restrict__ db_ih, float* __restrict__ db_hh,
+                                     float* __restrict__ d_init) {
+  sum_partials(blockIdx.x * blockDim.x + threadIdx.x, partials, nparts, dslots0, batch, sd, d,
+               dw_ih, dw_hh, db_ih, db_hh, d_init);
+}
+
 // ------------------------------------------------------------ tiled route
 //
 // Where an element's share of the slots does not fit in a cluster of 8 CTAs
 // (S=1000 at N=81, N=196 at S=30, at d=64), each iteration's backward runs
 // as a chain of launches over the whole batch, its intermediates in device
-// memory: tiled products (tiled_gemm) and row-wise passes. Every output
-// element adds its terms in a fixed order, so the route is as deterministic
-// as the fused kernel; the sums over slots (T, sum_i rg_i / rs_i, dk, dv, dW, db) are
-// products or row passes with the slots as their inner dimension. A product
-// with a long inner dimension and too few output tiles to fill the card (dk,
-// dv and dW over S=1000 slots) splits its inner dimension into up to
-// kMaxSplit pieces, each CTA writing its piece's sums, and gemm_reduce adds
-// the pieces in order.
+// memory (~3.5 MB an element at (81, 1000), held in L2 between launches).
+// Every output element adds its terms in a fixed order in f32 FMA, with no
+// float atomics and no TF32, so the route gives the same bits from call to
+// call.
+//
+// What bounds it: the products, 7.7 GFLOP at (16, 81, 1000), 0.115 ms at the
+// card's f32 rate (the bytes take 0.007 ms). What the design does about it:
+// - tile_gemm, a register-tiled SIMT product: a CTA of 256 threads computes
+//   a 128 x BN tile (BN 64 or 128, tile_cols picks per product), each thread
+//   8 x BN/16 outputs. Both operands are staged k-major in shared memory, 16
+//   inner terms a stage, two stages deep (Route: cp.async where an operand
+//   is contiguous along the tile, register loads stored down the columns
+//   where it is contiguous along the inner terms), and read back as float4:
+//   at BN = 128 four shared loads feed 64 FMAs. The epilogue goes through
+//   shared memory half a tile at a time, so its loads and stores are
+//   coalesced whatever the output's alignment (N=81 rows are not).
+// - Products whose second operand the batch shares (the GRU's gates and
+//   their input gradients) fold the batch into rows: one product over B*S
+//   rows.
+// - Independent products of one shape share a launch, the grid picking the
+//   operand pair: gi with gh, dx with dh, dW_ih with dW_hh, dv with dk.
+// - Where one CTA tile spans a whole row (N <= 128), the row passes run in a
+//   product's epilogue: the dots' row sums, and the renorm's gradient (G, rg,
+//   rg / rs) with P. db rides in dW's product as the row sums of its first
+//   operand. These row sums (rs, rg) are added in f64: the renorm divides by
+//   rs, which is near zero on some rows, and its gradient by rs^2. Each
+//   element's totals (T, sum_i rg_i / rs_i) are taken in every CTA of the
+//   pass that reads them, in a fixed order.
+// - Products with the slots as their inner dimension and too few tiles to
+//   fill the card (dW, dv and dk at B=16) split the slots into pieces. Each
+//   (piece, element) keeps its own partial across the iterations; the first
+//   iteration to write one stores it, and the route's last launch adds them
+//   in order. An unsplit dv or dk goes straight to its output.
+// tiled_plan gives each product's tile width, pieces and rows, the scratch
+// and the launches of one call: 30 at (16, 81, 1000).
 
-constexpr int kGemmTile = 64;   // output rows and columns of one CTA
-constexpr int kGemmDepth = 16;  // inner dimension staged per step
-constexpr int kMaxSplit = 8;    // pieces of a split inner dimension
+constexpr int kBM = 128;          // rows of a product's CTA tile
+constexpr int kBK = 16;           // inner terms staged per pipeline stage
+constexpr int kMaxSplit = 8;      // pieces of a split inner dimension
 constexpr int kSplitDepth = 128;  // the least inner length of a piece
+constexpr int kBatch = 8;         // elements per thread of the elementwise passes, loaded
+                                  // together
 
 // Element (z, r, c) of an operand at p[z * sz + r * sr + c * sc] (z the
 // batch element).
@@ -322,148 +363,425 @@ struct View {
   long long sz, sr, sc;
 };
 
-// c(z, m, j) = [c(z, m, j) +] [add(z, m, j) +] acc * mul / div, with c's
-// rows ldc floats apart and its elements zc apart
-__device__ __forceinline__ void store_out(float* __restrict__ c, long long zc, int ldc, int z,
-                                          int m, int j, float acc, float mul, float div,
-                                          const View& add, int accumulate) {
-  float v = acc * mul / div;
-  if (add.p) v = add.p[z * add.sz + m * add.sr + j * add.sc] + v;
-  float* o = c + z * zc + (long long)m * ldc + j;
-  *o = accumulate ? *o + v : v;
+// One product of a launch: c(z, m, j) = [c +] [add +] (sum_i a(z, m, i)
+// b(z, i, j)) * (mul / div). Piece q of a split product writes at
+// c + q * pc + z * zc + m * ldc + j; a row output of the epilogue at
+// rowout + q * pc + z * rz + m.
+struct Prod {
+  View a, b, add;
+  float* c;
+  long long pc, zc;
+  int ldc, accumulate;
+  float mul, div;
+  float* rowout;
+  long long rz;
+};
+
+// What tile_gemm's epilogue does beyond the store: the outputs' row sums into
+// rowout (the dots' rs); the renorm's gradient in place of P (kRenorm); the
+// row sums of the first operand over the piece's inner terms into rowout,
+// stored or added as c is (kSumA, dW's db).
+enum Epilogue { kStore = 0, kRowSum = 1, kRenorm = 2, kSumA = 3 };
+
+// kRenorm's operands: attn and dots in c's layout, rs, rg and q one per row
+// as rowout. G = P attn (1 - attn) replaces P, rg = sum_j G D, q = rg / rs.
+struct Renorm {
+  const float* attn;
+  const float* dots;
+  const float* rs;
+  float* rg;
+  float* q;
+};
+
+// The launch's extent: rows x cols outputs over `inner` terms, row m being
+// row m % fold of element z + m / fold (fold == rows: one element a grid
+// slice, z from the grid); `batch` grid slices, the inner terms in `pieces`
+// pieces of `chunk`.
+struct Shape {
+  int rows, cols, inner, fold, batch, pieces, chunk;
+};
+
+__host__ __device__ inline int ceil_div(long long a, long long b) { return (int)((a + b - 1) / b); }
+
+__device__ __forceinline__ void copy1(float* dst, const float* src) {
+  const unsigned addr = (unsigned)__cvta_generic_to_shared(dst);
+  asm volatile("cp.async.ca.shared.global [%0], [%1], 4;\n" ::"r"(addr), "l"(src));
 }
 
-// c(z, m, j) = [c +] [add +] (sum_i a(z, m, i) b(z, i, j)) * mul / div
-// (store_out) for m < rows, j < cols. Each thread holds 4 x 4 outputs (rows
-// ty + 16u, columns tx + 16v) and adds the inner terms in order. blockIdx.z
-// = piece * batch + z: with `part`, piece p sums i in [p chunk, (p+1) chunk)
-// into part[blockIdx.z][m][j] for gemm_reduce, else chunk >= inner.
-__global__ void __launch_bounds__(kThreads)
-tiled_gemm(View a, View b, View add, float* __restrict__ c, long long zc, int ldc, int rows,
-           int cols, int inner, float mul, float div, int accumulate, int batch, int chunk,
-           float* __restrict__ part) {
-  __shared__ float as[kGemmDepth][kGemmTile + 1];
-  __shared__ float bs[kGemmDepth][kGemmTile + 1];
-  const int z = blockIdx.z % batch, m0 = blockIdx.y * kGemmTile, j0 = blockIdx.x * kGemmTile;
-  const int i_begin = (blockIdx.z / batch) * chunk, i_end = min(inner, i_begin + chunk);
-  const int tx = threadIdx.x % 16, ty = threadIdx.x / 16;
-  const float* ap = a.p + z * a.sz;
-  const float* bp = b.p + z * b.sz;
-  // stage along the operand's contiguous dimension where it has one
-  const bool a_rows = a.sc == 1, b_rows = b.sc != 1 && b.sr == 1;
-  float acc[4][4] = {};
-  for (int i0 = i_begin; i0 < i_end; i0 += kGemmDepth) {
-    for (int e = threadIdx.x; e < kGemmDepth * kGemmTile; e += kThreads) {
-      int i = a_rows ? e % kGemmDepth : e / kGemmTile;
-      int m = a_rows ? e / kGemmDepth : e % kGemmTile;
-      as[i][m] = (m0 + m < rows && i0 + i < i_end)
-                     ? ap[(m0 + m) * a.sr + (long long)(i0 + i) * a.sc] : 0.0f;
-      i = b_rows ? e % kGemmDepth : e / kGemmTile;
-      const int j = b_rows ? e / kGemmDepth : e % kGemmTile;
-      bs[i][j] = (j0 + j < cols && i0 + i < i_end)
-                     ? bp[(long long)(i0 + i) * b.sr + (j0 + j) * b.sc] : 0.0f;
+// How an operand reaches shared memory, as t[i][e] = x(e, i) for the kBK
+// inner terms i of a stage and the E rows or columns e of the tile, rows of
+// E + 4 floats (zero past the tile's edge or the piece's end):
+// - kCopy16: contiguous and 16-byte aligned along e: 16-byte cp.async copies
+//   of elements e4..e4+3 (e4 = 4 (tid % (E/4))).
+// - kCopy4: contiguous along e but not aligned (or along neither): 4-byte
+//   cp.async copies of element e = tid % E, neighbouring threads on
+//   neighbouring addresses.
+// - kTranspose: contiguous along i: four inner terms i4..i4+3 of rows tid/4
+//   (+ 64) loaded into registers (one 16-byte load where `vec_i`), four
+//   threads on one 64-byte run of a row, and stored down the tile's column
+//   after the stage's compute (the 4-float row padding keeps those stores
+//   at two ways per bank).
+enum Route { kCopy16 = 0, kCopy4 = 1, kTranspose = 2 };
+
+template <int E>
+struct Operand {
+  static constexpr int kLd = E + 4;                    // row stride in shared memory
+  static constexpr int kGroups = E * kBK / (4 * kThreads);  // 4-float groups a thread
+  int route, valid4;  // kCopy16: elements of the thread's group inside the edge
+  bool vec_i;
+  long long si;       // inner stride
+  const float* ptr[kGroups];  // kTranspose: each group's row, else ptr[0] (null past the edge)
+  float4 reg[kGroups];
+
+  // `elem(e)`: the address of element (e, 0), e inside the tile's `limit`.
+  template <typename F>
+  __device__ __forceinline__ Operand(int route_, bool vec_i_, long long si_, int limit, F elem)
+      : route(route_), valid4(0), vec_i(vec_i_), si(si_) {
+    const int tid = threadIdx.x;
+    if (route == kCopy16) {
+      const int e4 = 4 * (tid % (E / 4));
+      valid4 = max(0, min(4, limit - e4));
+      ptr[0] = valid4 > 0 ? elem(e4) : nullptr;
+    } else if (route == kCopy4) {
+      ptr[0] = tid % E < limit ? elem(tid % E) : nullptr;
+    } else {
+#pragma unroll
+      for (int g = 0; g < kGroups; ++g) {
+        const int e = tid / 4 + g * (kThreads / 4);
+        ptr[g] = e < limit ? elem(e) : nullptr;
+      }
     }
-    __syncthreads();
+  }
+
+  // Starts the stage of inner terms [i0, i0 + kBK) (below iend) into t: the
+  // cp.async copies, or the loads into registers for store().
+  __device__ __forceinline__ void issue(float* t, int i0, int iend) {
+    const int tid = threadIdx.x;
+    if (route == kCopy16) {
+      constexpr int q = E / 4;
+      const int e4 = 4 * (tid % q);
 #pragma unroll
-    for (int i = 0; i < kGemmDepth; ++i) {
-      float av[4], bv[4];
+      for (int r = 0; r < kGroups; ++r) {
+        const int i = tid / q + r * (kThreads / q);
+        float* dst = t + i * kLd + e4;
+        const float* src = ptr[0] + (long long)(i0 + i) * si;
+        if (i0 + i >= iend || valid4 == 0) {
+          *reinterpret_cast<float4*>(dst) = make_float4(0.0f, 0.0f, 0.0f, 0.0f);
+        } else if (valid4 == 4) {
+          copy4(dst, src);
+        } else {
 #pragma unroll
-      for (int u = 0; u < 4; ++u) {
-        av[u] = as[i][ty + 16 * u];
-        bv[u] = bs[i][tx + 16 * u];
+          for (int u = 0; u < 4; ++u) dst[u] = u < valid4 ? src[u] : 0.0f;
+        }
+      }
+    } else if (route == kCopy4) {
+      const int e = tid % E;
+#pragma unroll
+      for (int r = 0; r < 4 * kGroups; ++r) {
+        const int i = tid / E + r * (kThreads / E);
+        float* dst = t + i * kLd + e;
+        if (ptr[0] != nullptr && i0 + i < iend) {
+          copy1(dst, ptr[0] + (long long)(i0 + i) * si);
+        } else {
+          *dst = 0.0f;
+        }
+      }
+    } else {
+      const int i = i0 + 4 * (tid % 4);
+#pragma unroll
+      for (int g = 0; g < kGroups; ++g) {
+        const float* row = ptr[g];
+        if (row != nullptr && vec_i && i + 3 < iend) {
+          reg[g] = *reinterpret_cast<const float4*>(row + i);
+        } else {
+          float v[4];
+#pragma unroll
+          for (int u = 0; u < 4; ++u) v[u] = row != nullptr && i + u < iend ? row[i + u] : 0.0f;
+          reg[g] = make_float4(v[0], v[1], v[2], v[3]);
+        }
+      }
+    }
+  }
+
+  // kTranspose: the registers of issue() down the tile's columns of t.
+  __device__ __forceinline__ void store(float* t) const {
+    if (route != kTranspose) return;
+    const int tid = threadIdx.x, i4 = 4 * (tid % 4);
+#pragma unroll
+    for (int g = 0; g < kGroups; ++g) {
+      float* col = t + i4 * kLd + tid / 4 + g * (kThreads / 4);
+      col[0] = reg[g].x;
+      col[kLd] = reg[g].y;
+      col[2 * kLd] = reg[g].z;
+      col[3 * kLd] = reg[g].w;
+    }
+  }
+};
+
+// warp_sum in f64, for the renorm's row sums
+__device__ __forceinline__ double warp_sum_f64(double x) {
+#pragma unroll
+  for (int o = 16; o > 0; o >>= 1) x += __shfl_xor_sync(0xffffffffu, x, o);
+  return x;
+}
+
+// The product kernel of the tiled route (see Prod and Shape). blockIdx.x,y
+// pick the tile's columns and rows, blockIdx.z = (group * pieces + piece) *
+// batch + z. Thread (tx, ty) = (tid % 16, tid / 16) accumulates rows
+// 4ty..4ty+3 and 64+4ty..64+4ty+3 of the tile and columns 4tx..4tx+3 (and
+// 64+4tx.. at BN = 128): the float4 reads of a warp fall on distinct banks
+// or broadcast.
+// `routes` holds each operand's Route, two bits each in the order a0, b0,
+// a1, b1; `vec_i` bit 2g (a) and 2g+1 (b) marks a kTranspose operand whose
+// rows are 16-byte aligned.
+template <int BN>
+__global__ void __launch_bounds__(kThreads, BN == 128 ? 1 : 2)
+tile_gemm(Prod p0, Prod p1, Shape sh, int epilogue, Renorm rn, unsigned routes,
+          unsigned vec_i) {
+  constexpr int TN = BN / 16;
+  using OpA = Operand<kBM>;
+  using OpB = Operand<BN>;
+  // the two stages of a and b; the epilogue reuses them for half a tile
+  constexpr int kStageA = kBK * OpA::kLd, kStageB = kBK * OpB::kLd, kOutLd = BN + 4;
+  static_assert(64 * kOutLd <= 2 * (kStageA + kStageB), "half a tile fits the stages");
+  __shared__ __align__(16) float smem[2 * (kStageA + kStageB)];
+  const auto as = [&](int k) { return smem + k * kStageA; };
+  const auto bs = [&](int k) { return smem + 2 * kStageA + k * kStageB; };
+  const int tid = threadIdx.x, tx = tid % 16, ty = tid / 16;
+  int gz = blockIdx.z;
+  const int z0 = gz % sh.batch;
+  gz /= sh.batch;
+  const int piece = gz % sh.pieces, group = gz / sh.pieces;
+  const Prod pr = group ? p1 : p0;
+  const int i_begin = piece * sh.chunk, i_end = min(sh.inner, i_begin + sh.chunk);
+  const int m0 = blockIdx.y * kBM, j0 = blockIdx.x * BN;
+
+  OpA a((routes >> (4 * group)) & 3u, (vec_i >> (2 * group)) & 1u, pr.a.sc, sh.rows - m0,
+        [&](int e) {
+          const int m = m0 + e;
+          return pr.a.p + (long long)(z0 + m / sh.fold) * pr.a.sz +
+                 (long long)(m % sh.fold) * pr.a.sr;
+        });
+  OpB b((routes >> (4 * group + 2)) & 3u, (vec_i >> (2 * group + 1)) & 1u, pr.b.sr,
+        sh.cols - j0, [&](int e) {
+          return pr.b.p + (long long)z0 * pr.b.sz + (long long)(j0 + e) * pr.b.sc;
+        });
+
+  // dW's db: thread tid < kBM adds row tid of a over the piece's inner terms
+  const bool sum_a = epilogue == kSumA && blockIdx.x == 0;
+  float asum = 0.0f;
+  float acc[8][TN];
+#pragma unroll
+  for (int u = 0; u < 8; ++u)
+#pragma unroll
+    for (int w = 0; w < TN; ++w) acc[u][w] = 0.0f;
+
+  const int nk = ceil_div(i_end - i_begin, kBK);
+  a.issue(as(0), i_begin, i_end);
+  b.issue(bs(0), i_begin, i_end);
+  copy_commit();
+  a.store(as(0));
+  b.store(bs(0));
+  copy_wait<0>();
+  __syncthreads();
+  for (int kt = 0; kt < nk; ++kt) {
+    const bool more = kt + 1 < nk;
+    const int next = (kt + 1) & 1;
+    if (more) {
+      a.issue(as(next), i_begin + (kt + 1) * kBK, i_end);
+      b.issue(bs(next), i_begin + (kt + 1) * kBK, i_end);
+    }
+    copy_commit();
+    const float* at = as(kt & 1);
+    const float* bt = bs(kt & 1);
+#pragma unroll
+    for (int i = 0; i < kBK; ++i) {
+      const float4 a0 = *reinterpret_cast<const float4*>(at + i * OpA::kLd + 4 * ty);
+      const float4 a1 = *reinterpret_cast<const float4*>(at + i * OpA::kLd + 64 + 4 * ty);
+      const float av[8] = {a0.x, a0.y, a0.z, a0.w, a1.x, a1.y, a1.z, a1.w};
+      float bv[TN];
+      const float4 b0 = *reinterpret_cast<const float4*>(bt + i * OpB::kLd + 4 * tx);
+      bv[0] = b0.x;
+      bv[1] = b0.y;
+      bv[2] = b0.z;
+      bv[3] = b0.w;
+      if (TN == 8) {
+        const float4 b1 = *reinterpret_cast<const float4*>(bt + i * OpB::kLd + 64 + 4 * tx);
+        bv[TN - 4] = b1.x;
+        bv[TN - 3] = b1.y;
+        bv[TN - 2] = b1.z;
+        bv[TN - 1] = b1.w;
       }
 #pragma unroll
-      for (int u = 0; u < 4; ++u)
+      for (int u = 0; u < 8; ++u)
 #pragma unroll
-        for (int w = 0; w < 4; ++w) acc[u][w] = fmaf(av[u], bv[w], acc[u][w]);
+        for (int w = 0; w < TN; ++w) acc[u][w] = fmaf(av[u], bv[w], acc[u][w]);
     }
+    if (sum_a && tid < kBM) {
+#pragma unroll
+      for (int i = 0; i < kBK; ++i) asum += at[i * OpA::kLd + tid];
+    }
+    if (more) {
+      a.store(as(next));
+      b.store(bs(next));
+    }
+    copy_wait<0>();
     __syncthreads();
   }
+
+  if (sum_a && tid < kBM && m0 + tid < sh.rows) {
+    float* o = pr.rowout + piece * pr.pc + (long long)z0 * pr.rz + m0 + tid;
+    *o = pr.accumulate ? *o + asum : asum;
+  }
+  // The outputs go through shared memory half a tile (64 rows) at a time;
+  // then each warp finishes whole rows, its lanes on neighbouring columns,
+  // so the epilogue's loads and stores are coalesced and a row's sums are
+  // one warp's (lane l adds columns l, l+32, ..., then the lanes).
+  const int warp = tid / 32, lane = tid % 32;
+  const float scale = pr.mul / pr.div;  // exact where div is a power of two (d = 64)
 #pragma unroll
-  for (int u = 0; u < 4; ++u) {
-    const int m = m0 + ty + 16 * u;
-    if (m >= rows) break;
+  for (int half = 0; half < 2; ++half) {
 #pragma unroll
-    for (int w = 0; w < 4; ++w) {
-      const int j = j0 + tx + 16 * w;
-      if (j >= cols) continue;
-      if (part) {
-        part[((long long)blockIdx.z * rows + m) * cols + j] = acc[u][w];
+    for (int u = 0; u < 4; ++u) {
+      const int q = 4 * half + u;
+      float* dst = smem + (4 * ty + u) * kOutLd + 4 * tx;
+      *reinterpret_cast<float4*>(dst) = make_float4(acc[q][0], acc[q][1], acc[q][2], acc[q][3]);
+      if (TN == 8) {
+        *reinterpret_cast<float4*>(dst + 64) =
+            make_float4(acc[q][TN - 4], acc[q][TN - 3], acc[q][TN - 2], acc[q][TN - 1]);
+      }
+    }
+    __syncthreads();
+    for (int rr = warp; rr < 64; rr += kThreads / 32) {
+      const int m = m0 + 64 * half + rr;
+      if (m >= sh.rows) break;
+      const int dz = m / sh.fold;
+      const int z = z0 + dz, r = m - dz * sh.fold;
+      const long long off = (long long)z * pr.zc + (long long)r * pr.ldc;
+      float* crow = pr.c + piece * pr.pc + off;
+      const float* add_row =
+          pr.add.p ? pr.add.p + (long long)z * pr.add.sz + (long long)r * pr.add.sr : nullptr;
+      // the row's loads first, all in flight together, then its stores
+      constexpr int kCols = BN / 32;
+      float old[kCols], extra[kCols], at[kCols], dt[kCols];
+#pragma unroll
+      for (int k = 0; k < kCols; ++k) {
+        const int j = j0 + lane + 32 * k;
+        const bool ok = j < sh.cols, renorm = ok && epilogue == kRenorm;
+        old[k] = ok && pr.accumulate ? crow[j] : 0.0f;
+        extra[k] = ok && add_row ? add_row[j * pr.add.sc] : 0.0f;
+        at[k] = renorm ? rn.attn[off + j] : 0.0f;
+        dt[k] = renorm ? rn.dots[off + j] : 0.0f;
+      }
+      double rsum = 0.0;  // the renorm divides by rs, and by rs^2 in its gradient
+#pragma unroll
+      for (int k = 0; k < kCols; ++k) {
+        const int j = j0 + lane + 32 * k;
+        if (j >= sh.cols) continue;
+        float v = smem[rr * kOutLd + lane + 32 * k] * scale;
+        if (add_row) v = extra[k] + v;
+        if (epilogue == kRenorm) {
+          v = v * at[k] * (1.0f - at[k]);
+          rsum += (double)v * dt[k];
+        } else if (epilogue == kRowSum) {
+          rsum += v;
+        }
+        crow[j] = pr.accumulate ? old[k] + v : v;
+      }
+      if (epilogue != kRowSum && epilogue != kRenorm) continue;
+      const double total = warp_sum_f64(rsum);
+      if (lane != 0) continue;
+      const long long ro = (long long)z * pr.rz + r;
+      if (epilogue == kRowSum) {
+        pr.rowout[ro] = (float)total;
       } else {
-        store_out(c, zc, ldc, z, m, j, acc[u][w], mul, div, add, accumulate);
+        rn.rg[ro] = (float)total;
+        rn.q[ro] = (float)(total / rn.rs[ro]);
       }
     }
+    __syncthreads();
   }
 }
 
-// The pieces of a split product added in order, then stored as tiled_gemm
-// stores: one thread per output element.
-__global__ void gemm_reduce(const float* __restrict__ part, int pieces, int batch, int rows,
-                            int cols, View add, float* __restrict__ c, long long zc, int ldc,
-                            float mul, float div, int accumulate) {
-  const long long e = blockIdx.x * (long long)blockDim.x + threadIdx.x;
-  const long long per = (long long)rows * cols;
-  if (e >= batch * per) return;
-  const int z = (int)(e / per);
-  const long long rc = e - z * per;
-  float acc = 0.0f;
-  for (int p = 0; p < pieces; ++p) acc += part[((long long)p * batch + z) * per + rc];
-  store_out(c, zc, ldc, z, (int)(rc / cols), (int)(rc % cols), acc, mul, div, add, accumulate);
-}
-
-// out[r] = sum_j x[r][j] for r < rows (rows of n), one warp a row, in the
-// order of cluster_slot_sum's warp sums
+// out[r] = sum_j x[r][j] for r < rows (rows of n), one warp a row, added in
+// f64 as tile_gemm's epilogue adds it (where the dots' product cannot)
 __global__ void row_sum_kernel(const float* __restrict__ x, long long rows, int n,
                                float* __restrict__ out) {
   const long long r = (blockIdx.x * (long long)blockDim.x + threadIdx.x) >> 5;
   const int lane = threadIdx.x & 31;
   if (r >= rows) return;
-  float acc = 0.0f;
+  double acc = 0.0;
   for (int j = lane; j < n; j += 32) acc += x[r * n + j];
-  acc = warp_sum(acc);
-  if (lane == 0) out[r] = acc;
+  acc = warp_sum_f64(acc);
+  if (lane == 0) out[r] = (float)acc;
 }
 
-// out[z] = sum_s vals[z][s], in the slots' order as cluster_slot_sum adds
-// them: lane l adds slots l, l+32, ..., then the lanes; one warp an element
-__global__ void slot_total_kernel(const float* __restrict__ vals, int s,
-                                  float* __restrict__ out) {
-  const float* v = vals + (size_t)blockIdx.x * s;
+// The sum of one element's `s` values, taken by the whole block in a fixed
+// order (thread t adds t, t + kThreads, ..., each warp its lanes, then thread
+// 0 the warps in order) into `shared` (kThreads / 32 + 1 floats) and returned
+// to every thread.
+__device__ inline float block_slot_total(const float* __restrict__ vals, int s, float* shared) {
+  constexpr int kWarps = kThreads / 32;
   float acc = 0.0f;
-  for (int i = threadIdx.x; i < s; i += 32) acc += v[i];
+  for (int i = threadIdx.x; i < s; i += kThreads) acc += vals[i];
   acc = warp_sum(acc);
-  if (threadIdx.x == 0) out[blockIdx.x] = acc;
+  if (threadIdx.x % 32 == 0) shared[threadIdx.x / 32] = acc;
+  __syncthreads();
+  if (threadIdx.x == 0) {
+    float t = 0.0f;
+    for (int w = 0; w < kWarps; ++w) t += shared[w];
+    shared[kWarps] = t;
+  }
+  __syncthreads();
+  return shared[kWarps];
 }
 
-// attn = sigmoid(dots / rs * T) over (B, S, N)
-__global__ void attn_kernel(const float* __restrict__ dots, const float* __restrict__ rs,
-                            const float* __restrict__ total, int s, int n, long long count,
-                            float* __restrict__ attn) {
-  const long long i = blockIdx.x * (long long)blockDim.x + threadIdx.x;
-  if (i >= count) return;
-  const long long row = i / n;
-  attn[i] = sigmoid_f32(dots[i] / rs[row] * total[row / s]);
+// attn = sigmoid(dots / rs * T) over element blockIdx.y's (S, N), T the sum
+// of its row sums
+__global__ void attn_kernel(const float* __restrict__ dots, const float* __restrict__ rs, int s,
+                            int n, float* __restrict__ attn) {
+  __shared__ float total[kThreads / 32 + 1];
+  const int z = blockIdx.y, sn = s * n;
+  const float t = block_slot_total(rs + (size_t)z * s, s, total);
+  const float* d = dots + (size_t)z * sn;
+  const float* r_z = rs + (size_t)z * s;
+  float* a = attn + (size_t)z * sn;
+  const int step = gridDim.x * blockDim.x;
+  for (int i0 = blockIdx.x * blockDim.x + threadIdx.x; i0 < sn; i0 += kBatch * step) {
+    float x[kBatch], r[kBatch];  // a batch's loads in flight together
+#pragma unroll
+    for (int k = 0; k < kBatch; ++k) {
+      const int i = i0 + k * step;
+      x[k] = i < sn ? d[i] : 0.0f;
+      r[k] = i < sn ? r_z[i / n] : 1.0f;
+    }
+#pragma unroll
+    for (int k = 0; k < kBatch; ++k) {
+      const int i = i0 + k * step;
+      if (i < sn) a[i] = sigmoid_f32(x[k] / r[k] * t);
+    }
+  }
 }
 
 // The GRU's backward per (element, slot, j): gi, gh (B, S, 3d) hold the gate
 // pre-activations with their biases and are overwritten with dgi and dgh; g
 // is the cotangent of the slots leaving the iteration, h (rows hz apart per
-// element) the slots entering it; dh = g z.
+// element) the slots entering it; dh = g z. Indices are 32-bit (count =
+// B*S*d < 2^31): 64-bit divisions cost more than the pass's arithmetic.
 __global__ void gru_bwd_kernel(float* __restrict__ gi, float* __restrict__ gh,
                                const float* __restrict__ g, const float* __restrict__ h,
-                               long long hz, int s, int d, long long count,
-                               float* __restrict__ dh) {
-  const long long i = blockIdx.x * (long long)blockDim.x + threadIdx.x;
+                               long long hz, int s, int d, int count, float* __restrict__ dh) {
+  const int i = blockIdx.x * blockDim.x + threadIdx.x;
   if (i >= count) return;
-  const long long row = i / d;
-  const int j = (int)(i - row * d);
-  float* gi_row = gi + row * 3 * d;
-  float* gh_row = gh + row * 3 * d;
+  const int row = i / d, j = i - row * d;
+  float* gi_row = gi + (size_t)row * 3 * d;
+  float* gh_row = gh + (size_t)row * 3 * d;
   const float rg = sigmoid_f32(gi_row[j] + gh_row[j]);
   const float zg = sigmoid_f32(gi_row[d + j] + gh_row[d + j]);
   const float hn = gh_row[2 * d + j];
   const float ng = tanhf(gi_row[2 * d + j] + rg * hn);
-  const float gv = g[i], hv = h[(row / s) * hz + (row % s) * d + j];
+  const int zi = row / s;
+  const float gv = g[i], hv = h[zi * hz + (long long)(row - zi * s) * d + j];
   const float dn = gv * (1.0f - zg), dz = gv * (hv - ng);
   const float a_n = dn * (1.0f - ng * ng);
   const float a_r = a_n * hn * rg * (1.0f - rg);
@@ -477,24 +795,8 @@ __global__ void gru_bwd_kernel(float* __restrict__ gi, float* __restrict__ gh,
   dh[i] = gv * zg;
 }
 
-// The element's db partials (at part + z * per_z + 6 d^2) += the column sums
-// of dgi and dgh over its slots, one warp a column in cluster_slot_sum's
-// order.
-__global__ void bias_grad_kernel(const float* __restrict__ dgi, const float* __restrict__ dgh,
-                                 int s, int d, float* __restrict__ part, size_t per_z) {
-  const int col = (blockIdx.x * blockDim.x + threadIdx.x) >> 5, lane = threadIdx.x & 31;
-  const int z = blockIdx.y;
-  if (col >= 6 * d) return;
-  const int m = col >= 3 * d, r = col - m * 3 * d;
-  const float* dg = (m ? dgh : dgi) + (size_t)z * s * 3 * d;
-  float acc = 0.0f;
-  for (int i = lane; i < s; i += 32) acc += dg[(size_t)i * 3 * d + r];
-  acc = warp_sum(acc);
-  if (lane == 0) part[z * per_z + 6 * (size_t)d * d + col] += acc;
-}
-
 // Per row of P (one warp a row): G = P attn (1 - attn) in place of P,
-// rg = sum_j G D and q = rg / rs.
+// rg = sum_j G D (in f64) and q = rg / rs (where P's product cannot).
 __global__ void renorm_grad_kernel(float* __restrict__ p, const float* __restrict__ attn,
                                    const float* __restrict__ dots, const float* __restrict__ rs,
                                    long long rows, int n, float* __restrict__ rg,
@@ -502,84 +804,193 @@ __global__ void renorm_grad_kernel(float* __restrict__ p, const float* __restric
   const long long r = (blockIdx.x * (long long)blockDim.x + threadIdx.x) >> 5;
   const int lane = threadIdx.x & 31;
   if (r >= rows) return;
-  float acc = 0.0f;
+  double acc = 0.0;
   for (int j = lane; j < n; j += 32) {
     const long long i = r * n + j;
     const float gv = p[i] * attn[i] * (1.0f - attn[i]);
     p[i] = gv;
-    acc += gv * dots[i];
+    acc += (double)gv * dots[i];
   }
-  acc = warp_sum(acc);
+  acc = warp_sum_f64(acc);
   if (lane == 0) {
-    rg[r] = acc;
-    q[r] = acc / rs[r];
+    rg[r] = (float)acc;
+    q[r] = (float)(acc / rs[r]);
   }
 }
 
-// dD = (T G / rs - T rg / rs^2 + sum_i rg_i / rs_i) * scale, in place of G
+// dD = (T G / rs - T rg / rs^2 + sum_i q_i) * scale in place of G over
+// element blockIdx.y's (S, N), T the sum of its row sums
 __global__ void ddots_kernel(float* __restrict__ p, const float* __restrict__ rs,
-                             const float* __restrict__ rg, const float* __restrict__ total,
-                             const float* __restrict__ qsum, int s, int n, long long count,
-                             float scale) {
-  const long long i = blockIdx.x * (long long)blockDim.x + threadIdx.x;
-  if (i >= count) return;
-  const long long row = i / n, z = row / s;
-  const float t = total[z], r = rs[row];
-  p[i] = (t * p[i] / r - t * rg[row] / (r * r) + qsum[z]) * scale;
+                             const float* __restrict__ rg, const float* __restrict__ q, int s,
+                             int n, float scale) {
+  __shared__ float sums[2][kThreads / 32 + 1];
+  const int z = blockIdx.y, sn = s * n;
+  const float t = block_slot_total(rs + (size_t)z * s, s, sums[0]);
+  const float qsum = block_slot_total(q + (size_t)z * s, s, sums[1]);
+  float* p_z = p + (size_t)z * sn;
+  const float* r_z = rs + (size_t)z * s;
+  const float* g_z = rg + (size_t)z * s;
+  const int step = gridDim.x * blockDim.x;
+  for (int i0 = blockIdx.x * blockDim.x + threadIdx.x; i0 < sn; i0 += kBatch * step) {
+    float x[kBatch], r[kBatch], g[kBatch];  // a batch's loads in flight together
+#pragma unroll
+    for (int k = 0; k < kBatch; ++k) {
+      const int i = i0 + k * step, row = (i < sn ? i : 0) / n;
+      x[k] = i < sn ? p_z[i] : 0.0f;
+      r[k] = r_z[row];
+      g[k] = g_z[row];
+    }
+#pragma unroll
+    for (int k = 0; k < kBatch; ++k) {
+      const int i = i0 + k * step;
+      if (i < sn) p_z[i] = (t * x[k] / r[k] - t * g[k] / (r[k] * r[k]) + qsum) * scale;
+    }
+  }
 }
 
-// The pieces of the split products: up to kMaxSplit of the largest output
-// with the slots as its inner dimension, (3d, d) or (N, d), per element.
-size_t split_floats(int batch, int n, int d) {
-  return (size_t)kMaxSplit * batch * d * (3 * d > n ? 3 * d : n);
+// The sums that end the tiled route, each in a fixed order: the (piece,
+// element) partials of dW and db and the elements' rows of d_slots0 as
+// xslot_bwd_sum_kernel adds them, then, where dv and dk were split, their
+// `pieces` pieces (dv's, then dk's, each (pieces, bnd) floats).
+__global__ void tiled_sum_kernel(const float* __restrict__ partials, int nparts,
+                                 const float* __restrict__ dslots0, int batch, int sd, int d,
+                                 float* __restrict__ dw_ih, float* __restrict__ dw_hh,
+                                 float* __restrict__ db_ih, float* __restrict__ db_hh,
+                                 float* __restrict__ d_init, const float* __restrict__ kv,
+                                 int pieces, long long bnd, float* __restrict__ dv,
+                                 float* __restrict__ dk) {
+  const long long e = blockIdx.x * (long long)blockDim.x + threadIdx.x;
+  const long long head = (long long)partial_floats(d) + sd;
+  if (e < head) {
+    sum_partials((int)e, partials, nparts, dslots0, batch, sd, d, dw_ih, dw_hh, db_ih, db_hh,
+                 d_init);
+  } else if (kv != nullptr && e < head + 2 * bnd) {
+    const long long f = e - head, grp = f / bnd, r = f - grp * bnd;
+    const float* src = kv + grp * pieces * bnd + r;
+    float acc = 0.0f;
+    for (int p = 0; p < pieces; ++p) acc += src[p * bnd];
+    (grp ? dk : dv)[r] = acc;
+  }
 }
 
-// The tiled route's scratch, in floats, after the batch's dW and db
-// partials: g, dh, x, dx (B, S, d); gi, gh (B, S, 3d); dots, attn, P
-// (B, S, N); rs, rg, q (B, S); T, sum q (B); the split products' pieces.
-size_t tiled_floats(int batch, int n, int s, int d) {
-  const size_t bs = (size_t)batch * s;
-  return (size_t)batch * partial_floats(d) + bs * (4 * d + 6 * d + 3 * n + 3) + 2 * batch +
-         split_floats(batch, n, d);
+enum { kDots, kX, kGates, kDGates, kDW, kP, kDH, kDKV, kProducts };
+
+// One product's tile width, inner pieces (of `chunk` terms) and rows.
+struct ProductPlan {
+  int rows, bn, pieces, chunk;
+};
+
+// The CTA tile's width for `cols` output columns: 128 unless 64 pads fewer.
+inline int tile_cols(int cols) {
+  return ceil_div(cols, 128) * 128 <= ceil_div(cols, 64) * 64 ? 128 : 64;
+}
+
+// A product of rows x cols over `inner` terms on `batch` grid slices and
+// `groups` operand pairs. With `split`, where its tiles leave some of the
+// CTAs that `sms` SMs hold at once idle (tile_gemm's launch bounds: two a SM
+// at BN = 64, one at 128), the inner terms go into as many pieces as those
+// CTAs take in one wave, at most kMaxSplit, each at least kSplitDepth long.
+inline ProductPlan plan_product(int rows, int cols, int inner, int batch, int groups,
+                                bool split, int sms) {
+  ProductPlan p{rows, tile_cols(cols), 1, 0};
+  const int tiles = ceil_div(rows, kBM) * ceil_div(cols, p.bn) * batch * groups;
+  const int resident = sms * (p.bn == 128 ? 1 : 2);
+  int pieces = 1;
+  if (split && tiles < resident) {
+    pieces = std::max(1, std::min({kMaxSplit, inner / kSplitDepth, resident / tiles}));
+  }
+  p.chunk = ceil_div(ceil_div(inner, pieces), kBK) * kBK;
+  p.pieces = ceil_div(inner, p.chunk);
+  return p;
+}
+
+// The tiled route's plan at (batch, N, S, d) on a card of `sms` SMs: its
+// products (in the order of the enum above), whether the row passes ride in
+// the products' epilogues, the scratch in floats and the launches of one call.
+struct TiledPlan {
+  ProductPlan prod[kProducts];
+  bool fused;
+  size_t scratch;
+  int launches;
+};
+
+inline TiledPlan tiled_plan(int batch, int n, int s, int d, int iters, int sms) {
+  TiledPlan t;
+  const int bs = batch * s;
+  t.prod[kDots] = plan_product(s, n, d, batch, 1, false, sms);
+  t.prod[kX] = plan_product(s, d, n, batch, 1, false, sms);
+  t.prod[kGates] = plan_product(bs, 3 * d, d, 1, 2, false, sms);
+  t.prod[kDGates] = plan_product(bs, d, 3 * d, 1, 2, false, sms);
+  t.prod[kDW] = plan_product(3 * d, d, s, batch, 2, true, sms);
+  t.prod[kP] = plan_product(s, n, d, batch, 1, false, sms);
+  t.prod[kDH] = plan_product(s, d, n, batch, 1, false, sms);
+  t.prod[kDKV] = plan_product(n, d, s, batch, 2, true, sms);
+  t.fused = n <= t.prod[kDots].bn;
+  const int kv = t.prod[kDKV].pieces;
+  // the (piece, element) dW and db partials; g, dh, x, dx (B, S, d); gi, gh
+  // (B, S, 3d); dots, attn, P (B, S, N); rs, rg, q (B, S); dv's and dk's pieces
+  t.scratch = (size_t)t.prod[kDW].pieces * batch * partial_floats(d) +
+              (size_t)bs * (10 * d + 3 * n + 3) +
+              (kv > 1 ? 2 * (size_t)kv * batch * n * d : 0);
+  // per iteration: dots, attn, x, P, ddots, dh, dv|dk (+ the two row passes
+  // where the epilogues cannot take them); per GRU: gi|gh, its backward,
+  // dx|dh, dW; the closing sums; a memset of the partials where no GRU runs
+  t.launches = iters * (t.fused ? 7 : 9) + 4 * (iters - 1) + 1 + (iters == 1 ? 1 : 0);
+  return t;
 }
 
 inline unsigned blocks(long long count) { return (unsigned)((count + kThreads - 1) / kThreads); }
 
-// Launches tiled_gemm over the batch; where its output tiles fill less
-// than two waves of `sms` CTAs and its inner dimension is long, it splits
-// the inner dimension (into pieces of at least kSplitDepth, as many as fill
-// two waves, at most kMaxSplit, that `part` holds) and adds the pieces
-// with gemm_reduce.
-struct Gemm {
-  int batch, sms;
-  float* part;
-  size_t part_floats;
-  cudaStream_t stream;
+inline bool aligned4(const float* p, long long stride_a, long long stride_b) {
+  return ((size_t)p % 16 == 0) && stride_a % 4 == 0 && stride_b % 4 == 0;
+}
 
-  int operator()(View a, View b, View add, float* c, long long zc, int ldc, int rows,
-                 int cols, int inner, float mul, float div, bool accumulate) const {
-    const int tiles =
-        ((cols + kGemmTile - 1) / kGemmTile) * ((rows + kGemmTile - 1) / kGemmTile);
-    int pieces = 1;
-    if (tiles * batch < 2 * sms) {
-      pieces = std::min({kMaxSplit, inner / kSplitDepth,
-                         (2 * sms + tiles * batch - 1) / (tiles * batch)});
-      if (pieces < 2 || (size_t)pieces * batch * rows * cols > part_floats) pieces = 1;
-    }
-    const int chunk = (inner + pieces - 1) / pieces;
-    const dim3 grid((cols + kGemmTile - 1) / kGemmTile, (rows + kGemmTile - 1) / kGemmTile,
-                    batch * pieces);
-    tiled_gemm<<<grid, kThreads, 0, stream>>>(
-        a, b, add, c, zc, ldc, rows, cols, inner, mul, div, (int)accumulate, batch,
-        pieces > 1 ? (chunk + kGemmDepth - 1) / kGemmDepth * kGemmDepth : inner,
-        pieces > 1 ? part : nullptr);
-    if (pieces > 1) {
-      gemm_reduce<<<blocks((long long)batch * rows * cols), kThreads, 0, stream>>>(
-          part, pieces, batch, rows, cols, add, c, zc, ldc, mul, div, (int)accumulate);
-    }
-    return (int)cudaGetLastError();
+// An operand's Route: contiguous along the tile's rows or columns (16-byte
+// aligned or not), else along the inner terms, else neither.
+inline unsigned route(bool along_e, bool aligned, bool along_i) {
+  return along_e ? (aligned ? kCopy16 : kCopy4) : along_i ? kTranspose : kCopy4;
+}
+
+// Launches one product, or two of one shape (`p1`), on `stream`.
+int gemm(const ProductPlan& plan, const Prod& p0, const Prod* p1, int cols, int inner, int fold,
+         int batch, int epilogue, const Renorm& rn, cudaStream_t stream) {
+  const Shape sh{plan.rows, cols, inner, fold, batch, plan.pieces, plan.chunk};
+  const int groups = p1 ? 2 : 1;
+  unsigned routes = 0, vec_i = 0;
+  for (int g = 0; g < groups; ++g) {
+    const Prod& p = g ? *p1 : p0;
+    // a: e is the row (contiguous along it only where unfolded), i the column
+    const bool a_rows = p.a.sr == 1 && fold == plan.rows;
+    routes |= route(a_rows, a_rows && aligned4(p.a.p, p.a.sc, p.a.sz), p.a.sc == 1) << (4 * g);
+    vec_i |= (unsigned)(p.a.sc == 1 && aligned4(p.a.p, p.a.sr, p.a.sz)) << (2 * g);
+    routes |= route(p.b.sc == 1, p.b.sc == 1 && aligned4(p.b.p, p.b.sr, p.b.sz), p.b.sr == 1)
+              << (4 * g + 2);
+    vec_i |= (unsigned)(p.b.sr == 1 && aligned4(p.b.p, p.b.sc, p.b.sz)) << (2 * g + 1);
   }
-};
+  const dim3 grid(ceil_div(cols, plan.bn), ceil_div(plan.rows, kBM), batch * plan.pieces * groups);
+  if (plan.bn == 128) {
+    tile_gemm<128><<<grid, kThreads, 0, stream>>>(p0, p1 ? *p1 : p0, sh, epilogue, rn, routes,
+                                                  vec_i);
+  } else {
+    tile_gemm<64><<<grid, kThreads, 0, stream>>>(p0, p1 ? *p1 : p0, sh, epilogue, rn, routes,
+                                                 vec_i);
+  }
+  return (int)cudaGetLastError();
+}
+
+// A product writing c (zc, ldc) from a and b, scaled by mul / div, stored.
+inline Prod prod(View a, View b, float* c, long long zc, int ldc, float mul = 1.0f,
+                 float div = 1.0f) {
+  Prod p{};
+  p.a = a;
+  p.b = b;
+  p.c = c;
+  p.zc = zc;
+  p.ldc = ldc;
+  p.mul = mul;
+  p.div = div;
+  return p;
+}
 
 #define XSLOT_TRY(call)          \
   do {                           \
@@ -587,17 +998,27 @@ struct Gemm {
     if (err_ != 0) return err_;  \
   } while (0)
 
+int device_sms(int* sms) {
+  int device = 0;
+  XSLOT_TRY((int)cudaGetDevice(&device));
+  return (int)cudaDeviceGetAttribute(sms, cudaDevAttrMultiProcessorCount, device);
+}
+
 // The tiled route: the same gradient as xslot_bwd_kernel + xslot_bwd_sum_kernel.
 int tiled_bwd(const float* k, const float* v, const float* w_ih, const float* w_hh,
               const float* b_ih, const float* b_hh, const float* hist, const float* du,
               const float* dattn, float* dk, float* dv, float* d_init, float* dw_ih,
               float* dw_hh, float* db_ih, float* db_hh, float* scratch, int batch, int n,
               int s, int d, int iters, float scale, cudaStream_t stream) {
+  int sms = 0;
+  XSLOT_TRY(device_sms(&sms));
+  const TiledPlan plan = tiled_plan(batch, n, s, d, iters, sms);
   const long long sd = (long long)s * d, sn = (long long)s * n, s3 = 3 * sd;
-  const long long nd = (long long)n * d, rows = (long long)batch * s;
+  const long long nd = (long long)n * d, rows = (long long)batch * s, bnd = batch * nd;
   const size_t per_z = partial_floats(d);
+  const int pw = plan.prod[kDW].pieces, pkv = plan.prod[kDKV].pieces;
   float* partials = scratch;
-  float* g = partials + batch * per_z;
+  float* g = partials + (size_t)pw * batch * per_z;
   float* dh = g + rows * d;
   float* x = dh + rows * d;
   float* dx = x + rows * d;
@@ -609,72 +1030,88 @@ int tiled_bwd(const float* k, const float* v, const float* w_ih, const float* w_
   float* rs = p + rows * n;
   float* rg = rs + rows;
   float* q = rg + rows;
-  float* total = q + rows;
-  float* qsum = total + batch;
-  float* pieces = qsum + batch;
-  int device = 0, sms = 0;
-  XSLOT_TRY((int)cudaGetDevice(&device));
-  XSLOT_TRY((int)cudaDeviceGetAttribute(&sms, cudaDevAttrMultiProcessorCount, device));
-  XSLOT_TRY((int)cudaMemsetAsync(partials, 0, batch * per_z * sizeof(float), stream));
-  XSLOT_TRY((int)cudaMemsetAsync(dk, 0, batch * nd * sizeof(float), stream));
-  XSLOT_TRY((int)cudaMemsetAsync(dv, 0, batch * nd * sizeof(float), stream));
+  float* kv = pkv > 1 ? q + rows : nullptr;
+  if (iters == 1) {
+    XSLOT_TRY((int)cudaMemsetAsync(partials, 0, (size_t)pw * batch * per_z * sizeof(float),
+                                   stream));
+  }
 
-  const Gemm gemm{batch, sms, pieces, split_floats(batch, n, d), stream};
   const View none{nullptr, 0, 0, 0};
-  const View kv{k, nd, d, 1}, kt{k, nd, 1, d}, vv{v, nd, d, 1}, vt{v, nd, 1, d};
-  const View xv{x, sd, d, 1}, attn_v{attn, sn, n, 1}, attn_t{attn, sn, 1, n};
-  const View p_v{p, sn, n, 1}, p_t{p, sn, 1, n};
-  const View gi_v{gi, s3, 3 * d, 1}, gh_v{gh, s3, 3 * d, 1};
-  const View gi_t{gi, s3, 1, 3 * d}, gh_t{gh, s3, 1, 3 * d};
+  const Renorm no_renorm{nullptr, nullptr, nullptr, nullptr, nullptr};
+  const Renorm renorm{attn, dots, rs, rg, q};
   const int row_blocks = (int)((rows * 32 + kThreads - 1) / kThreads);
+  const dim3 pass_grid(ceil_div(sn, (long long)kThreads * kBatch), batch);
   for (int it = iters - 1; it >= 0; --it) {
     const bool last = it == iters - 1;
     const View hv{hist + it * sd, iters * sd, d, 1};
-    // rebuild the iteration's forward from hist[:, it]
-    XSLOT_TRY(gemm(hv, kt, none, dots, sn, n, s, n, d, scale, 1.0f, false));
-    row_sum_kernel<<<row_blocks, kThreads, 0, stream>>>(dots, rows, n, rs);
-    slot_total_kernel<<<batch, 32, 0, stream>>>(rs, s, total);
-    attn_kernel<<<blocks(rows * n), kThreads, 0, stream>>>(dots, rs, total, s, n, rows * n,
-                                                            attn);
-    XSLOT_TRY(gemm(attn_v, vv, none, x, sd, d, s, d, n, 1.0f, (float)d, false));
+    // rebuild the iteration's forward from hist[:, it]: dots (and rs), attn, x
+    Prod dots_p = prod(hv, View{k, nd, 1, d}, dots, sn, n, scale);
+    dots_p.rowout = rs;
+    dots_p.rz = s;
+    XSLOT_TRY(gemm(plan.prod[kDots], dots_p, nullptr, n, d, s, batch,
+                   plan.fused ? kRowSum : kStore, no_renorm, stream));
+    if (!plan.fused) row_sum_kernel<<<row_blocks, kThreads, 0, stream>>>(dots, rows, n, rs);
+    attn_kernel<<<pass_grid, kThreads, 0, stream>>>(dots, rs, s, n, attn);
+    XSLOT_TRY(gemm(plan.prod[kX], prod(View{attn, sn, n, 1}, View{v, nd, d, 1}, x, sd, d, 1.0f,
+                                       (float)d),
+                   nullptr, d, n, s, batch, kStore, no_renorm, stream));
     const float* dupd = du;
     if (!last) {
-      // the GRU's gates again, and its backward for cotangent g
-      XSLOT_TRY(gemm(xv, View{w_ih, 0, 1, d}, View{b_ih, 0, 0, 1}, gi, s3, 3 * d, s, 3 * d, d,
-                     1.0f, 1.0f, false));
-      XSLOT_TRY(gemm(hv, View{w_hh, 0, 1, d}, View{b_hh, 0, 0, 1}, gh, s3, 3 * d, s, 3 * d, d,
-                     1.0f, 1.0f, false));
-      gru_bwd_kernel<<<blocks(rows * d), kThreads, 0, stream>>>(gi, gh, g, hist + it * sd,
-                                                                iters * sd, s, d, rows * d, dh);
-      XSLOT_TRY(gemm(gi_v, View{w_ih, 0, d, 1}, none, dx, sd, d, s, d, 3 * d, 1.0f, 1.0f,
-                     false));
-      XSLOT_TRY(gemm(gh_v, View{w_hh, 0, d, 1}, none, dh, sd, d, s, d, 3 * d, 1.0f, 1.0f,
-                     true));
-      XSLOT_TRY(gemm(gi_t, xv, none, partials, per_z, d, 3 * d, d, s, 1.0f, 1.0f, true));
-      XSLOT_TRY(gemm(gh_t, hv, none, partials + 3 * d * d, per_z, d, 3 * d, d, s, 1.0f, 1.0f,
-                     true));
-      bias_grad_kernel<<<dim3((6 * d * 32 + kThreads - 1) / kThreads, batch), kThreads, 0,
-                         stream>>>(gi, gh, s, d, partials, per_z);
+      // the GRU's gates again over all B*S rows, and its backward for cotangent g
+      Prod gi_p = prod(View{x, sd, d, 1}, View{w_ih, 0, 1, d}, gi, s3, 3 * d);
+      Prod gh_p = prod(hv, View{w_hh, 0, 1, d}, gh, s3, 3 * d);
+      gi_p.add = View{b_ih, 0, 0, 1};
+      gh_p.add = View{b_hh, 0, 0, 1};
+      XSLOT_TRY(gemm(plan.prod[kGates], gi_p, &gh_p, 3 * d, d, s, 1, kStore, no_renorm, stream));
+      gru_bwd_kernel<<<blocks(rows * d), kThreads, 0, stream>>>(
+          gi, gh, g, hist + it * sd, iters * sd, s, d, (int)(rows * d), dh);
+      Prod dx_p = prod(View{gi, s3, 3 * d, 1}, View{w_ih, 0, d, 1}, dx, sd, d);
+      Prod dh_p = prod(View{gh, s3, 3 * d, 1}, View{w_hh, 0, d, 1}, dh, sd, d);
+      dh_p.accumulate = 1;
+      XSLOT_TRY(gemm(plan.prod[kDGates], dx_p, &dh_p, d, 3 * d, s, 1, kStore, no_renorm, stream));
+      // dW_ih, dW_hh and db into the (piece, element) partials
+      const int first = it == iters - 2;
+      Prod wi_p = prod(View{gi, s3, 1, 3 * d}, View{x, sd, d, 1}, partials, per_z, d);
+      Prod wh_p = prod(View{gh, s3, 1, 3 * d}, hv, partials + 3 * d * d, per_z, d);
+      wi_p.rowout = partials + 6 * d * d;
+      wh_p.rowout = partials + 6 * d * d + 3 * d;
+      for (Prod* w : {&wi_p, &wh_p}) {
+        w->pc = (long long)batch * per_z;
+        w->rz = per_z;
+        w->accumulate = !first;
+      }
+      XSLOT_TRY(gemm(plan.prod[kDW], wi_p, &wh_p, d, s, 3 * d, batch, kSumA, no_renorm, stream));
       dupd = dx;
     }
-    // attention: dattn_tot, dv, G, the renorm's gradient, dh and dk
-    const View dupd_v{dupd, sd, d, 1};
-    XSLOT_TRY(gemm(dupd_v, vt, last ? View{dattn, sn, n, 1} : none, p, sn, n, s, n, d, 1.0f,
-                   (float)d, false));
-    XSLOT_TRY(gemm(attn_t, dupd_v, none, dv, nd, d, n, d, s, 1.0f, (float)d, true));
-    renorm_grad_kernel<<<row_blocks, kThreads, 0, stream>>>(p, attn, dots, rs, rows, n, rg, q);
-    slot_total_kernel<<<batch, 32, 0, stream>>>(q, s, qsum);
-    ddots_kernel<<<blocks(rows * n), kThreads, 0, stream>>>(p, rs, rg, total, qsum, s, n,
-                                                             rows * n, scale);
-    XSLOT_TRY(gemm(p_v, kv, none, dh, sd, d, s, d, n, 1.0f, 1.0f, !last));
-    XSLOT_TRY(gemm(p_t, hv, none, dk, nd, d, n, d, s, 1.0f, 1.0f, true));
+    // attention: P = dattn_tot with the renorm's gradient, dD, dh, dv and dk
+    Prod p_p = prod(View{dupd, sd, d, 1}, View{v, nd, 1, d}, p, sn, n, 1.0f, (float)d);
+    if (last) p_p.add = View{dattn, sn, n, 1};
+    p_p.rz = s;
+    XSLOT_TRY(gemm(plan.prod[kP], p_p, nullptr, n, d, s, batch, plan.fused ? kRenorm : kStore,
+                   renorm, stream));
+    if (!plan.fused) {
+      renorm_grad_kernel<<<row_blocks, kThreads, 0, stream>>>(p, attn, dots, rs, rows, n, rg, q);
+    }
+    ddots_kernel<<<pass_grid, kThreads, 0, stream>>>(p, rs, rg, q, s, n, scale);
+    Prod dh_att = prod(View{p, sn, n, 1}, View{k, nd, d, 1}, dh, sd, d);
+    dh_att.accumulate = !last;
+    XSLOT_TRY(gemm(plan.prod[kDH], dh_att, nullptr, d, n, s, batch, kStore, no_renorm, stream));
+    Prod dv_p = prod(View{attn, sn, 1, n}, View{dupd, sd, d, 1}, kv ? kv : dv, nd, d, 1.0f,
+                     (float)d);
+    Prod dk_p = prod(View{p, sn, 1, n}, hv, kv ? kv + pkv * bnd : dk, nd, d);
+    for (Prod* w : {&dv_p, &dk_p}) {
+      w->pc = bnd;
+      w->accumulate = !last;
+    }
+    XSLOT_TRY(gemm(plan.prod[kDKV], dv_p, &dk_p, d, s, n, batch, kStore, no_renorm, stream));
     float* t = g;
     g = dh;
     dh = t;
   }
-  const int sums = (int)per_z + (int)sd;
-  xslot_bwd_sum_kernel<<<(sums + kThreads - 1) / kThreads, kThreads, 0, stream>>>(
-      partials, batch, g, batch, (int)sd, d, dw_ih, dw_hh, db_ih, db_hh, d_init);
+  const long long sums = (long long)per_z + sd + (kv ? 2 * bnd : 0);
+  tiled_sum_kernel<<<blocks(sums), kThreads, 0, stream>>>(
+      partials, pw * batch, g, batch, (int)sd, d, dw_ih, dw_hh, db_ih, db_hh, d_init, kv, pkv,
+      bnd, dv, dk);
   return (int)cudaGetLastError();
 }
 
@@ -699,10 +1136,31 @@ int xslot_bwd_max_clusters(int n, int s_cta, int d, int cluster) {
 
 // Floats of the scratch buffer xslot_bwd needs: for a cluster of `cluster`
 // CTAs per element the per-CTA partials, then the elements' d_slots0 rows;
-// for the tiled route (cluster == 0) tiled_floats.
+// for the tiled route (cluster == 0) its plan's on the current device (0 if
+// the device cannot be read, where the route itself fails).
 size_t xslot_bwd_scratch_floats(int batch, int n, int s, int d, int cluster) {
-  if (cluster == 0) return tiled_floats(batch, n, s, d);
+  if (cluster == 0) {
+    int sms = 0;
+    return device_sms(&sms) == 0 ? tiled_plan(batch, n, s, d, 1, sms).scratch : 0;
+  }
   return (size_t)batch * cluster * partial_floats(d) + (size_t)batch * s * d;
+}
+
+// The tiled route's plan at (batch, N, S, d, iters) on the current device:
+// for each product (dots, x, gi|gh, dx|dh, dW_ih|dW_hh, P, dh, dv|dk) its
+// rows, CTA tile width and inner pieces at out[3p], out[3p+1], out[3p+2];
+// returns the launches of one call, or a negative CUDA error.
+int xslot_tiled_plan(int batch, int n, int s, int d, int iters, int* out) {
+  int sms = 0;
+  const int err = device_sms(&sms);
+  if (err != 0) return -err;
+  const TiledPlan t = tiled_plan(batch, n, s, d, iters, sms);
+  for (int i = 0; i < kProducts; ++i) {
+    out[3 * i] = t.prod[i].rows;
+    out[3 * i + 1] = t.prod[i].bn;
+    out[3 * i + 2] = t.prod[i].pieces;
+  }
+  return t.launches;
 }
 
 // Launches the gradient kernel (`cluster` CTAs per batch element) and the

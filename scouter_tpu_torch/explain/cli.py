@@ -52,7 +52,7 @@ def render_explanations(cfg, state, model, image_u8: np.ndarray, label, vis_dir:
     try:
         with torch.no_grad():
             x = preprocess_batch(image[None], dataset=cfg.dataset, img_size=cfg.img_size)
-            out = model(x.permute(0, 3, 1, 2).to(model.dtype))
+            out = model(x.permute(0, 3, 1, 2))
     finally:
         model.train(was_training)
     logits = out["logits"][0].to(torch.float32).cpu().numpy()

@@ -80,21 +80,22 @@ def init_weights(model: nn.Module, generator: torch.Generator) -> None:
                 m.bias.zero_()
 
 
-def build_slot_model(cfg, fused_slot: bool = False, dtype: Optional[torch.dtype] = None,
-                     device="cuda", generator: Optional[torch.Generator] = None,
+def build_slot_model(cfg, fused_slot: bool = False, device="cuda",
+                     generator: Optional[torch.Generator] = None,
                      compute_dtype: Optional[torch.dtype] = None) -> SlotModel:
     """Build the SlotModel of a ScouterConfig in eval mode on ``device``.
 
     - MNIST swaps the stem conv for Conv(1->64, 3x3, s2, p1)
     - slot mode reads the backbone's features (no classifier is built)
     - no-slot mode keeps the backbone's ``num_classes`` classifier
-    - ``dtype`` (e.g. bf16, serving) casts the backbone's parameters to it;
-      the slot head stays f32 unless ``cfg.slot_head_dtype == 'compute'``
-    - ``compute_dtype`` (e.g. bf16, training) keeps every parameter f32 and
-      runs the backbone's convs, BatchNorms and classifier in it, as the JAX
-      package's ``build_slot_model(cfg, dtype=...)`` (flax's ``dtype`` over
-      f32 ``param_dtype``); the slot head computes in f32 (the refusal of
-      ``slot_head_dtype='compute'`` in training is ``check_training_supported``'s)
+    - ``compute_dtype`` (e.g. bf16, serving and training) keeps the
+      backbone's parameters and BatchNorm statistics f32 and runs its convs,
+      BatchNorms and classifier in it, as the JAX package's
+      ``build_slot_model(cfg, dtype=...)`` (flax's ``dtype`` over f32
+      ``param_dtype``); the slot head stays f32 unless
+      ``cfg.slot_head_dtype == 'compute'``, where it is cast to it (it has no
+      BatchNorm, so that computes what a cast at use would; training refuses
+      it in ``check_training_supported``)
     - ``fused_slot`` runs the xSlot loop through the CUDA kernel
       (``ops.slot_kernel``); ``generator`` seeds the init (default: cfg.seed)
     """
@@ -116,9 +117,7 @@ def build_slot_model(cfg, fused_slot: bool = False, dtype: Optional[torch.dtype]
         fused_slot=fused_slot,
     )
     init_weights(model, generator or torch.Generator().manual_seed(cfg.seed))
-    if dtype is not None:
-        if cfg.slot_head_dtype == "compute" or not cfg.use_slot:
-            model.to(dtype)
-        else:
-            model.backbone.to(dtype)
+    if compute_dtype is not None and cfg.use_slot and cfg.slot_head_dtype == "compute":
+        model.conv1x1.to(compute_dtype)
+        model.slot.to(compute_dtype)
     return model.eval().to(dev)

@@ -13,7 +13,7 @@ is the backbone with its own classifier.
 
 from __future__ import annotations
 
-from typing import Dict, Optional
+from typing import Dict
 
 import torch
 from torch import nn
@@ -109,8 +109,3 @@ class SlotModel(nn.Module):
         inputs_pe = (feats + pe).reshape(b, fh * fw, self.hidden_dim)
         logits, area, attn = self.slot(inputs_pe, inputs_x)
         return {"logits": logits, "area_loss": area, "attn": attn}
-
-    @property
-    def dtype(self) -> Optional[torch.dtype]:
-        """The backbone's parameter dtype: the dtype ``forward`` expects."""
-        return next(self.backbone.parameters()).dtype

@@ -32,14 +32,14 @@ from __future__ import annotations
 
 import ctypes
 import functools
-from typing import NamedTuple
+from typing import Dict, NamedTuple
 
 import torch
 
 from .gru import GRUParams
 
-__all__ = ["Plan", "xslot_bwd_ref", "xslot_fwd_ref", "xslot_iterations_fused",
-           "xslot_iterations_ref"]
+__all__ = ["Plan", "TiledPlan", "TiledProduct", "tiled_plan", "xslot_bwd_ref", "xslot_fwd_ref",
+           "xslot_iterations_fused", "xslot_iterations_ref"]
 
 # csrc/xslot_common.cuh: threads per CTA, columns per staged GRU weight tile
 # and the portable cluster limit
@@ -227,6 +227,82 @@ def _plan(b: int, n: int, s: int, d: int, kind: str, max_smem: int, sms: int, sm
     return Plan(c, share(c), nbytes, -(-clusters(c) * c // sms), resident, clusters(c))
 
 
+# csrc/xslot_bwd.cu's tiled route: rows of a product's CTA tile, inner terms
+# per pipeline stage, the most pieces of a split inner dimension and the
+# least inner length of a piece
+_TILE_ROWS = 128
+_TILE_DEPTH = 16
+_MAX_SPLIT = 8
+_SPLIT_DEPTH = 128
+TILED_PRODUCTS = ("dots", "x", "gates", "dgates", "dw", "p", "dh", "dkv")
+
+
+class TiledProduct(NamedTuple):
+    """One product of the backward's tiled route: its output ``rows`` (B*S
+    where the batch folds into rows), the width of its CTA tile (64 or 128
+    columns) and the ``pieces`` its inner dimension splits into."""
+
+    rows: int
+    tile_cols: int
+    pieces: int
+
+
+class TiledPlan(NamedTuple):
+    """The tiled route at one shape: its products by name (``TILED_PRODUCTS``:
+    the dots, the update x, the GRU's gates gi|gh, their input gradients
+    dx|dh, dW_ih|dW_hh, P, dh and dv|dk), whether the row passes ride in the
+    products' epilogues (``fused``: N <= the tile's width), the scratch in
+    floats and the launches of one call."""
+
+    products: Dict[str, TiledProduct]
+    fused: bool
+    scratch_floats: int
+    launches: int
+
+
+def _cdiv(a: int, b: int) -> int:
+    return -(-a // b)
+
+
+def _plan_product(rows, cols, inner, batch, groups, split, sms) -> TiledProduct:
+    """``plan_product`` of csrc/xslot_bwd.cu: the tile width that pads fewer
+    columns (128 on a tie) and, for a ``split`` product whose tiles leave
+    some of the CTAs ``sms`` SMs hold at once idle (two a SM at 64 columns,
+    one at 128), as many pieces of the inner dimension as those CTAs take in
+    one wave, at most ``_MAX_SPLIT``, each at least ``_SPLIT_DEPTH`` long."""
+    bn = 128 if _cdiv(cols, 128) * 128 <= _cdiv(cols, 64) * 64 else 64
+    tiles = _cdiv(rows, _TILE_ROWS) * _cdiv(cols, bn) * batch * groups
+    resident = sms * (1 if bn == 128 else 2)
+    pieces = 1
+    if split and tiles < resident:
+        pieces = max(1, min(_MAX_SPLIT, inner // _SPLIT_DEPTH, resident // tiles))
+    chunk = _cdiv(_cdiv(inner, pieces), _TILE_DEPTH) * _TILE_DEPTH
+    return TiledProduct(rows, bn, _cdiv(inner, chunk))
+
+
+def tiled_plan(b: int, n: int, s: int, d: int, iters: int, sms: int) -> TiledPlan:
+    """The backward's tiled route at (B, N, S, d) on a card of ``sms`` SMs, as
+    ``tiled_plan`` of csrc/xslot_bwd.cu has it; ``chip_smoke.py`` holds this
+    copy to the library's ``xslot_tiled_plan`` and scratch size."""
+    bs = b * s
+    shapes = dict(dots=(s, n, d, b, 1, False), x=(s, d, n, b, 1, False),
+                  gates=(bs, 3 * d, d, 1, 2, False), dgates=(bs, d, 3 * d, 1, 2, False),
+                  dw=(3 * d, d, s, b, 2, True), p=(s, n, d, b, 1, False),
+                  dh=(s, d, n, b, 1, False), dkv=(n, d, s, b, 2, True))
+    products = {name: _plan_product(*shape, sms) for name, shape in shapes.items()}
+    fused = n <= products["dots"].tile_cols
+    kv = products["dkv"].pieces
+    # the (piece, element) dW and db partials; g, dh, x, dx (B, S, d); gi, gh
+    # (B, S, 3d); dots, attn, P (B, S, N); rs, rg, q (B, S); dv's and dk's pieces
+    scratch = (products["dw"].pieces * b * (6 * d * d + 6 * d) + bs * (10 * d + 3 * n + 3)
+               + (2 * kv * b * n * d if kv > 1 else 0))
+    # per iteration: dots, attn, x, P, dD, dh, dv|dk (and two row passes where
+    # the epilogues cannot take them); per GRU: gi|gh, its backward, dx|dh,
+    # dW; the closing sums; a memset of the partials where no GRU runs
+    launches = iters * (7 if fused else 9) + 4 * (iters - 1) + 1 + int(iters == 1)
+    return TiledPlan(products, fused, scratch, launches)
+
+
 _FWD_SIGNATURE = ([ctypes.c_void_p] * 10 + [ctypes.c_int] * 5
                   + [ctypes.c_float] + [ctypes.c_int] * 3 + [ctypes.c_void_p])
 _BWD_SIGNATURE = ([ctypes.c_void_p] * 17 + [ctypes.c_int] * 5
@@ -250,6 +326,8 @@ def _library(name: str):
         if name == "xslot_bwd":
             lib.xslot_bwd_scratch_floats.argtypes = [ctypes.c_int] * 5
             lib.xslot_bwd_scratch_floats.restype = ctypes.c_size_t
+            lib.xslot_tiled_plan.argtypes = [ctypes.c_int] * 5 + [ctypes.POINTER(ctypes.c_int)]
+            lib.xslot_tiled_plan.restype = ctypes.c_int
         lib.xslot_max_smem.argtypes = [ctypes.c_int]
         lib.xslot_max_smem.restype = ctypes.c_int
         lib.xslot_error_string.argtypes = [ctypes.c_int]
@@ -310,6 +388,21 @@ def _device_plan(kind, b, n, s, d, dev, bf16):
     if plan.tiled:
         _device_plan("fwd", b, n, s, d, dev, False)
     return plan
+
+
+def launch_tiled_plan(b: int, n: int, s: int, d: int, iters: int, device) -> TiledPlan:
+    """The tiled route's plan as the C library makes it on the card that holds
+    ``device`` (``xslot_tiled_plan`` and ``xslot_bwd_scratch_floats``)."""
+    lib = _library("xslot_bwd")
+    out = (ctypes.c_int * (3 * len(TILED_PRODUCTS)))()
+    with torch.cuda.device(device):
+        launches = lib.xslot_tiled_plan(b, n, s, d, iters, out)
+        scratch = lib.xslot_bwd_scratch_floats(b, n, s, d, 0)
+    if launches < 0:
+        _raise_on(lib, -launches, "xslot tiled plan")
+    products = {name: TiledProduct(*out[3 * i:3 * i + 3])
+                for i, name in enumerate(TILED_PRODUCTS)}
+    return TiledPlan(products, n <= products["dots"].tile_cols, scratch, launches)
 
 
 def _raise_on(lib, err, what):
@@ -376,9 +469,9 @@ def _launch_bwd(k, v, w_ih, w_hh, b_ih, b_hh, hist, du, dattn):
     if b == 0:
         return tuple(g.zero_() for g in grads)
     lib = _library("xslot_bwd")
-    scratch = torch.empty(lib.xslot_bwd_scratch_floats(b, n, s, d, plan.cluster),
-                          dtype=torch.float32, device=k.device)
     with torch.cuda.device(k.device):
+        scratch = torch.empty(lib.xslot_bwd_scratch_floats(b, n, s, d, plan.cluster),
+                              dtype=torch.float32, device=k.device)
         stream = torch.cuda.current_stream(k.device).cuda_stream
         err = lib.xslot_bwd(*(t.data_ptr() for t in named.values()),
                             *(g.data_ptr() for g in grads), scratch.data_ptr(),

@@ -52,9 +52,10 @@ def make_serving_fn(cfg, state_dict: Mapping[str, torch.Tensor], *,
 
     ``images_u8`` is a uint8 (B, H, W, C) numpy array or tensor. The result
     holds tensors on ``device``: ``logits`` and, for a slot model with
-    ``include_maps``, ``slot_maps``. ``compute_dtype`` (e.g. torch.bfloat16)
-    is the backbone's; the slot head stays f32 unless
-    ``cfg.slot_head_dtype == 'compute'``."""
+    ``include_maps``, ``slot_maps``; ``fn.model`` is the served module.
+    ``compute_dtype`` (e.g. torch.bfloat16) is the backbone's, computed over
+    f32 parameters and BatchNorm statistics as in the JAX package; the slot
+    head stays f32 unless ``cfg.slot_head_dtype == 'compute'``."""
     from ..core.config import check_serving_supported
     from ..core.device import resolve_device
     from ..data.transforms import preprocess_batch
@@ -62,9 +63,8 @@ def make_serving_fn(cfg, state_dict: Mapping[str, torch.Tensor], *,
 
     check_serving_supported(cfg)
     dev = resolve_device(device)
-    model = build_slot_model(cfg, fused_slot=True, dtype=compute_dtype, device=dev)
+    model = build_slot_model(cfg, fused_slot=True, compute_dtype=compute_dtype, device=dev)
     model.load_state_dict(state_dict)
-    in_dtype = model.dtype
 
     def fn(images_u8):
         # inference_mode is thread-local: entered here, in the calling thread
@@ -72,11 +72,12 @@ def make_serving_fn(cfg, state_dict: Mapping[str, torch.Tensor], *,
             images = (images_u8 if torch.is_tensor(images_u8)
                       else torch.as_tensor(np.asarray(images_u8))).to(dev)
             x = preprocess_batch(images, dataset=cfg.dataset, img_size=cfg.img_size)
-            out = model(x.permute(0, 3, 1, 2).to(in_dtype))
+            out = model(x.permute(0, 3, 1, 2))
             result = {"logits": out["logits"].to(torch.float32)}
             if cfg.use_slot and include_maps:
                 result["slot_maps"] = _render_slot_maps(
                     out["attn"], cfg.num_classes, cfg.slots_per_class)
             return result
 
+    fn.model = model
     return fn

@@ -2,8 +2,9 @@
 against the Pallas kernel (interpret mode) on the same bfloat16 inputs, the
 hand-written backward ``xslot_bwd_ref`` against JAX's checkpointed ``_bwd``
 fed the same residuals and cotangents (also at S=1000 and at d=12), and the
-plans of the CUDA kernels: the cluster plan, and the backward's tiled route
-wherever the forward plans and the backward's share does not fit. Inputs are
+plans of the CUDA kernels: the cluster plan, the backward's tiled route
+wherever the forward plans and the backward's share does not fit, and the
+tiled route's own plan (tile widths, pieces, scratch, launches). Inputs are
 made from a seed with numpy and fed to both sides."""
 
 import numpy as np
@@ -13,8 +14,8 @@ import torch
 
 from scouter_tpu.ops.slot_pallas import _bwd as jax_bwd
 from scouter_tpu.ops.slot_pallas import _fused_forward as jax_fused_forward
-from scouter_tpu_torch.ops.slot_kernel import (_check_dim, _plan, _smem_bytes, xslot_bwd_ref,
-                                               xslot_iterations_fused)
+from scouter_tpu_torch.ops.slot_kernel import (TILED_PRODUCTS, _check_dim, _plan, _smem_bytes,
+                                               tiled_plan, xslot_bwd_ref, xslot_iterations_fused)
 
 TOL = dict(rtol=1e-4, atol=1e-5)  # tests/test_slot_pallas.py:30-31
 H100_SMEM, H100_SMS = 232448, 132  # opt-in shared memory per CTA, SMs
@@ -216,6 +217,46 @@ def test_backward_takes_its_tiled_route_past_a_cluster(b, n, s):
     assert h100_plan(b, n, s, "fwd").cluster >= 1
     plan = h100_plan(b, n, s, "bwd")
     assert plan.tiled and plan.cluster == 0
+
+
+@pytest.mark.parametrize("b,n,s", [(16, 81, 1000), (64, 81, 1000), (70, 196, 30)])
+def test_tiled_plan_at_the_tiled_shapes(b, n, s):
+    """The tiled route's plan on the H100 (132 SMs): its scratch is the
+    layout's sum, a split product has at most 8 pieces and the others one,
+    the GRU's products fold the batch into B*S rows, and one call makes at
+    most 50 launches (66 before the redesign at (16, 81, 1000))."""
+    d, iters = 64, 3
+    plan = tiled_plan(b, n, s, d, iters, H100_SMS)
+    prods = plan.products
+    assert tuple(prods) == TILED_PRODUCTS
+    for name, prod in prods.items():
+        assert prod.tile_cols in (64, 128)
+        assert 1 <= prod.pieces <= (8 if name in ("dw", "dkv") else 1), name
+    assert prods["gates"].rows == prods["dgates"].rows == b * s
+    assert prods["dw"].rows == 3 * d and prods["dkv"].rows == n
+    assert plan.fused == (n <= 128)
+    kv = prods["dkv"].pieces
+    partials = prods["dw"].pieces * b * (2 * 3 * d * d + 2 * 3 * d)
+    buffers = b * s * (4 * d + 2 * 3 * d + 3 * n + 3)
+    assert plan.scratch_floats == partials + buffers + (2 * kv * b * n * d if kv > 1 else 0)
+    assert plan.launches <= 50
+
+
+def test_tiled_plan_of_the_cub_step():
+    # at B=16 the slots split dW, dv and dk into as many pieces as the card
+    # holds CTAs of them at once (2 x 132 at 64 columns), the 16000 GRU rows
+    # are one product, and the row passes ride in the epilogues (N=81 fits
+    # one 128-column tile): 30 launches
+    plan = tiled_plan(16, 81, 1000, 64, 3, H100_SMS)
+    assert plan.products["gates"].rows == 16000
+    assert plan.products["dw"].pieces == 4 and plan.products["dkv"].pieces == 7
+    assert plan.fused and plan.launches == 30
+    # unsplit and unfused at (70, 196, 30): two row passes more an iteration
+    plan = tiled_plan(70, 196, 30, 64, 3, H100_SMS)
+    assert plan.products["dw"].pieces == plan.products["dkv"].pieces == 1
+    assert not plan.fused and plan.launches == 36
+    # one iteration runs no GRU: its partials are zeroed by a memset
+    assert tiled_plan(16, 81, 1000, 64, 1, H100_SMS).launches == 9
 
 
 @pytest.mark.parametrize("d", [48, 64])

@@ -203,15 +203,54 @@ def test_serving_fn_matches_jax(slice_case, dtype):
         assert np.abs(diff).max() <= 1
 
 
+def test_bf16_serving_maps_match_jax(slice_case):
+    """bf16 serving's uint8 slot maps against JAX's bf16 maps, within JAX's
+    own bf16-vs-f32 map difference (at least one level); logits within
+    3e-2 (serve/cli.py:80-81)."""
+    jcfg, cfg, variables, _ = slice_case
+    chans = 1 if jcfg.dataset == "MNIST" else 3
+    images = np.random.RandomState(5).randint(
+        0, 256, (8, jcfg.img_size, jcfg.img_size, chans), np.uint8)
+    want = jax.jit(jax_make_serving_fn(jcfg, variables, compute_dtype=jnp.bfloat16))(images)
+    want32 = jax.jit(jax_make_serving_fn(jcfg, variables))(images)
+    got = make_serving_fn(cfg, variables_to_state_dict(variables),
+                          compute_dtype=torch.bfloat16, device="cpu")(images)
+    np.testing.assert_allclose(got["logits"].numpy(), np.asarray(want["logits"]),
+                               rtol=3e-2, atol=3e-2)
+    want_maps = np.asarray(want["slot_maps"]).astype(int)
+    jax_gap = np.abs(want_maps - np.asarray(want32["slot_maps"]).astype(int)).max()
+    diff = np.abs(got["slot_maps"].numpy().astype(int) - want_maps).max()
+    assert diff <= max(1, jax_gap), (diff, jax_gap)
+
+
+def test_bf16_serving_keeps_batchnorm_f32(slice_case):
+    """Every BatchNorm weight, bias and running statistic of the bf16 served
+    model stays f32, as flax keeps its f32 ``param_dtype``."""
+    _, cfg, variables, _ = slice_case
+    fn = make_serving_fn(cfg, variables_to_state_dict(variables),
+                         compute_dtype=torch.bfloat16, device="cpu")
+    bns = [m for m in fn.model.modules() if isinstance(m, torch.nn.BatchNorm2d)]
+    assert bns
+    for bn in bns:
+        assert bn.compute_dtype == torch.bfloat16
+        for t in (bn.weight, bn.bias, bn.running_mean, bn.running_var):
+            assert t.dtype == torch.float32
+
+
 def test_bf16_backbone_keeps_slot_head_f32(slice_case):
     _, cfg, _, _ = slice_case
-    model = build_slot_model(cfg, dtype=torch.bfloat16, device="cpu")
-    assert model.backbone.layer1[0].conv1.weight.dtype == torch.bfloat16
+    model = build_slot_model(cfg, compute_dtype=torch.bfloat16, device="cpu")
+    conv = model.backbone.layer1[0].conv1
+    assert conv.weight.dtype == torch.float32
+    assert conv.compute_dtype == torch.bfloat16
+    assert all(p.dtype == torch.float32 for p in model.backbone.parameters())
     assert model.conv1x1.weight.dtype == torch.float32
     assert model.slot.initial_slots.dtype == torch.float32
-    compute = build_slot_model(cfg.replace(slot_head_dtype="compute"), dtype=torch.bfloat16,
-                               device="cpu")
+    compute = build_slot_model(cfg.replace(slot_head_dtype="compute"),
+                               compute_dtype=torch.bfloat16, device="cpu")
     assert compute.slot.initial_slots.dtype == torch.bfloat16
+    assert compute.conv1x1.weight.dtype == torch.bfloat16
+    assert all(p.dtype == torch.float32 for p in compute.backbone.parameters())
 
 
 # ------------------------------------------------------------------- data
