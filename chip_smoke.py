@@ -18,13 +18,15 @@ Phases (any failure exits non-zero; nothing is caught and passed over):
    and 16, equal bit for bit across two calls, with its time at B = 1, 4,
    16 and 70, and the op's gradient against autograd through the plain
    version; then the backward where no cluster of 8 holds an element's
-   share, on its tiled route, at the CUB recipe's (16, 81, 1000) and 448
-   px's (70, 196, 30), and on a cluster at d=48 (16, 49, 30): the forward
-   with hist against its plain version (and its time at (16, 81, 1000)),
-   the backward against ``xslot_bwd_ref`` and the op's gradient against
-   autograd through the plain version, bit for bit across two calls, with
-   plans, times and bounds, and the tiled route's plan (tile widths, pieces,
-   scratch, launches a call) from the C library held to its Python copy;
+   share, on its tiled route, at the CUB recipe's (16, 81, 1000) at d=64
+   and d=48 and at 448 px's (70, 196, 30), and on a cluster at d=48 (16,
+   49, 30): the forward with hist against its plain version (and its time
+   at (16, 81, 1000)), the backward against ``xslot_bwd_ref`` and the op's
+   gradient against autograd through the plain version, bit for bit across
+   two calls, with plans, times and bounds, the tiled route's launches a
+   call as torch.profiler counts them (at most 50, and as many as
+   ``TiledPlan.launches`` says), and its plan (tile widths, pieces,
+   scratch) from the C library held to its Python copy;
 4. serve flagship resnest26d + xSlot (f32, seeded random weights) through
    ``InferenceEngine`` (requests from several threads) and the HTTP server
    (``.npy`` bodies, one with ``?maps=1``, and ``/healthz``), counting the
@@ -442,7 +444,7 @@ def phase_kernel_grad(entry):
 def check_tiled_plans(shapes):
     """The tiled route's plan from the C library (``xslot_tiled_plan`` and the
     scratch it sizes) against ``slot_kernel.tiled_plan``, its Python copy, at
-    each (B, N, S, d); returns the library's plans."""
+    each (B, N, S, d); returns the plans."""
     import torch
 
     from scouter_tpu_torch.ops import slot_kernel
@@ -450,34 +452,47 @@ def check_tiled_plans(shapes):
     sms = torch.cuda.get_device_properties(0).multi_processor_count
     plans = {}
     for b, n, s, d in shapes:
-        plan = slot_kernel.launch_tiled_plan(b, n, s, d, 3, torch.device("cuda"))
-        py = slot_kernel.tiled_plan(b, n, s, d, 3, sms)
+        plan = slot_kernel.launch_tiled_plan(b, n, s, d, torch.device("cuda"))
+        py = slot_kernel.tiled_plan(b, n, s, d, sms)
         prods = ", ".join(f"{k} {p.rows} rows x {p.tile_cols}-column tiles"
                           + (f" in {p.pieces} pieces" if p.pieces > 1 else "")
                           for k, p in plan.products.items())
-        print(f"xslot_bwd tiled plan B={b} N={n} S={s} d={d}: {plan.launches} launches a call, "
-              f"{plan.scratch_floats} scratch floats, row passes "
-              f"{'in the epilogues' if plan.fused else 'apart'}; {prods}", flush=True)
+        print(f"xslot_bwd tiled plan B={b} N={n} S={s} d={d}: {plan.scratch_floats} scratch "
+              f"floats, row passes {'in the epilogues' if plan.fused else 'apart'}; {prods}",
+              flush=True)
         if plan != py:
             fail(f"the tiled route's plan at B={b} N={n} S={s} d={d} is {plan} in the C "
                  f"library and {py} in slot_kernel.tiled_plan")
-        if plan.launches > 50:
-            fail(f"the tiled route makes {plan.launches} launches a call at B={b} N={n} S={s}")
         plans[f"{b},{n},{s},d={d}"] = plan
     return plans
 
 
+def profiled_launches(fn):
+    """The kernels and memsets one call of ``fn`` puts on the card, as
+    torch.profiler records them."""
+    import torch
+    from torch.profiler import ProfilerActivity, profile
+
+    torch.cuda.synchronize()
+    with profile(activities=[ProfilerActivity.CUDA]) as prof:
+        fn()
+        torch.cuda.synchronize()
+    return sum(ev.device_type == torch.autograd.DeviceType.CUDA for ev in prof.events())
+
+
 def phase_kernel_grad_tiled(entry):
     """K1's backward where it leaves the cluster: at the CUB recipe's (16,
-    81, 1000) and 448 px's (70, 196, 30) on its tiled route, and at d=48
-    (16, 49, 30) on a cluster. At each, the forward with hist against its
-    plain version to bench.py:85-86's S=1000 bars, the backward against
-    ``xslot_bwd_ref`` and the op's gradient against autograd through the
-    plain version to chip_smoke's gradient bar, two backward calls equal bit
-    for bit, its plan, time in a CUDA graph and bound; the tiled plans held
-    to their Python copy (also at (64, 81, 1000)). Adds the forward with
-    hist's time at (16, 81, 1000) to the forward's ``entry``; returns the
-    tiled route's kernels-line entry."""
+    81, 1000), at that shape with d=48 and at 448 px's (70, 196, 30) on its
+    tiled route, and at d=48 (16, 49, 30) on a cluster. At each, the forward
+    with hist against its plain version to bench.py:85-86's S=1000 bars, the
+    backward against ``xslot_bwd_ref`` and the op's gradient against
+    autograd through the plain version to chip_smoke's gradient bar, two
+    backward calls equal bit for bit, its plan, time in a CUDA graph and
+    bound; on the tiled route the launches of one call as torch.profiler
+    counts them, held to ``TiledPlan.launches`` and to at most 50; the tiled
+    plans held to their Python copy (also at (64, 81, 1000)). Adds the
+    forward with hist's time at (16, 81, 1000) to the forward's ``entry``;
+    returns the tiled route's kernels-line entry."""
     import torch
 
     from scouter_tpu_torch.ops import slot_kernel
@@ -485,8 +500,10 @@ def phase_kernel_grad_tiled(entry):
     fused, ref = slot_kernel.xslot_iterations_fused, slot_kernel.xslot_iterations_ref
     names = ("k", "v", "initial_slots", "w_ih", "w_hh", "b_ih", "b_hh")
     worst, times, tiled = 0.0, {}, {}
-    tiled_plans = check_tiled_plans(((16, 81, 1000, 64), (64, 81, 1000, 64), (70, 196, 30, 64)))
-    for b, n, s, d in ((16, 81, 1000, 64), (70, 196, 30, 64), (16, 49, 30, 48)):
+    tiled_plans = check_tiled_plans(((16, 81, 1000, 64), (64, 81, 1000, 64),
+                                     (16, 81, 1000, 48), (70, 196, 30, 64)))
+    for b, n, s, d in ((16, 81, 1000, 64), (16, 81, 1000, 48), (70, 196, 30, 64),
+                       (16, 49, 30, 48)):
         label = f"{b},{n},{s},d={d}"
         args = xslot_inputs(b, n, s, d, "cuda")
         check_plan("fwd", b, n, s, d, args[0].device)
@@ -500,7 +517,7 @@ def phase_kernel_grad_tiled(entry):
               f"1e-3), max|d attn| {e_attn:.3e} (bar 2e-2)", flush=True)
         if not (e_upd < 1e-3 and e_attn < 2e-2):
             fail(f"xslot_fwd with hist disagrees with xslot_fwd_ref at {label}")
-        if (b, n, s) == (16, 81, 1000):  # the CUB train step's forward
+        if (b, n, s, d) == (16, 81, 1000, 64):  # the CUB train step's forward
             with torch.no_grad():
                 hist_ms = graph_ms(lambda: slot_kernel._launch(*args, 3, emit_hist=True),
                                    reps=20, iters=10)
@@ -539,20 +556,27 @@ def phase_kernel_grad_tiled(entry):
         times[label] = dict(route=route, ms=ms, plain_ms=plain_ms, bound_ms=bound_ms,
                             bound_by=bound_by)
         if plan.tiled:
+            with torch.no_grad():
+                count = profiled_launches(lambda: slot_kernel._launch_bwd(*res, *cot))
+            want_count = tiled_plans[label].launches(3)
+            print(f"xslot_bwd B={b} N={n} S={s} d={d} (tiled route): {count} launches in one "
+                  f"call as torch.profiler counts them (TiledPlan.launches: {want_count}, "
+                  f"bar 50)", flush=True)
+            if count != want_count or count > 50:
+                fail(f"the tiled route made {count} launches in one call at {label}: "
+                     f"TiledPlan.launches says {want_count}, the bar is 50")
+            times[label]["launches_per_call"] = count
             tiled[label] = times[label]
             worst = max(worst, err)
-    if list(tiled) != ["16,81,1000,d=64", "70,196,30,d=64"]:
+    if list(tiled) != ["16,81,1000,d=64", "16,81,1000,d=48", "70,196,30,d=64"]:
         fail(f"xslot_bwd took its tiled route at {list(tiled)}")
-    for label, plan in tiled_plans.items():
-        if label in times:
-            times[label]["launches_per_call"] = plan.launches
     cub = tiled["16,81,1000,d=64"]
     return {"name": "xslot_bwd_tiled", "route": "cuda",
             "source": "scouter_tpu_torch/csrc/xslot_bwd.cu",
             "replaces": "scouter_tpu/ops/slot_pallas.py:168", "max_abs_err": worst,
             "ms": cub["ms"], "plain_ms": cub["plain_ms"], "bound_ms": cub["bound_ms"],
             "bound_by": cub["bound_by"], "library_ms": None,
-            "launches_per_call": tiled_plans["16,81,1000,d=64"].launches, "by_shape": times}
+            "launches_per_call": cub["launches_per_call"], "by_shape": times}
 
 
 def post(url: str, body: bytes) -> dict:

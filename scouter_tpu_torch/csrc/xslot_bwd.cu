@@ -346,8 +346,8 @@ __global__ void xslot_bwd_sum_kernel(const float* __restrict__ partials, int npa
 //   (piece, element) keeps its own partial across the iterations; the first
 //   iteration to write one stores it, and the route's last launch adds them
 //   in order. An unsplit dv or dk goes straight to its output.
-// tiled_plan gives each product's tile width, pieces and rows, the scratch
-// and the launches of one call: 30 at (16, 81, 1000).
+// tiled_plan gives each product's tile width, pieces and rows, and the
+// scratch.
 
 constexpr int kBM = 128;          // rows of a product's CTA tile
 constexpr int kBK = 16;           // inner terms staged per pipeline stage
@@ -906,15 +906,14 @@ inline ProductPlan plan_product(int rows, int cols, int inner, int batch, int gr
 
 // The tiled route's plan at (batch, N, S, d) on a card of `sms` SMs: its
 // products (in the order of the enum above), whether the row passes ride in
-// the products' epilogues, the scratch in floats and the launches of one call.
+// the products' epilogues and the scratch in floats.
 struct TiledPlan {
   ProductPlan prod[kProducts];
   bool fused;
   size_t scratch;
-  int launches;
 };
 
-inline TiledPlan tiled_plan(int batch, int n, int s, int d, int iters, int sms) {
+inline TiledPlan tiled_plan(int batch, int n, int s, int d, int sms) {
   TiledPlan t;
   const int bs = batch * s;
   t.prod[kDots] = plan_product(s, n, d, batch, 1, false, sms);
@@ -932,10 +931,6 @@ inline TiledPlan tiled_plan(int batch, int n, int s, int d, int iters, int sms) 
   t.scratch = (size_t)t.prod[kDW].pieces * batch * partial_floats(d) +
               (size_t)bs * (10 * d + 3 * n + 3) +
               (kv > 1 ? 2 * (size_t)kv * batch * n * d : 0);
-  // per iteration: dots, attn, x, P, ddots, dh, dv|dk (+ the two row passes
-  // where the epilogues cannot take them); per GRU: gi|gh, its backward,
-  // dx|dh, dW; the closing sums; a memset of the partials where no GRU runs
-  t.launches = iters * (t.fused ? 7 : 9) + 4 * (iters - 1) + 1 + (iters == 1 ? 1 : 0);
   return t;
 }
 
@@ -1012,7 +1007,7 @@ int tiled_bwd(const float* k, const float* v, const float* w_ih, const float* w_
               int s, int d, int iters, float scale, cudaStream_t stream) {
   int sms = 0;
   XSLOT_TRY(device_sms(&sms));
-  const TiledPlan plan = tiled_plan(batch, n, s, d, iters, sms);
+  const TiledPlan plan = tiled_plan(batch, n, s, d, sms);
   const long long sd = (long long)s * d, sn = (long long)s * n, s3 = 3 * sd;
   const long long nd = (long long)n * d, rows = (long long)batch * s, bnd = batch * nd;
   const size_t per_z = partial_floats(d);
@@ -1141,26 +1136,26 @@ int xslot_bwd_max_clusters(int n, int s_cta, int d, int cluster) {
 size_t xslot_bwd_scratch_floats(int batch, int n, int s, int d, int cluster) {
   if (cluster == 0) {
     int sms = 0;
-    return device_sms(&sms) == 0 ? tiled_plan(batch, n, s, d, 1, sms).scratch : 0;
+    return device_sms(&sms) == 0 ? tiled_plan(batch, n, s, d, sms).scratch : 0;
   }
   return (size_t)batch * cluster * partial_floats(d) + (size_t)batch * s * d;
 }
 
-// The tiled route's plan at (batch, N, S, d, iters) on the current device:
-// for each product (dots, x, gi|gh, dx|dh, dW_ih|dW_hh, P, dh, dv|dk) its
-// rows, CTA tile width and inner pieces at out[3p], out[3p+1], out[3p+2];
-// returns the launches of one call, or a negative CUDA error.
-int xslot_tiled_plan(int batch, int n, int s, int d, int iters, int* out) {
+// The tiled route's plan at (batch, N, S, d) on the current device: for each
+// product (dots, x, gi|gh, dx|dh, dW_ih|dW_hh, P, dh, dv|dk) its rows, CTA
+// tile width and inner pieces at out[3p], out[3p+1], out[3p+2]; returns 0 or
+// a negative CUDA error.
+int xslot_tiled_plan(int batch, int n, int s, int d, int* out) {
   int sms = 0;
   const int err = device_sms(&sms);
   if (err != 0) return -err;
-  const TiledPlan t = tiled_plan(batch, n, s, d, iters, sms);
+  const TiledPlan t = tiled_plan(batch, n, s, d, sms);
   for (int i = 0; i < kProducts; ++i) {
     out[3 * i] = t.prod[i].rows;
     out[3 * i + 1] = t.prod[i].bn;
     out[3 * i + 2] = t.prod[i].pieces;
   }
-  return t.launches;
+  return 0;
 }
 
 // Launches the gradient kernel (`cluster` CTAs per batch element) and the

@@ -251,13 +251,21 @@ class TiledPlan(NamedTuple):
     """The tiled route at one shape: its products by name (``TILED_PRODUCTS``:
     the dots, the update x, the GRU's gates gi|gh, their input gradients
     dx|dh, dW_ih|dW_hh, P, dh and dv|dk), whether the row passes ride in the
-    products' epilogues (``fused``: N <= the tile's width), the scratch in
-    floats and the launches of one call."""
+    products' epilogues (``fused``: N <= the tile's width) and the scratch in
+    floats."""
 
     products: Dict[str, TiledProduct]
     fused: bool
     scratch_floats: int
-    launches: int
+
+    def launches(self, iters: int) -> int:
+        """The launches ``tiled_bwd`` makes in one call of ``iters``
+        iterations: per iteration dots, attn, x, P, dD, dh and dv|dk (and
+        two row passes where the epilogues cannot take them); per GRU gi|gh,
+        its backward, dx|dh and dW; the closing sums; a memset of the
+        partials where no GRU runs. ``chip_smoke.py`` holds it to the count
+        torch.profiler makes of one call on the card."""
+        return iters * (7 if self.fused else 9) + 4 * (iters - 1) + 1 + int(iters == 1)
 
 
 def _cdiv(a: int, b: int) -> int:
@@ -280,7 +288,7 @@ def _plan_product(rows, cols, inner, batch, groups, split, sms) -> TiledProduct:
     return TiledProduct(rows, bn, _cdiv(inner, chunk))
 
 
-def tiled_plan(b: int, n: int, s: int, d: int, iters: int, sms: int) -> TiledPlan:
+def tiled_plan(b: int, n: int, s: int, d: int, sms: int) -> TiledPlan:
     """The backward's tiled route at (B, N, S, d) on a card of ``sms`` SMs, as
     ``tiled_plan`` of csrc/xslot_bwd.cu has it; ``chip_smoke.py`` holds this
     copy to the library's ``xslot_tiled_plan`` and scratch size."""
@@ -296,11 +304,7 @@ def tiled_plan(b: int, n: int, s: int, d: int, iters: int, sms: int) -> TiledPla
     # (B, S, 3d); dots, attn, P (B, S, N); rs, rg, q (B, S); dv's and dk's pieces
     scratch = (products["dw"].pieces * b * (6 * d * d + 6 * d) + bs * (10 * d + 3 * n + 3)
                + (2 * kv * b * n * d if kv > 1 else 0))
-    # per iteration: dots, attn, x, P, dD, dh, dv|dk (and two row passes where
-    # the epilogues cannot take them); per GRU: gi|gh, its backward, dx|dh,
-    # dW; the closing sums; a memset of the partials where no GRU runs
-    launches = iters * (7 if fused else 9) + 4 * (iters - 1) + 1 + int(iters == 1)
-    return TiledPlan(products, fused, scratch, launches)
+    return TiledPlan(products, fused, scratch)
 
 
 _FWD_SIGNATURE = ([ctypes.c_void_p] * 10 + [ctypes.c_int] * 5
@@ -326,7 +330,7 @@ def _library(name: str):
         if name == "xslot_bwd":
             lib.xslot_bwd_scratch_floats.argtypes = [ctypes.c_int] * 5
             lib.xslot_bwd_scratch_floats.restype = ctypes.c_size_t
-            lib.xslot_tiled_plan.argtypes = [ctypes.c_int] * 5 + [ctypes.POINTER(ctypes.c_int)]
+            lib.xslot_tiled_plan.argtypes = [ctypes.c_int] * 4 + [ctypes.POINTER(ctypes.c_int)]
             lib.xslot_tiled_plan.restype = ctypes.c_int
         lib.xslot_max_smem.argtypes = [ctypes.c_int]
         lib.xslot_max_smem.restype = ctypes.c_int
@@ -390,19 +394,18 @@ def _device_plan(kind, b, n, s, d, dev, bf16):
     return plan
 
 
-def launch_tiled_plan(b: int, n: int, s: int, d: int, iters: int, device) -> TiledPlan:
+def launch_tiled_plan(b: int, n: int, s: int, d: int, device) -> TiledPlan:
     """The tiled route's plan as the C library makes it on the card that holds
     ``device`` (``xslot_tiled_plan`` and ``xslot_bwd_scratch_floats``)."""
     lib = _library("xslot_bwd")
     out = (ctypes.c_int * (3 * len(TILED_PRODUCTS)))()
     with torch.cuda.device(device):
-        launches = lib.xslot_tiled_plan(b, n, s, d, iters, out)
+        err = lib.xslot_tiled_plan(b, n, s, d, out)
         scratch = lib.xslot_bwd_scratch_floats(b, n, s, d, 0)
-    if launches < 0:
-        _raise_on(lib, -launches, "xslot tiled plan")
+    _raise_on(lib, -err, "xslot tiled plan")
     products = {name: TiledProduct(*out[3 * i:3 * i + 3])
                 for i, name in enumerate(TILED_PRODUCTS)}
-    return TiledPlan(products, n <= products["dots"].tile_cols, scratch, launches)
+    return TiledPlan(products, n <= products["dots"].tile_cols, scratch)
 
 
 def _raise_on(lib, err, what):

@@ -226,7 +226,7 @@ def test_tiled_plan_at_the_tiled_shapes(b, n, s):
     the GRU's products fold the batch into B*S rows, and one call makes at
     most 50 launches (66 before the redesign at (16, 81, 1000))."""
     d, iters = 64, 3
-    plan = tiled_plan(b, n, s, d, iters, H100_SMS)
+    plan = tiled_plan(b, n, s, d, H100_SMS)
     prods = plan.products
     assert tuple(prods) == TILED_PRODUCTS
     for name, prod in prods.items():
@@ -239,7 +239,7 @@ def test_tiled_plan_at_the_tiled_shapes(b, n, s):
     partials = prods["dw"].pieces * b * (2 * 3 * d * d + 2 * 3 * d)
     buffers = b * s * (4 * d + 2 * 3 * d + 3 * n + 3)
     assert plan.scratch_floats == partials + buffers + (2 * kv * b * n * d if kv > 1 else 0)
-    assert plan.launches <= 50
+    assert plan.launches(iters) <= 50
 
 
 def test_tiled_plan_of_the_cub_step():
@@ -247,16 +247,29 @@ def test_tiled_plan_of_the_cub_step():
     # holds CTAs of them at once (2 x 132 at 64 columns), the 16000 GRU rows
     # are one product, and the row passes ride in the epilogues (N=81 fits
     # one 128-column tile): 30 launches
-    plan = tiled_plan(16, 81, 1000, 64, 3, H100_SMS)
+    plan = tiled_plan(16, 81, 1000, 64, H100_SMS)
     assert plan.products["gates"].rows == 16000
     assert plan.products["dw"].pieces == 4 and plan.products["dkv"].pieces == 7
-    assert plan.fused and plan.launches == 30
+    assert plan.fused and plan.launches(3) == 30
     # unsplit and unfused at (70, 196, 30): two row passes more an iteration
-    plan = tiled_plan(70, 196, 30, 64, 3, H100_SMS)
+    plan = tiled_plan(70, 196, 30, 64, H100_SMS)
     assert plan.products["dw"].pieces == plan.products["dkv"].pieces == 1
-    assert not plan.fused and plan.launches == 36
+    assert not plan.fused and plan.launches(3) == 36
     # one iteration runs no GRU: its partials are zeroed by a memset
-    assert tiled_plan(16, 81, 1000, 64, 1, H100_SMS).launches == 9
+    assert tiled_plan(16, 81, 1000, 64, H100_SMS).launches(1) == 9
+
+
+def test_tiled_plan_at_d48():
+    # the CUB shape at d=48, which chip_smoke.py also runs on the card: no
+    # cluster of 8 holds its share either, and its dv, dk and dW keep
+    # 64-column tiles (48 columns, 3 x 48 rows) split over the slots
+    assert h100_plan(16, 81, 1000, "bwd", d=48).tiled
+    plan = tiled_plan(16, 81, 1000, 48, H100_SMS)
+    prods = plan.products
+    assert prods["gates"].rows == 16000 and prods["dw"].rows == 144
+    assert prods["dw"].tile_cols == prods["dkv"].tile_cols == 64
+    assert prods["dw"].pieces > 1 and prods["dkv"].pieces > 1
+    assert plan.fused and plan.launches(3) == 30
 
 
 @pytest.mark.parametrize("d", [48, 64])
