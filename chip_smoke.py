@@ -63,7 +63,26 @@ Phases (any failure exits non-zero; nothing is caught and passed over):
    ``InferenceEngine`` answers a request from; the val loss of those weights
    in bf16 and in f32 within 0.08 x max(1, |f32 loss|)
    (tests/test_train.py:139-150); bf16 and f32 train img/s at batch 16 on
-   one repeated batch, whose loss must fall, with f32 state after the steps.
+   one repeated batch, whose loss must fall, with f32 state after the steps;
+11. images on disk, from the fixtures committed in ``tests/torch_fixtures``:
+   each JPEG decoded by nvJPEG and staged to 260 px on the card against
+   Pillow's staged pixels (max, 99.9th percentile and mean level difference;
+   the mean within JPEG_MEAN_LEVEL_BAR), each PNG staged on the card equal
+   to the CPU path, the decoder's count equal to the JPEGs decoded, decode
+   img/s at batch 16; the CUB recipe in bf16 through the train CLI for one
+   epoch on a CUB-200 tree of 200 classes x (2 train + 1 val) images (25
+   train steps, 13 val batches; K1 counted: hist 25, hist-free 13, tiled
+   backward 25, cluster 0; nvJPEG's decodes equal to the tree's JPEGs),
+   cold- and warm-cache train img/s beside the stand-in's, the cache within
+   its byte bound; on a smaller tree, with cuDNN deterministic,
+   ``--preempt_save true --ckpt_async true`` uninterrupted, interrupted by a
+   real SIGTERM after train step 7 (a checkpoint at (0, 7)) and resumed:
+   the resumed parameters, buffers and AdamW state equal the uninterrupted
+   run's bit for bit (else within two uninterrupted runs' spread, printed);
+   the explain CLI on the tree's checkpoint and a val JPEG (K1 once,
+   hist-free; 401 PNGs read back); the HTTP server answering a JPEG body
+   and a PNG body, whose logits equal a ``.npy`` body's of the same staged
+   pixels; Pillow never imported.
 
 The line before the last is the kernels' JSON; the last line is
 ``{"ok": true, "device": {...}}``. Without a CUDA device, or without the
@@ -999,6 +1018,388 @@ def phase_cub_dtypes(cfg, state_dict, card: str):
     return val, rates
 
 
+# the committed image fixtures (tests/torch_fixtures/make_fixtures.py)
+FIXTURES = ROOT / "tests" / "torch_fixtures"
+FIXTURE_JPEGS = ("rgb420_500x375.jpg", "rgb444_375x500.jpg", "progressive_500x333.jpg",
+                 "gray_500x375.jpg")
+FIXTURE_PNGS = ("rgb_filters_300x200.png", "palette_trns_240x180.png",
+                "gray_alpha_200x150.png", "rgba_220x160.png")
+# the nvJPEG decode's bar against Pillow's staged pixels: mean absolute level
+# difference (the IDCT and the chroma upsampling differ from libjpeg-turbo's)
+JPEG_MEAN_LEVEL_BAR = 1.0
+
+
+def write_cub_tree(root: str, entries):
+    """A CUB-200-2011 tree at ``root`` from the fixtures: ``entries`` lists
+    (class id, is_train) per image, in images.txt order; image k is a copy of
+    fixture k mod 8. Returns {"train"|"val": number of JPEGs} for the tree."""
+    import os
+    import shutil
+
+    fixtures = FIXTURE_JPEGS + FIXTURE_PNGS
+    lines = {"images.txt": [], "image_class_labels.txt": [], "train_test_split.txt": []}
+    jpegs = {"train": 0, "val": 0}
+    for k, (c, train) in enumerate(entries):
+        src = fixtures[k % len(fixtures)]
+        name = f"{c:03d}.Bird_{c}/Bird_{c}_{k}{os.path.splitext(src)[1]}"
+        os.makedirs(os.path.join(root, "images", os.path.dirname(name)), exist_ok=True)
+        shutil.copyfile(FIXTURES / src, os.path.join(root, "images", name))
+        lines["images.txt"].append(f"{k + 1} {name}")
+        lines["image_class_labels.txt"].append(f"{k + 1} {c}")
+        lines["train_test_split.txt"].append(f"{k + 1} {int(train)}")
+        jpegs["train" if train else "val"] += src.endswith(".jpg")
+    for fname, rows in lines.items():
+        with open(os.path.join(root, fname), "w") as f:
+            f.write("\n".join(rows) + "\n")
+    return jpegs
+
+
+def tree_flags(tree: str, out: str):
+    """The CUB bf16 recipe's train CLI flags on the tree at ``tree``."""
+    flags = cub_flags(out)
+    at = flags.index("--dataset_dir")
+    return flags[:at + 1] + [tree] + flags[at + 2:]
+
+
+def phase_folder_decode(card: str):
+    """Each JPEG fixture decoded by nvJPEG and staged to 260 px on the card
+    against Pillow's staged pixels (committed beside the fixtures): the mean
+    level difference within JPEG_MEAN_LEVEL_BAR; each PNG fixture staged on
+    the card equal to the CPU path bit for bit; the decoder's count equal to
+    the JPEGs decoded; then decode img/s at batch 16, uncached."""
+    import numpy as np
+    import torch
+
+    from scouter_tpu_torch.data import FolderDataset
+    from scouter_tpu_torch.data._decode import decode_file, decode_jpeg, stage
+
+    pillow = np.load(FIXTURES / "staged_260.npz")
+    decode_jpeg.decodes = 0
+    for name in FIXTURE_JPEGS:
+        got = stage(decode_jpeg((FIXTURES / name).read_bytes(), "cuda"), 260)
+        diff = np.abs(got.cpu().numpy().astype(np.int16) - pillow[name].astype(np.int16))
+        print(f"nvJPEG vs Pillow, {name} staged to 260 px: max {diff.max()} levels, "
+              f"99.9th percentile {np.percentile(diff, 99.9):.1f}, mean {diff.mean():.4f}",
+              flush=True)
+        if not diff.mean() <= JPEG_MEAN_LEVEL_BAR:
+            fail(f"{name}: nvJPEG's staged pixels are {diff.mean():.4f} levels from Pillow's "
+                 f"on average (bar {JPEG_MEAN_LEVEL_BAR})")
+    if decode_jpeg.decodes != len(FIXTURE_JPEGS):
+        fail(f"decode_jpeg counted {decode_jpeg.decodes} nvJPEG decodes for "
+             f"{len(FIXTURE_JPEGS)} JPEGs")
+    for name in FIXTURE_PNGS:
+        card_px = decode_file(str(FIXTURES / name), 260, "cuda")
+        if not card_px.is_cuda or not torch.equal(card_px.cpu(),
+                                                  decode_file(str(FIXTURES / name), 260, "cpu")):
+            fail(f"{name}: the card's staged PNG differs from the CPU path's")
+    print(f"PNG fixtures {', '.join(FIXTURE_PNGS)}: staged on the card bit for bit as on the "
+          "CPU", flush=True)
+
+    items = [(str(FIXTURES / FIXTURE_JPEGS[i % 3]), 0) for i in range(16)]
+    ds = FolderDataset(items, 260, "CUB200", cache_bytes=0, device="cuda")
+    ds.gather(np.arange(16))
+    torch.cuda.synchronize()
+    before = decode_jpeg.decodes
+    t0 = time.perf_counter()
+    for _ in range(5):
+        ds.gather(np.arange(16))
+    torch.cuda.synchronize()
+    rate = 80 / (time.perf_counter() - t0)
+    if decode_jpeg.decodes - before != 80:
+        fail(f"decode_jpeg counted {decode_jpeg.decodes - before} decodes for 80 uncached JPEGs")
+    print(f"decode throughput: FolderDataset.gather of 16 uncached color JPEGs (500x375, "
+          f"375x500, 500x333) staged to 260 px on the card: {rate:.1f} img/s on {card}",
+          flush=True)
+    if "PIL" in sys.modules:
+        fail("Pillow was imported on the card's decode path")
+
+
+def phase_folder_train(tmp: str, card: str):
+    """The CUB-200 recipe in bf16 through the train CLI for one epoch on a
+    CUB tree of 200 classes x (2 train + 1 val) images laid out from the
+    fixtures: 25 train steps and 13 val batches, K1 counted (hist 25,
+    hist-free 13, tiled backward 25, cluster 0), nvJPEG's decodes equal to
+    the tree's JPEGs (each decoded once, uncached); then train img/s over a
+    cold and a warm cache beside the stand-in's, with the cache within its
+    byte bound. Returns the tree, the output directory, K1's forward
+    launches and its tiled backward's in the CLI run."""
+    import math
+    import os
+
+    import numpy as np
+    import torch
+
+    from scouter_tpu_torch.core import ScouterConfig
+    from scouter_tpu_torch.data import FolderDataset, select_dataset
+    from scouter_tpu_torch.data._decode import decode_jpeg
+    from scouter_tpu_torch.ops import slot_kernel
+    from scouter_tpu_torch.train import Trainer, cli
+
+    tree, out = os.path.join(tmp, "cub_tree"), os.path.join(tmp, "cub_tree_out")
+    jpegs = write_cub_tree(tree, [(c, i < 2) for c in range(1, 201) for i in range(3)])
+    train_steps, val_batches = 400 // 16, -(-200 // 16)
+    fused = slot_kernel.xslot_iterations_fused
+    fused.launches = fused.hist_launches = fused.bwd_launches = fused.bwd_tiled_launches = 0
+    decode_jpeg.decodes = 0
+    t0 = time.monotonic()
+    _, lines = run_cli(cli.main, tree_flags(tree, out))
+    torch.cuda.synchronize()
+    seconds = time.monotonic() - t0
+    counts = (fused.hist_launches, fused.launches - fused.hist_launches,
+              fused.bwd_tiled_launches, fused.bwd_launches)
+    decodes = decode_jpeg.decodes
+    metrics = logged_metrics(lines)
+    values = [v for vs in metrics.values() for v in vs]
+    print(f"CUB tree train: 600 files ({jpegs['train']} + {jpegs['val']} JPEGs), 1 epoch, "
+          f"{train_steps} train steps and {val_batches} val batches in {seconds:.2f} s with "
+          f"decode, eval and the checkpoint; xslot_fwd launches with hist {counts[0]}, without "
+          f"{counts[1]}; xslot_bwd tiled {counts[2]}, on a cluster {counts[3]}; nvJPEG decodes "
+          f"{decodes}", flush=True)
+    if counts != (train_steps, val_batches, train_steps, 0):
+        fail(f"CUB tree train: K1 counts {counts}, expected ({train_steps}, {val_batches}, "
+             f"{train_steps}, 0)")
+    if decodes != jpegs["train"] + jpegs["val"]:
+        fail(f"CUB tree train: {decodes} nvJPEG decodes for {jpegs} JPEGs, each once uncached")
+    if len(metrics["train loss:"]) != 1 or not all(map(math.isfinite, values)):
+        fail(f"CUB tree train: logged metrics {metrics}")
+
+    cfg = ScouterConfig(**CUB).replace(device="cuda", dataset_dir=tree)
+    ds_train = select_dataset(cfg, train=True)
+    if not isinstance(ds_train, FolderDataset):
+        fail(f"select_dataset on the tree gave {type(ds_train).__name__}")
+    trainer = Trainer(cfg, datasets=(ds_train, select_dataset(cfg, train=False)))
+    rates = {}
+    for epoch, name in ((0, "cold cache"), (1, "warm cache")):
+        torch.cuda.synchronize()
+        t1 = time.perf_counter()
+        trainer.run_epoch(epoch, "train")
+        torch.cuda.synchronize()
+        rates[name] = 400 / (time.perf_counter() - t1)
+    if not ds_train.cached_bytes <= ds_train.cache_bytes or \
+            ds_train.cached_bytes != 400 * 260 * 260 * 3:
+        fail(f"the tree's cache holds {ds_train.cached_bytes} bytes (bound "
+             f"{ds_train.cache_bytes}, expected all 400 images)")
+    del trainer
+    stand_in = Trainer(cfg.replace(dataset_dir=os.path.join(out, "no_dataset")))
+    torch.cuda.synchronize()
+    t1 = time.perf_counter()
+    stand_in.run_epoch(0, "train")
+    torch.cuda.synchronize()
+    rates["synthetic stand-in"] = 256 // 16 * 16 / (time.perf_counter() - t1)
+    del stand_in
+    print(f"CUB bf16 train epoch img/s at batch 16, Loader and decode included: "
+          + ", ".join(f"{k} {v:.1f}" for k, v in rates.items())
+          + f"; the tree's cache {ds_train.cached_bytes} bytes of {ds_train.cache_bytes} on "
+          f"the card, on {card}", flush=True)
+    if "PIL" in sys.modules:
+        fail("Pillow was imported on the card's train path")
+    return tree, out, counts[0] + counts[1], counts[2]
+
+
+def _state_tensors(path: str):
+    """(name, tensor) of a checkpoint's parameters, buffers and AdamW state."""
+    import torch
+
+    payload = torch.load(path, map_location="cpu", weights_only=True)
+    out = list(payload["model"].items())
+    for key, st in sorted(payload["optimizer"]["state"].items()):
+        out += [(f"optimizer.{key}.{k}", v) for k, v in sorted(st.items())]
+    return out, payload
+
+
+def _largest_difference(a, b) -> float:
+    return max(float((x.double() - y.double()).abs().max()) if x.numel() else 0.0
+               for (_, x), (_, y) in zip(a, b))
+
+
+def phase_folder_preempt(tmp: str):
+    """Preemption on a tree (160 train images, 16 val: 10 train steps), the
+    CUB bf16 recipe with ``--preempt_save true --ckpt_async true`` and
+    cuDNN deterministic: uninterrupted; a real SIGTERM after train step 7,
+    which must log the preempt line and leave a checkpoint at (0, 7);
+    ``--resume true`` from it. The resumed run's parameters, buffers and
+    AdamW state must equal the uninterrupted run's bit for bit; where they do
+    not, a second uninterrupted run gives the card's own spread, and the
+    resumed run must lie within it. Ops torch calls nondeterministic are
+    named."""
+    import os
+    import signal
+    import warnings
+
+    import torch
+
+    from scouter_tpu_torch.train import cli
+    from scouter_tpu_torch.train import loop as train_loop
+
+    tree = os.path.join(tmp, "preempt_tree")
+    write_cub_tree(tree, [(c, True) for c in range(1, 161)] + [(c, False) for c in range(1, 17)])
+    flags = ["--preempt_save", "true", "--ckpt_async", "true"]
+    make_step = train_loop.make_train_step
+
+    def signalling_step(lam):
+        step, calls = make_step(lam), []
+
+        def wrapped(state, batch):
+            result = step(state, batch)
+            calls.append(1)
+            if len(calls) == 7:
+                os.kill(os.getpid(), signal.SIGTERM)
+            return result
+        return wrapped
+
+    def run(name, extra=(), interrupt=False):
+        out = os.path.join(tmp, name)
+        train_loop.make_train_step = signalling_step if interrupt else make_step
+        try:
+            _, lines = run_cli(cli.main, tree_flags(tree, out) + flags + list(extra))
+        finally:
+            train_loop.make_train_step = make_step
+        return os.path.join(out, "CUB200_use_slot_checkpoint.pth"), lines
+
+    cudnn = (torch.backends.cudnn.deterministic, torch.backends.cudnn.benchmark)
+    torch.backends.cudnn.deterministic, torch.backends.cudnn.benchmark = True, False
+    torch.use_deterministic_algorithms(True, warn_only=True)
+    t0 = time.monotonic()
+    try:
+        with warnings.catch_warnings(record=True) as caught:
+            warnings.simplefilter("always")
+            plain_path, _ = run("preempt_plain")
+            path, lines = run("preempt_resumed", interrupt=True)
+            if "[preempt] checkpointed epoch 0 at batch 7; exiting" not in lines or \
+                    not any(line.startswith("[preempt] caught signal") for line in lines):
+                fail(f"the SIGTERM run did not log its preemption: {lines[-6:]}")
+            _, payload = _state_tensors(path)
+            if (payload["epoch"], payload.get("batch")) != (0, 7):
+                fail(f"the preemption checkpoint is at ({payload['epoch']}, "
+                     f"{payload.get('batch')}), expected (0, 7)")
+            _, lines = run("preempt_resumed", ["--resume", "true"])
+            if not any(line.endswith("at epoch 0, batch 7") for line in lines):
+                fail(f"the resumed run did not report the cursor: {lines[:4]}")
+            plain, _ = _state_tensors(plain_path)
+            resumed, payload = _state_tensors(path)
+            if "batch" in payload or [n for n, _ in plain] != [n for n, _ in resumed]:
+                fail("the resumed run's epoch-end checkpoint is not the uninterrupted run's kind")
+            gap = _largest_difference(plain, resumed)
+            spread = None
+            if gap:
+                again, _ = _state_tensors(run("preempt_plain_again")[0])
+                spread = _largest_difference(plain, again)
+        nondeterministic = sorted({str(w.message).split(".")[0] for w in caught
+                                   if "deterministic" in str(w.message)})
+    finally:
+        torch.use_deterministic_algorithms(False)
+        torch.backends.cudnn.deterministic, torch.backends.cudnn.benchmark = cudnn
+    print(f"preempt: 3 runs of 10 train steps in {time.monotonic() - t0:.2f} s; SIGTERM after "
+          f"step 7 checkpointed (0, 7); the resumed run's {len(resumed)} parameters, buffers "
+          f"and AdamW tensors against the uninterrupted run's: largest difference {gap!r}"
+          + (f", two uninterrupted runs {spread!r}" if spread is not None else " (bit for bit)")
+          + f"; ops torch calls nondeterministic: {nondeterministic or 'none'}", flush=True)
+    if gap and not gap <= spread:
+        fail(f"the resumed run is {gap} from the uninterrupted one, beyond the card's own "
+             f"spread between two uninterrupted runs, {spread}")
+
+
+def phase_folder_explain(tree: str, out: str):
+    """The explain CLI on the tree's checkpoint and its val image 0, a JPEG
+    decoded by nvJPEG: K1 launches once, hist-free; image.png and a slot map
+    and overlay per class (401 PNGs) read back without Pillow. Returns K1's
+    launches in the CLI run."""
+    import os
+
+    import numpy as np
+    import torch
+
+    from scouter_tpu_torch.core.png import read_png
+    from scouter_tpu_torch.data._decode import decode_jpeg
+    from scouter_tpu_torch.explain import cli
+    from scouter_tpu_torch.ops import slot_kernel
+
+    fused = slot_kernel.xslot_iterations_fused
+    run_dir = os.path.join(out, "explain")
+    os.makedirs(run_dir)
+    fused.launches = fused.hist_launches = 0
+    decode_jpeg.decodes = 0
+    cwd = os.getcwd()
+    os.chdir(run_dir)  # the CLI writes to ./sloter_vis
+    try:
+        t0 = time.monotonic()
+        path, lines = run_cli(cli.main, tree_flags(tree, out))
+        torch.cuda.synchronize()
+        seconds = time.monotonic() - t0
+    finally:
+        os.chdir(cwd)
+    k1, k1_hist = fused.launches, fused.hist_launches
+    vis_dir = os.path.join(run_dir, "sloter_vis")
+    names = sorted(os.listdir(vis_dir))
+    pngs = {name: read_png(os.path.join(vis_dir, name)) for name in names}
+    print(f"explain on the tree: CLI {seconds:.2f} s, restored {os.path.basename(path)}; "
+          f"xslot_fwd launches {k1} (hist {k1_hist}); nvJPEG decodes {decode_jpeg.decodes}; "
+          f"{len(pngs)} PNGs read back", flush=True)
+    if (k1, k1_hist) != (1, 0):
+        fail(f"explain on the tree: xslot_fwd launches {k1} (hist {k1_hist}), expected 1 "
+             "hist-free")
+    if decode_jpeg.decodes != 1:
+        fail(f"explain on the tree: {decode_jpeg.decodes} nvJPEG decodes for its one JPEG")
+    want = (["image.png"] + [f"slot_{i}.png" for i in range(200)]
+            + [f"slot_mask_{i}.png" for i in range(200)])
+    if names != sorted(want) or pngs["image.png"].shape != (260, 260, 3) or \
+            pngs["slot_0.png"].shape != (9, 9) or pngs["slot_mask_0.png"].shape != (260, 260, 4):
+        fail(f"explain on the tree wrote {len(names)} files; image.png "
+             f"{pngs.get('image.png', np.zeros(0)).shape}")
+    if "PIL" in sys.modules:
+        fail("Pillow was imported on the card's explain path")
+    return k1
+
+
+def phase_folder_serve(out: str):
+    """The HTTP server on the card with the tree's checkpoint answers a
+    JPEG body (decoded by nvJPEG) and a PNG body; the PNG body's logits equal
+    those of a ``.npy`` body that holds the same staged pixels."""
+    import io
+    import os
+
+    import numpy as np
+    import torch
+
+    from scouter_tpu_torch.core import ScouterConfig
+    from scouter_tpu_torch.data._decode import decode_file, decode_jpeg
+    from scouter_tpu_torch.serve import InferenceEngine
+    from scouter_tpu_torch.serve.server import load_state_dict, make_server
+
+    cfg = ScouterConfig(**CUB).replace(device="cuda", output_dir=out)
+    state_dict, source = load_state_dict(cfg)
+    if source != os.path.join(out, "CUB200_use_slot_checkpoint.pth"):
+        fail(f"the server restored {source}")
+    npy = io.BytesIO()
+    np.save(npy, decode_file(str(FIXTURES / FIXTURE_PNGS[0]), 260, "cpu").numpy())
+    bodies = {"jpeg": (FIXTURES / FIXTURE_JPEGS[0]).read_bytes(),
+              "png": (FIXTURES / FIXTURE_PNGS[0]).read_bytes(), "npy": npy.getvalue()}
+    decode_jpeg.decodes = 0
+    with InferenceEngine(cfg, state_dict, buckets=(1,), device="cuda") as eng:
+        server = make_server(eng, cfg.img_size, 3, ("127.0.0.1", 0))
+        thread = threading.Thread(target=server.serve_forever, daemon=True)
+        thread.start()
+        try:
+            url = f"http://127.0.0.1:{server.server_address[1]}/predict"
+            logits = {k: np.asarray(post(url, body)["logits"]) for k, body in bodies.items()}
+        finally:
+            server.shutdown()
+            server.server_close()
+            thread.join()
+    torch.cuda.synchronize()
+    for k, v in logits.items():
+        if v.shape != (200,) or not np.isfinite(v).all():
+            fail(f"served {k} body: logits {v.shape}")
+    same = np.array_equal(logits["png"], logits["npy"])
+    print(f"serve on the tree's checkpoint: a JPEG body (nvJPEG decodes "
+          f"{decode_jpeg.decodes}), a PNG body and a .npy body of the PNG's staged pixels "
+          f"answered; PNG and .npy logits equal: {same} (largest difference "
+          f"{float(np.abs(logits['png'] - logits['npy']).max())!r})", flush=True)
+    if decode_jpeg.decodes != 1 or not same:
+        fail("serve on the tree: the JPEG body was not decoded by nvJPEG, or the PNG body's "
+             "logits differ from the .npy body's")
+
+
 def render_bound(c, n):
     """(bound ms, what bounds it) for K2 on (C, N): HBM over each input
     float read once and each RGBA float written once, against the card's
@@ -1368,6 +1769,15 @@ def main() -> int:
         entry["cub_launches"], tiled_entry["launches"], cub_cfg, cub_sd = phase_cub_train(tmp)
         tiled_entry["cub_val_loss"], tiled_entry["cub_train_img_per_s"] = phase_cub_dtypes(
             cub_cfg, cub_sd, card)
+    phase_folder_decode(card)
+    with tempfile.TemporaryDirectory() as tmp:
+        tree, out, entry["tree_launches"], tiled_entry["tree_launches"] = phase_folder_train(
+            tmp, card)
+        phase_folder_preempt(tmp)
+        entry["tree_explain_launches"] = phase_folder_explain(tree, out)
+        phase_folder_serve(out)
+    if "PIL" in sys.modules:
+        fail("Pillow was imported")
     print(f"chip_smoke finished in {time.monotonic() - t0:.1f} s after the build started",
           flush=True)
 

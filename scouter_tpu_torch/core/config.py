@@ -83,7 +83,8 @@ class ScouterConfig:
     start_epoch: int = 0
     resume: bool = False
 
-    # parallelism and resilience flags of the JAX package (not ported yet)
+    # parallelism flags of the JAX package (not ported yet: mesh_shape,
+    # mesh_axes, sync_bn, zero1), bf16 compute, and resilience
     mesh_shape: Optional[Tuple[int, ...]] = None
     mesh_axes: Tuple[str, ...] = ("data",)
     sync_bn: bool = True
@@ -157,8 +158,11 @@ def get_args_parser() -> argparse.ArgumentParser:
                    help="keep the slot head f32 under a bf16 backbone (default) "
                         "or follow compute_dtype")
     p.add_argument("--zero1", default=False, type=str2bool, help="not ported yet")
-    p.add_argument("--preempt_save", default=False, type=str2bool, help="not ported yet")
-    p.add_argument("--ckpt_async", default=False, type=str2bool, help="not ported yet")
+    p.add_argument("--preempt_save", default=False, type=str2bool,
+                   help="on SIGTERM finish the step, checkpoint with the batch cursor and "
+                        "exit; --resume true continues from exactly that step")
+    p.add_argument("--ckpt_async", default=False, type=str2bool,
+                   help="write epoch-end checkpoints on a background thread")
     p.add_argument("--seed", default=0, type=int)
     return p
 
@@ -214,21 +218,12 @@ def check_serving_supported(cfg: ScouterConfig) -> None:
                 "package yet (see ROADMAP.md)")
 
 
-# training-only flags -> their default; any other value is refused
-_NOT_PORTED_TRAINING = {"preempt_save": False, "ckpt_async": False}
-
-
 def check_training_supported(cfg: ScouterConfig) -> None:
     """Raise for a device the port does not know and for flags of training
     features it has not ported yet: the device mesh, per-replica BN, ZeRO-1,
-    preemption snapshots, async checkpoints, and a slot head that follows a
-    bf16 compute dtype (K1's gradient is f32 only)."""
+    and a slot head that follows a bf16 compute dtype (K1's gradient is f32
+    only)."""
     check_serving_supported(cfg)
-    for name, default in _NOT_PORTED_TRAINING.items():
-        if getattr(cfg, name) != default:
-            raise NotImplementedError(
-                f"--{name}={getattr(cfg, name)!r} is not ported to the PyTorch "
-                "package's training yet (see ROADMAP.md)")
     if cfg.compute_dtype != "float32" and cfg.slot_head_dtype == "compute":
         raise NotImplementedError(
             f"--compute_dtype={cfg.compute_dtype!r} with --slot_head_dtype='compute' (a "

@@ -1,16 +1,19 @@
 """Data layer: dataset readers, folder scans, device-side transforms and the
 loader (counterpart of ``scouter_tpu/data``)."""
 
-from .folders import scan_context, scan_cub200, scan_imagenet_subset
+from .folders import load_image_list, scan_context, scan_cub200, scan_imagenet_subset
 from .mnist import load_mnist, mnist_or_synthetic, synthetic_mnist
 from .pipeline import ArrayDataset, Loader
+from .streaming import FolderDataset
 from .transforms import NORMALIZE_VALUES, augment_batch, preprocess_batch, resize_bilinear
 
 __all__ = [
     "ArrayDataset",
+    "FolderDataset",
     "Loader",
     "NORMALIZE_VALUES",
     "augment_batch",
+    "load_image_list",
     "load_mnist",
     "mnist_or_synthetic",
     "preprocess_batch",
@@ -23,13 +26,15 @@ __all__ = [
 ]
 
 
-def select_dataset(cfg, train: bool = True) -> ArrayDataset:
+def select_dataset(cfg, train: bool = True):
     """choose_dataset.select_dataset parity (``dataset/choose_dataset.py:7-29``).
 
-    MNIST reads the IDX files or falls back to ``synthetic_mnist``; the
-    folder datasets fall back to a synthetic stand-in at ``img_size`` when
-    their scan finds nothing. Images found on disk need the folder reader,
-    which is not ported yet."""
+    MNIST reads the IDX files or falls back to ``synthetic_mnist``. The
+    folder datasets read the images their scan finds through a
+    ``FolderDataset`` on ``cfg.device``, staged at exactly ``img_size`` (the
+    staging resize is then the only resize, as the reference's single
+    Resize), or fall back to a synthetic stand-in at ``img_size`` when the
+    scan finds nothing."""
     if cfg.dataset == "MNIST":
         images, labels = mnist_or_synthetic(cfg.dataset_dir, train=train,
                                             num_classes=cfg.num_classes)
@@ -45,10 +50,7 @@ def select_dataset(cfg, train: bool = True) -> ArrayDataset:
     items = tr if train else va
     if not items:
         return _synthetic_folder(cfg.dataset, cfg.num_classes, cfg.img_size, train)
-    raise NotImplementedError(
-        f"{len(items)} {cfg.dataset} images found under {cfg.dataset_dir!r}: decoding them "
-        "needs the folder reader FolderDataset, which is not ported yet (ROADMAP.md, "
-        "Queue A12)")
+    return FolderDataset(items, cfg.img_size, cfg.dataset, device=cfg.device)
 
 
 def _synthetic_folder(dataset: str, num_classes: int, size: int, train: bool) -> ArrayDataset:

@@ -14,19 +14,20 @@ directories give the same train/val membership:
   images whose class index (first 3 characters of the name) is at most
   ``num_classes``; labels shifted to 0-based.
 
-Decoding the images needs a reader of its own (``FolderDataset``), which is
-not ported yet.
+``load_image_list`` decodes a whole list at once, through the decode that
+``streaming.FolderDataset`` uses per batch (``data/_decode.py``).
 """
 
 from __future__ import annotations
 
 import math
 import os
-from typing import List, Tuple
+from typing import List, Sequence, Tuple
 
 import numpy as np
+import torch
 
-__all__ = ["scan_context", "scan_cub200", "scan_imagenet_subset"]
+__all__ = ["load_image_list", "scan_context", "scan_cub200", "scan_imagenet_subset"]
 
 PathLabel = Tuple[str, int]
 
@@ -101,3 +102,19 @@ def scan_cub200(root: str, num_classes: int) -> Tuple[List[PathLabel], List[Path
         item = (os.path.join(root, "images", image_name), label)
         (train if split[image_id] == "1" else test).append(item)
     return train, test
+
+
+def load_image_list(items: Sequence[PathLabel], staging_size: int, device="cuda"
+                    ) -> Tuple[torch.Tensor, np.ndarray]:
+    """Decode every image of ``items``: (N, staging, staging, 3) uint8 on
+    ``device`` and int32 labels. The staging resize is Pillow's bilinear, as
+    the reference's Resize; the exact model input is made on the device."""
+    from ..core.device import resolve_device
+    from ._decode import decode_file
+
+    dev = resolve_device(device)
+    images = torch.empty((len(items), staging_size, staging_size, 3), dtype=torch.uint8,
+                         device=dev)
+    for i, (path, _) in enumerate(items):
+        images[i] = decode_file(path, staging_size, dev)
+    return images, np.asarray([label for _, label in items], np.int32)

@@ -10,10 +10,15 @@ BatchSampler(drop_last=True), DataLoaderX thread prefetch):
 - train batches drop the remainder (``train.py:158``); val keeps it: the
   trailing partial batch is padded to the batch size with the first item
   and carries a validity ``mask``
+- a batch's images come from the dataset's ``gather`` where it has one
+  (``streaming.FolderDataset``, whose batches may already be on the card),
+  else from a uint8 store through the host stager's ``gather_items``, as the
+  JAX package's ``_host_batches`` does
 - host batches are uint8, pinned on the card's host side and copied
-  asynchronously; ``preprocess_batch`` resizes, augments and normalises them
-  on the device. The next batch's copy and preprocessing are enqueued before
-  the current batch is handed out, one batch ahead, as the JAX thread does.
+  asynchronously; a batch already on the Loader's device is taken as it is.
+  ``preprocess_batch`` resizes, augments and normalises them on the device.
+  The next batch's copy and preprocessing are enqueued before the current
+  batch is handed out, one batch ahead, as the JAX thread does.
 """
 
 from __future__ import annotations
@@ -24,6 +29,7 @@ import numpy as np
 import torch
 
 from ..core.device import resolve_device
+from .native_stager import gather_items
 from .transforms import preprocess_batch
 
 __all__ = ["ArrayDataset", "Loader"]
@@ -72,7 +78,7 @@ class Loader:
             idx = idx[: (len(idx) // self.batch_size) * self.batch_size]
         return idx
 
-    def _host_batches(self, epoch: int) -> Iterator[Dict[str, np.ndarray]]:
+    def _host_batches(self, epoch: int) -> Iterator[Dict[str, object]]:
         idx = self._epoch_indices(epoch)
         fill = idx[:1] if len(idx) else np.zeros(1, np.int64)
         for step_i in range(self.steps_per_epoch()):
@@ -84,8 +90,13 @@ class Loader:
                 chunk = np.concatenate([chunk, fill.repeat(self.batch_size - valid)])
             mask = np.zeros(self.batch_size, np.float32)
             mask[:valid] = 1.0
-            yield {"image": self.ds.images[chunk], "label": self.ds.labels[chunk],
-                   "mask": mask}
+            if hasattr(self.ds, "gather"):
+                image = self.ds.gather(chunk)
+            elif self.ds.images.dtype == np.uint8:
+                image = gather_items(self.ds.images, chunk)
+            else:
+                image = self.ds.images[chunk]
+            yield {"image": image, "label": self.ds.labels[chunk], "mask": mask}
 
     def _aug_generator(self, epoch: int, batch_index: int) -> Optional[torch.Generator]:
         if not (self.train and self.aug):
@@ -98,10 +109,11 @@ class Loader:
         out = {}
         for key, dtype in (("image", torch.uint8), ("label", torch.int64),
                            ("mask", torch.float32)):
-            t = torch.from_numpy(np.ascontiguousarray(host[key])).to(dtype)
-            if pin:
+            t = host[key]
+            t = (t if torch.is_tensor(t) else torch.from_numpy(np.ascontiguousarray(t))).to(dtype)
+            if pin and t.device.type == "cpu":
                 t = t.pin_memory()
-            out[key] = t.to(self.device, non_blocking=pin)
+            out[key] = t.to(self.device, non_blocking=pin)  # no copy if already there
         x = preprocess_batch(out["image"], dataset=self.ds.dataset_name,
                              img_size=self.img_size, train=self.train, aug=self.aug,
                              generator=self._aug_generator(epoch, batch_index))

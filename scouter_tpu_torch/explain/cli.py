@@ -40,13 +40,15 @@ from .vis import (
 __all__ = ["main", "render_explanations"]
 
 
-def render_explanations(cfg, state, model, image_u8: np.ndarray, label, vis_dir: str):
+def render_explanations(cfg, state, model, image_u8, label, vis_dir: str):
     """One-image forward + full per-class heatmap rendering on the model's
-    device. ``state`` is the ``TrainState`` that holds ``model``; the module
-    itself carries the weights. Returns the attention ratio or None."""
+    device. ``image_u8`` is a uint8 (H, W, C) array or tensor, on any device
+    (a ``FolderDataset``'s images are on the dataset's). ``state`` is the
+    ``TrainState`` that holds ``model``; the module itself carries the
+    weights. Returns the attention ratio or None."""
     os.makedirs(vis_dir, exist_ok=True)
     dev = next(model.parameters()).device
-    image = torch.as_tensor(np.asarray(image_u8)).to(dev)
+    image = torch.as_tensor(image_u8).to(dev)
     was_training = model.training
     model.eval()
     try:
@@ -65,7 +67,7 @@ def render_explanations(cfg, state, model, image_u8: np.ndarray, label, vis_dir:
     maps = attention_to_maps(out["attn"][0], cfg.num_classes, cfg.slots_per_class)
     save_slot_pngs(maps, vis_dir)
 
-    raw = np.asarray(image_u8)
+    raw = image.cpu().numpy()
     write_png(os.path.join(vis_dir, "image.png"), raw.squeeze() if raw.shape[-1] == 1 else raw)
     h, w = image.shape[:2]
     for idx in range(cfg.num_classes):

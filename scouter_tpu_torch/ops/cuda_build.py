@@ -4,8 +4,10 @@ Each ``csrc/<name>.cu`` compiles on its own into a shared library with a
 plain C interface (no PyTorch headers, so a build takes seconds). Libraries go
 to ``build/kernels/`` beside the package, a git-ignored directory, under a name
 that carries the hash of the source, of the ``csrc/*.cuh`` headers it
-includes and of the flags: an edited source or header is rebuilt at its next
-use, an unchanged one is loaded as it is.
+includes and of the flags, the libraries it links included: an edited source
+or header is rebuilt at its next use, an unchanged one is loaded as it is.
+``jpeg_decode.cu`` links nvJPEG from the toolkit beside nvcc, with that
+directory as its run path.
 
 Nothing here runs at import time. ``load(name)`` builds on first use;
 ``build_all()`` starts one nvcc per source, all at once.
@@ -29,7 +31,9 @@ CSRC = Path(__file__).resolve().parents[1] / "csrc"
 BUILD_DIR = Path(__file__).resolve().parents[2] / "build" / "kernels"
 NVCC_FLAGS = ("-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17", "-O3",
               "-shared", "-Xcompiler", "-fPIC")
-SOURCES = ("xslot_fwd", "xslot_bwd", "render_heatmaps")
+SOURCES = ("xslot_fwd", "xslot_bwd", "render_heatmaps", "jpeg_decode")
+# per source: the toolkit libraries it links
+LIBS = {"jpeg_decode": ("nvjpeg",)}
 
 _lock = threading.Lock()
 _loaded: Dict[str, ctypes.CDLL] = {}
@@ -46,11 +50,22 @@ def _nvcc() -> str:
     return found
 
 
+def _link_flags(name: str) -> list:
+    """``-l`` for each library ``name`` links, found and run from the
+    toolkit's ``lib64`` beside nvcc."""
+    libs = LIBS.get(name, ())
+    if not libs:
+        return []
+    lib_dir = Path(_nvcc()).resolve().parents[1] / "lib64"
+    return [f"-L{lib_dir}", "-Xlinker", f"-rpath={lib_dir}", *(f"-l{lib}" for lib in libs)]
+
+
 def _lib_path(name: str) -> Path:
     src = (CSRC / f"{name}.cu").read_bytes()
     headers = sorted(set(re.findall(rb'#include "([\w.]+\.cuh)"', src)))
     content = src + b"".join((CSRC / h.decode()).read_bytes() for h in headers)
-    digest = hashlib.sha256(content + " ".join(NVCC_FLAGS).encode()).hexdigest()[:16]
+    flags = " ".join(NVCC_FLAGS + tuple(f"-l{lib}" for lib in LIBS.get(name, ())))
+    digest = hashlib.sha256(content + flags.encode()).hexdigest()[:16]
     return BUILD_DIR / f"lib{name}-{digest}.so"
 
 
@@ -64,7 +79,8 @@ def build_all(names: Sequence[str] = SOURCES) -> None:
                 continue
             BUILD_DIR.mkdir(parents=True, exist_ok=True)
             tmp = out.with_suffix(f".{os.getpid()}.tmp")
-            cmd = [_nvcc(), *NVCC_FLAGS, "-o", str(tmp), str(CSRC / f"{name}.cu")]
+            cmd = [_nvcc(), *NVCC_FLAGS, "-o", str(tmp), str(CSRC / f"{name}.cu"),
+                   *_link_flags(name)]
             proc = subprocess.Popen(cmd, stdout=subprocess.PIPE,
                                     stderr=subprocess.STDOUT, text=True)
             started.append((name, proc, tmp, out))

@@ -32,6 +32,7 @@ from typing import Dict, Sequence
 import numpy as np
 import torch
 
+from ..core.device import resolve_device
 from .export import make_serving_fn
 
 __all__ = ["InferenceEngine"]
@@ -67,6 +68,7 @@ class InferenceEngine:
         self.max_wait_s = max_wait_ms / 1e3
         self._fn = make_serving_fn(cfg, state_dict, compute_dtype=compute_dtype,
                                    include_maps=include_maps, device=device)
+        self.device = resolve_device(device)
         self._queue: "queue.Queue" = queue.Queue()
         # bucket_fill["b/n"] counts batches that ran bucket b carrying n live images
         self._stats = {"requests": 0, "batches": 0, "padded": 0, "bucket_fill": {}}

@@ -5,8 +5,10 @@ Standard library only (ThreadingHTTPServer): concurrent requests land in the
 InferenceEngine's queue and coalesce into bucketed batches.
 
 Endpoints:
-- ``POST /predict``: body = a raw ``.npy`` uint8 (H, W, C) array, or JPEG/PNG
-  bytes (decoded and resized with PIL, which is imported only for them).
+- ``POST /predict``: body = a raw ``.npy`` uint8 (H, W, C) array, or PNG or
+  JPEG bytes, decoded on the engine's device (``data/_decode.py``: PNG by
+  ``core/png.py``, JPEG by nvJPEG on the card and by Pillow on the CPU) and
+  resized there with Pillow's bilinear, bit for bit.
   Response JSON: ``{"pred": int, "logits": [...]}``; add ``?maps=1`` for the
   per-class slot maps (base64 grayscale PNG each).
 - ``GET /healthz``: engine stats (requests, batches, padding).
@@ -32,18 +34,19 @@ from ..core.png import encode_png
 __all__ = ["main", "make_server"]
 
 
-def _decode_image(body: bytes, img_size: int, channels: int) -> np.ndarray:
+def _decode_image(body: bytes, img_size: int, channels: int, device="cpu") -> np.ndarray:
+    """The request's (img_size, img_size, channels) uint8 pixels: a ``.npy``
+    body as it is, a PNG or JPEG body as Pillow's ``convert("L" or "RGB")``
+    then ``resize((img_size, img_size), BILINEAR)``, computed on ``device``."""
     if body[:6] == b"\x93NUMPY":  # .npy magic
         arr = np.load(io.BytesIO(body), allow_pickle=False)
         if arr.dtype != np.uint8:
             raise ValueError(f"npy payload must be uint8, got {arr.dtype}")
     else:
-        from PIL import Image
+        from ..data._decode import decode_image, stage
 
-        im = Image.open(io.BytesIO(body))
-        im = im.convert("L" if channels == 1 else "RGB")
-        im = im.resize((img_size, img_size), Image.BILINEAR)
-        arr = np.asarray(im, np.uint8)
+        pixels = stage(decode_image(body, device, "L" if channels == 1 else "RGB"), img_size)
+        arr = pixels.cpu().numpy()
         if channels == 1:
             arr = arr[..., None]
     if arr.shape != (img_size, img_size, channels):
@@ -54,7 +57,8 @@ def _decode_image(body: bytes, img_size: int, channels: int) -> np.ndarray:
 def make_server(engine, img_size: int, channels: int,
                 address: Tuple[str, int] = ("127.0.0.1", 8000)) -> ThreadingHTTPServer:
     """Build (not start) the HTTP server bound to ``address``; port 0 picks a
-    free port (``server.server_address`` reports the real one)."""
+    free port (``server.server_address`` reports the real one). Image bodies
+    are decoded on the engine's device."""
 
     class Handler(BaseHTTPRequestHandler):
         def _send(self, code: int, payload: dict):
@@ -77,7 +81,8 @@ def make_server(engine, img_size: int, channels: int,
                 return
             try:
                 body = self.rfile.read(int(self.headers.get("Content-Length", "0")))
-                out = engine.submit(_decode_image(body, img_size, channels)).result(timeout=60)
+                image = _decode_image(body, img_size, channels, engine.device)
+                out = engine.submit(image).result(timeout=60)
                 logits = np.asarray(out["logits"], np.float32)
                 payload = {"pred": int(logits.argmax()), "logits": [float(v) for v in logits]}
                 if "maps=1" in self.path and "slot_maps" in out:

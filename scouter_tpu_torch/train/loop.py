@@ -6,6 +6,14 @@ reference's ``train.py:82-204`` and ``engine.py``).
   reference syncs with ``.item()`` every batch (``engine.py:36``)
 - StepLR sets the epoch's lr before it starts (``train.py:179``)
 - checkpoints follow the reference's names and cadence (``core.checkpoint``)
+- ``--preempt_save``: on SIGTERM the current train step finishes, a
+  checkpoint with the batch cursor and the epoch's running sums is written
+  synchronously, and ``fit`` returns; ``--resume`` redoes that epoch from its
+  cursor, consuming the batches before it without stepping, so the run ends
+  with the parameters an uninterrupted run ends with, bit for bit (the
+  JAX package's ``loop.py:113-131, 252-380``, one process: no consensus
+  poll). ``--ckpt_async`` writes epoch-end checkpoints on a background
+  thread (``core.checkpoint.AsyncCheckpointWriter``).
 
 The model is built with ``fused_slot=True``: under grad the slot head runs
 K1 with hist and its checkpointed gradient, in eval the hist-free build. The
@@ -28,11 +36,13 @@ from typing import Dict, List
 
 import torch
 
-from ..core.checkpoint import checkpoint_path, restore_checkpoint, save_checkpoint
+from ..core.checkpoint import (AsyncCheckpointWriter, checkpoint_path, restore_checkpoint,
+                               save_checkpoint)
 from ..core.config import ScouterConfig, check_training_supported, compute_dtype
 from ..core.device import resolve_device
 from ..data import Loader, select_dataset
 from ..models import build_slot_model
+from .preempt import PreemptionGuard
 from .state import create_train_state, step_lr
 from .steps import make_eval_step, make_train_step, set_learning_rate
 
@@ -86,6 +96,13 @@ class Trainer:
         self.eval_step = make_eval_step(float(cfg.lambda_value))
         self.log = MetricLog()
         self.start_epoch = cfg.start_epoch
+        self._skip_batches = 0  # a mid-epoch resume's cursor
+        self._resume_metric_sums = None  # the interrupted epoch's sums, for the redo
+        self._preempted_at = None  # (epoch, train batches done) once the guard fired
+        self._preempt_sums = None  # the interrupted epoch's {"sums", "n"}
+        self._preempt_exit = False  # the guard fired during val: exit after the epoch
+        self.guard = PreemptionGuard().install() if cfg.preempt_save else None
+        self.ckpt_writer = AsyncCheckpointWriter() if cfg.ckpt_async else None
 
     def _reset_optimizer(self) -> None:
         """Fresh optimizer state after new weights (``load_variables`` parity)."""
@@ -140,15 +157,35 @@ class Trainer:
     def maybe_resume(self) -> None:
         if self.cfg.resume:
             path = checkpoint_path(self.cfg.output_dir, self.cfg)
-            self.state, epoch, _ = restore_checkpoint(path, self.state)
-            self.start_epoch = epoch + 1
-            print(f"resumed from {path} at epoch {epoch}")
+            self.state, epoch, _, batch, extras = restore_checkpoint(
+                path, self.state, return_batch=True, return_extras=True)
+            if batch is not None:
+                # a preemption checkpoint: redo epoch `epoch` from its cursor
+                self.start_epoch = epoch
+                self._skip_batches = batch
+                self._resume_metric_sums = extras.get("metric_sums")
+                print(f"resumed from {path} at epoch {epoch}, batch {batch}")
+            else:
+                self.start_epoch = epoch + 1
+                print(f"resumed from {path} at epoch {epoch}")
 
     def run_epoch(self, epoch: int, mode: str) -> Dict[str, float]:
         loader = self.loader_train if mode == "train" else self.loader_val
         sums, n = None, 0
+        # a mid-epoch resume consumes the batches before its cursor without
+        # stepping, and carries the interrupted epoch's sums (f32 values, so
+        # the sums go on as the uninterrupted run's do)
+        skip = self._skip_batches if mode == "train" else 0
+        self._skip_batches = 0
+        restored = self._resume_metric_sums if mode == "train" and skip else None
+        self._resume_metric_sums = None
+        if restored is not None:
+            sums = torch.tensor([restored["sums"][k] for k in _METRICS], device=self.device)
+            n = int(restored["n"])
         print(f"start {mode} :{epoch}")
-        for batch in loader.epoch(epoch):
+        for bi, batch in enumerate(loader.epoch(epoch)):
+            if bi < skip:
+                continue
             if mode == "train":
                 self.state, metrics = self.train_step(self.state, batch)
             else:
@@ -156,10 +193,31 @@ class Trainer:
             stacked = torch.stack([metrics[k] for k in _METRICS])
             sums = stacked if sums is None else sums + stacked
             n += 1
+            if self.guard is not None and self.guard.triggered:
+                if mode == "train":
+                    self._preempted_at = (epoch, bi + 1)
+                    self._preempt_sums = {"sums": dict(zip(_METRICS, sums.tolist())), "n": n}
+                else:
+                    self._preempt_exit = True  # the epoch-end checkpoint exists
+                break
         values = sums.tolist() if sums is not None else [0.0] * len(_METRICS)
         avg = {k: v / max(n, 1) for k, v in zip(_METRICS, values)}
         self.log.append(mode, avg)
         return avg
+
+    def _preempt_checkpoint(self) -> None:
+        """Write the preemption checkpoint synchronously, after the writer's
+        pending epoch-end writes."""
+        epoch, done = self._preempted_at
+        if not self.cfg.output_dir:
+            print(f"[preempt] no output_dir: exiting at epoch {epoch}, batch {done} WITHOUT a "
+                  "checkpoint")
+            return
+        if self.ckpt_writer is not None:
+            self.ckpt_writer.drain()
+        save_checkpoint(self.cfg.output_dir, self.cfg, self.state, epoch, batch=done,
+                        metric_sums=self._preempt_sums)
+        print(f"[preempt] checkpointed epoch {epoch} at batch {done}; exiting")
 
     def fit(self) -> List[float]:
         cfg = self.cfg
@@ -167,14 +225,28 @@ class Trainer:
         self.maybe_use_pre()
         self.maybe_resume()
         start = time.time()
-        for epoch in range(self.start_epoch, cfg.epochs):
-            # StepLR: epoch e runs at lr * gamma^(e // lr_drop)
-            set_learning_rate(self.state, step_lr(cfg.lr, epoch, cfg.lr_drop))
-            self.run_epoch(epoch, "train")
-            if cfg.output_dir:
-                save_checkpoint(cfg.output_dir, cfg, self.state, epoch)
-            self.run_epoch(epoch, "val")
-            self.log.print_metric()
+        try:
+            for epoch in range(self.start_epoch, cfg.epochs):
+                # StepLR: epoch e runs at lr * gamma^(e // lr_drop)
+                set_learning_rate(self.state, step_lr(cfg.lr, epoch, cfg.lr_drop))
+                self.run_epoch(epoch, "train")
+                if self._preempted_at is not None:
+                    self._preempt_checkpoint()
+                    break
+                if cfg.output_dir:
+                    save_checkpoint(cfg.output_dir, cfg, self.state, epoch,
+                                    writer=self.ckpt_writer)
+                self.run_epoch(epoch, "val")
+                self.log.print_metric()
+                if self._preempt_exit:
+                    print(f"[preempt] exiting after the interrupted val epoch {epoch} (its "
+                          "epoch-end checkpoint is written)")
+                    break
+            if self.ckpt_writer is not None:
+                self.ckpt_writer.drain()
+        finally:
+            if self.guard is not None:
+                self.guard.uninstall()
         print(f"Training time {time.time() - start:.1f}s")
         r = self.log.record
         return [r["train"]["acc"][-1] if r["train"]["acc"] else 0.0,

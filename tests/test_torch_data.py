@@ -132,11 +132,21 @@ def test_folder_scans_equal_jax(tmp_path):
 
 
 def test_select_dataset_refuses_images_on_disk(tmp_path):
+    # images on disk are read now, through a FolderDataset on cfg.device:
+    # the card by default, which a host without CUDA refuses
+    from scouter_tpu_torch.data import FolderDataset
+
     make_imagenet_tree(tmp_path)
     cfg = ScouterConfig(dataset="ImageNet", num_classes=3, img_size=16,
                         dataset_dir=str(tmp_path))
-    with pytest.raises(NotImplementedError, match="FolderDataset"):
-        select_dataset(cfg, train=True)
+    ds = select_dataset(cfg.replace(device="cpu"), train=True)
+    assert isinstance(ds, FolderDataset) and len(ds) == 9
+    assert ds.items == jax_select_dataset(JaxConfig(dataset="ImageNet", num_classes=3,
+                                                    img_size=16, dataset_dir=str(tmp_path)),
+                                          train=True).items
+    if not torch.cuda.is_available():
+        with pytest.raises(RuntimeError, match="CUDA"):
+            select_dataset(cfg, train=True)
 
 
 # -------------------------------------------------------------------- loader

@@ -5,6 +5,8 @@ imaging counterparts (jet table, bilinear resize, alpha composite, PNG),
 
 import io
 import os
+import struct
+import zlib
 
 import matplotlib
 import numpy as np
@@ -143,11 +145,21 @@ def test_png_writer_decodes_with_pil(tmp_path, mode, shape):
 
 
 def test_png_reader_refuses_what_it_does_not_read(tmp_path):
+    # the reader takes every filter now (Pillow picks per-row filters); it
+    # refuses 16-bit samples and a filter type past 4
     path = str(tmp_path / "pil.png")
-    Image.fromarray(np.random.RandomState(6).randint(0, 256, (16, 16, 3)).astype(np.uint8)
-                    ).save(path)  # Pillow picks per-row filters
-    with pytest.raises(ValueError, match="filter"):
+    arr = np.random.RandomState(6).randint(0, 256, (16, 16, 3)).astype(np.uint8)
+    Image.fromarray(arr).save(path)
+    np.testing.assert_array_equal(png.read_png(path), arr)
+    Image.fromarray((arr[..., 0].astype(np.uint16) * 257)).save(path)
+    with pytest.raises(ValueError, match="16-bit"):
         png.read_png(path)
+    raw = np.zeros((2, 1 + 2), np.uint8)
+    raw[1, 0] = 5
+    bad = (b"\x89PNG\r\n\x1a\n" + png._chunk(b"IHDR", struct.pack(">IIBBBBB", 2, 2, 8, 0, 0, 0, 0))
+           + png._chunk(b"IDAT", zlib.compress(raw.tobytes())) + png._chunk(b"IEND", b""))
+    with pytest.raises(ValueError, match="filter"):
+        png.decode_png(bad)
     with pytest.raises(TypeError):
         png.encode_png(np.zeros((2, 2), np.float32))
 

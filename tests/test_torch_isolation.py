@@ -187,3 +187,76 @@ def test_xslot_kernel_wrapper_refuses_grad():
     assert upd.grad_fn is None
     assert upd.shape == (2, 3, d) and attn.shape == (2, 3, 5)
     assert (xslot_iterations_fused.launches, xslot_iterations_fused.hist_launches) == launches
+
+
+_NEW_MODULES = ("scouter_tpu_torch.core.png", "scouter_tpu_torch.core.checkpoint",
+                "scouter_tpu_torch.data._decode", "scouter_tpu_torch.data.native_stager",
+                "scouter_tpu_torch.data.streaming", "scouter_tpu_torch.data.folders",
+                "scouter_tpu_torch.train.preempt", "scouter_tpu_torch.train.loop",
+                "scouter_tpu_torch.serve.server")
+
+
+@pytest.mark.parametrize("module", _NEW_MODULES)
+def test_image_and_resilience_modules_import_no_jax_nor_pil(module):
+    """Each module of the image reading and preemption path, alone in a fresh
+    interpreter, loads neither JAX, the JAX package nor Pillow."""
+    probe = (f"import importlib, sys; importlib.import_module({module!r}); "
+             "print(sorted(m for m in sys.modules if m.split('.')[0] in "
+             "('jax', 'jaxlib', 'flax', 'scouter_tpu', 'PIL')))")
+    env = dict(os.environ, PYTHONPATH=str(ROOT))
+    out = subprocess.run([sys.executable, "-c", probe], cwd=ROOT, env=env,
+                         capture_output=True, text=True, timeout=300)
+    assert out.returncode == 0, out.stderr
+    assert out.stdout.strip() == "[]"
+
+
+_NO_CUDA_DECODE_PROBE = r"""
+import sys
+sys.modules["PIL"] = None
+import numpy as np
+from scouter_tpu_torch.data import FolderDataset, native_stager
+from scouter_tpu_torch.data._decode import decode_jpeg, decode_file
+from scouter_tpu_torch.serve.server import _decode_image
+
+fixtures = sys.argv[1]
+jpeg = open(fixtures + "/rgb420_500x375.jpg", "rb").read()
+refused = []
+for what, call in (
+        ("dataset", lambda: FolderDataset([(fixtures + "/rgb420_500x375.jpg", 0)], 16, "CUB200")),
+        ("decode_jpeg", lambda: decode_jpeg(jpeg, "cuda")),
+        ("decode_file", lambda: decode_file(fixtures + "/rgba_220x160.png", 16, "cuda")),
+        ("server", lambda: _decode_image(jpeg, 16, 3, "cuda"))):
+    try:
+        call()
+    except RuntimeError as exc:
+        if "CUDA" in str(exc):
+            refused.append(what)
+staged = native_stager.resize_batch(np.zeros((1, 8, 8, 3), np.uint8), (4, 4))
+print(refused, decode_jpeg.decodes, staged.shape,
+      sorted(m for m in sys.modules if m.split(".")[0] == "PIL" and sys.modules[m] is not None))
+"""
+
+
+def test_image_path_refuses_cuda_without_a_card(no_cuda):
+    """Where no CUDA device exists, ``FolderDataset(device="cuda")``, the
+    JPEG decoder, a PNG decode and the server's decode raise, decode nothing
+    and import no Pillow; the host stager runs without Pillow."""
+    env = dict(os.environ, PYTHONPATH=str(ROOT))
+    out = subprocess.run([sys.executable, "-c", _NO_CUDA_DECODE_PROBE,
+                          str(ROOT / "tests" / "torch_fixtures")], cwd=ROOT, env=env,
+                         capture_output=True, text=True, timeout=300)
+    assert out.returncode == 0, out.stderr
+    assert out.stdout.strip() == ("['dataset', 'decode_jpeg', 'decode_file', 'server'] 0 "
+                                  "(1, 4, 4, 3) []")
+
+
+def test_stager_raises_without_a_compiler(tmp_path, monkeypatch):
+    from scouter_tpu_torch.data import native_stager
+
+    monkeypatch.setattr(native_stager, "_lib", None)
+    monkeypatch.setattr(native_stager, "BUILD_DIR", tmp_path)
+    monkeypatch.setattr(native_stager.shutil, "which", lambda name: None)
+    monkeypatch.delenv("CXX", raising=False)
+    with pytest.raises(RuntimeError, match="g\\+\\+ not found"):
+        native_stager.resize_batch(np.zeros((1, 4, 4, 3), np.uint8), (2, 2))
+    assert not list(tmp_path.iterdir())

@@ -364,6 +364,10 @@ def test_expand_sweep_matches_jax(argv):
     ("ckpt_async", True), ("compute_dtype", "bfloat16")])
 def test_training_refuses_what_is_not_ported(flag, value):
     check_training_supported(ScouterConfig(device="cpu"))
+    if flag in ("preempt_save", "ckpt_async"):
+        # ported: tests/test_torch_resilience.py
+        check_training_supported(ScouterConfig(device="cpu", **{flag: value}))
+        return
     # bf16 training is ported; a slot head that follows it (a bf16 K1
     # gradient) is not
     extra = {"slot_head_dtype": "compute"} if flag == "compute_dtype" else {}
