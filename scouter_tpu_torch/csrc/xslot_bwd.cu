@@ -23,22 +23,50 @@
 //
 // What bounds it: per element 3 attention recomputes and backwards and 2 GRU
 // recomputes and backwards, ~12.2 MFLOP at the flagship (S=30, N=49, d=64):
-// 0.013 ms at B=70 over the card's f32 rate, ~24 us on one SM.
-// What the design does about it: one cluster per element with the slots split
-// as in the forward (xslot_common.cuh; the wrapper plans c the same way); only
-// T and sum_i rg_i / rs_i cross CTAs, each added from all of the element's
-// per-slot values through distributed shared memory in the slots' order once
-// per iteration. The GRU recompute streams the weights through shared memory
-// in tiles, as the forward does where they do not fit whole; dx and dh read
-// W_ih and W_hh by rows, coalesced, from L2. The partial dk and dv of each CTA are
-// summed across the cluster in rank order at the end. The sums over the
-// batch (dW, db, d_initial_slots) use no float atomics: each CTA writes its
-// dW and db partials to `partials` and its rows of d_slots0 to `dslots0`, and
-// a second launch sums them in a fixed order, so the gradient is the same
+// 0.013 ms at B=70 over the card's f32 rate. In practice latency bounds it:
+// an element runs on a cluster of c CTAs, one an SM with 8 warps, and every
+// phase is a short chain of shared-memory loads between two barriers; at
+// the engine's batches (c = 6 or 8, 4-5 slots a CTA) a product has a few
+// dozen outputs a CTA, and each iteration meets the cluster twice. Clock
+// stamps of the design before this one put over half of its time in the
+// GRU: dx and dh read W from L2 one float4 a term, the gates streamed W
+// through shared memory with a barrier a tile, and the weight gradients
+// read back a partial in device memory.
+// What the design does about it:
+// - W_ih, W_hh and the biases stay in shared memory for the whole call,
+//   copied with cp.async while the last iteration (no GRU) runs.
+// - The products of the CTA's slots read float4 of both operands (N padded
+//   to a multiple of 4 with zeros) into register tiles: dx and dh 4 slots x
+//   4 columns a thread; x and dh += dD k 2 x 4; the dots and P 4 slots at
+//   one m; the gates 8 slots at one output column, so each row of W is read
+//   once a CTA. Where a product's tasks leave threads idle, its inner terms
+//   split over up to 8 lanes, added by a butterfly of shuffles in a fixed
+//   order (every lane gets the same bits; the shuffles sit outside any
+//   branch, which would wrap each in a convergence loop).
+// - The GRU writes its pre-activations into A, then a flat pass over all of
+//   the CTA's (slot, column) turns them into the gradient [a_r, a_z, a_n,
+//   a_n r] in place, from which dgi and dgh are read; dx overwrites the
+//   cotangent it came from. This keeps the flagship's 30 slots on one CTA.
+// - The weight gradients are stored, never read back: each CTA writes the
+//   partial of its slots once a GRU iteration, and the second launch adds
+//   them in a fixed order, 32 outputs a block, eight warps a term each.
+// - dk and dv accumulate in registers (one, two or three 4 x 4 tiles of
+//   each a thread, the fewest that cover them: each instance of the kernel
+//   holds its own count); the CTAs' partials meet in shared memory at the
+//   end and are summed across the cluster in rank order. Each iteration's
+//   two cluster barriers are split into arrive and wait: dk's update runs
+//   inside the first, dv's and the weight gradients inside the second.
+// - The renorm's row sums (rs, rg) are added in f64, as the tiled route
+//   adds them: the renorm divides by rs, near zero on some rows.
+// - The next iteration's hist rows are copied in while dh += dD k runs.
+// Only T and sum_i rg_i / rs_i cross CTAs within an iteration, each added
+// from all of the element's per-slot values through distributed shared
+// memory in the slots' order. No float atomics: the gradient is the same
 // bits from run to run. Where no cluster of 8 CTAs holds an element's share
-// of the backward's state (S=1000 at N=81, N=196 at S=30), the wrapper
-// plans the tiled route below instead: the same formulas as a chain of
-// launches over the batch, with the intermediates in device memory.
+// of the backward's state (S=1000 at N=81, d past 84 at N=49), or dk and
+// dv exceed three tiles a thread (N/4 * d/4 > 768: N=196 at S=30), the
+// wrapper plans the tiled route below instead: the same formulas as a chain
+// of launches over the batch, with the intermediates in device memory.
 //
 // Built with nvcc into a shared library with a plain C interface and loaded
 // with ctypes (scouter_tpu_torch/ops/cuda_build.py).
@@ -51,225 +79,671 @@ using namespace xslot;
 
 namespace {
 
-// Layout of one CTA's dynamic shared memory, in floats (ld = d + 4): k, v
-// (n, ld); the CTA's partial dk, dv (n, d); h, upd, incoming and outgoing
-// dslots, dupd (5 x slp x ld); dots, attn, their gradient (3 x slp x n); row
-// sums, rg and rg / row sums (3 x slp); dgi, dgh (2 x slp x 3d); two weight
-// tiles.
+constexpr int kMaxParts = 8;    // lanes a task's inner terms split over
+constexpr int kMaxCluster = 8;  // the portable cluster limit
+constexpr int kKvMax = 3;       // 4 x 4 tiles of dk and of dv a thread holds, at most
+constexpr int kStampPhases = 9; // XSLOT_STAMP's slots an iteration
+
+#ifdef XSLOT_STAMPS
+// Clock stamps of the cluster kernel, for examples/torch_k1_bench.py
+// --stamps, which builds this source with -DXSLOT_STAMPS into a library of
+// its own. After a CTA barrier, thread 0 of each of the first kStampCtas
+// CTAs writes clock64() to slot 0 at the start, to slot 1 + kStampPhases j
+// + p at the end of phase p of the j-th iteration walked (a phase an
+// iteration skips leaves its slot unwritten), and to the two slots after
+// the iterations at the end of the d_slots0 store and of the dk/dv sum.
+constexpr int kStampSlots = 32, kStampCtas = 160;
+__device__ long long g_stamps[kStampCtas * kStampSlots];
+#define XSLOT_STAMP(i)                                                  \
+  do {                                                                  \
+    __syncthreads();                                                    \
+    if (threadIdx.x == 0 && blockIdx.x < kStampCtas && (i) < kStampSlots) \
+      g_stamps[blockIdx.x * kStampSlots + (i)] = clock64();             \
+  } while (0)
+#else
+#define XSLOT_STAMP(i) ((void)0)
+#endif
+
+// Layout of one CTA's dynamic shared memory, in floats (ld = d + 4, np = n
+// rounded up to 4, the rows and columns past n zero): W_ih and W_hh
+// (resident, 2 x 3d x (d+4)); k, v (np, ld); h, upd (then the next
+// iteration's h), the cotangents leaving and entering the iteration (4 x slp
+// x ld); dots, attn, P (3 x slp x np); row sums, rg and rg / row sums (3 x
+// slp); the GRU's gradient [a_r, a_z, a_n, a_n r] (slp x 4d); b_ih, b_hh (6d).
 __host__ __device__ inline size_t bwd_smem_floats(int n, int s_cta, int d) {
-  const size_t slp = round4(s_cta), ld = row_ld(d);
-  return 2 * (size_t)n * ld + 2 * (size_t)n * d + 5 * slp * ld + 3 * slp * n + 3 * slp +
-         6 * slp * d + tile_floats(d, false);
+  const size_t slp = round4(s_cta), ld = row_ld(d), np = round4(n);
+  return tile_floats(d, true) + 2 * np * ld + 4 * slp * ld + 3 * slp * np + 3 * slp +
+         4 * slp * d + 6 * d;
 }
 
-// floats of one CTA's partial: dW_ih, dW_hh (3d, d), db_ih, db_hh (3d)
+// floats of one partial: dW_ih, dW_hh (3d, d), db_ih, db_hh (3d)
 __host__ __device__ inline size_t partial_floats(int d) { return 6 * (size_t)d * d + 6 * d; }
 
-// part[m] (+)= dg_m^T X_m over the CTA's slots, for m = 0 (dgi, upd) and 1
-// (dgh, h), and part's biases (+)= the column sums of dg_m. One thread per
-// (matrix, four rows, four columns); each writes its own words, so the
-// accumulation across iterations needs no synchronisation.
-__device__ void weight_grads(float* __restrict__ part, const float* dgi, const float* dgh,
-                             const float* x, const float* h, int ld, int sl, int d, bool first) {
-  const int nq = d >> 2, rq = (3 * d) >> 2, dg_ld = 3 * d;
-  for (int task = threadIdx.x; task < 2 * rq * nq; task += blockDim.x) {
-    const int q = task % nq, rest = task / nq, m = rest / rq, r4 = 4 * (rest - m * rq);
-    const float* dg = m ? dgh : dgi;
-    const float* xm = m ? h : x;
-    float acc[4][4] = {};
-    for (int s = 0; s < sl; ++s) {
-      const float4 gv = *reinterpret_cast<const float4*>(dg + s * dg_ld + r4);
-      const float4 xv = *reinterpret_cast<const float4*>(xm + s * ld + 4 * q);
+// dk's and dv's 4 x 4 tiles a thread holds for N rows of d columns: the
+// fewest that cover them, or 0 past kKvMax.
+__host__ __device__ inline int kv_tiles(int n, int d) {
+  const long long tiles = (long long)round4(n) / 4 * (d / 4);
+  const int k = (int)((tiles + kThreads - 1) / kThreads);
+  return k <= kKvMax ? k : 0;
+}
+
+// The lanes a product's inner terms split over: the most, a power of two up
+// to kMaxParts, with which its `tasks` still fit in one pass of the CTA.
+__device__ __forceinline__ int split_parts(int tasks) {
+  int parts = 1;
+  while (parts < kMaxParts && tasks * 2 * parts <= kThreads) parts *= 2;
+  return parts;
+}
+
+// a[o] for a runtime o < N, by selects (no local memory)
+template <int N>
+__device__ __forceinline__ float pick(const float (&a)[N], int o) {
+  float v = a[0];
 #pragma unroll
-      for (int a = 0; a < 4; ++a)
+  for (int k = 1; k < N; ++k) v = o == k ? a[k] : v;
+  return v;
+}
+
+// Adds each v[i] over the `parts` neighbouring lanes of a task (xor
+// butterfly: every lane gets the same bits). Every lane shuffles at every
+// level, outside any branch, and a level past `parts` adds nothing: a
+// shuffle under a branch costs a warp-convergence wrapper each.
+template <int N>
+__device__ __forceinline__ void lanes_sum(float (&v)[N], int parts) {
 #pragma unroll
-        for (int e = 0; e < 4; ++e) acc[a][e] = fmaf(comp(gv, a), comp(xv, e), acc[a][e]);
-    }
-    float* out = part + (size_t)m * 3 * d * d + (size_t)r4 * d + 4 * q;
+  for (int o = kMaxParts >> 1; o > 0; o >>= 1) {
+    float w[N];
 #pragma unroll
-    for (int a = 0; a < 4; ++a) {
-      float4* o = reinterpret_cast<float4*>(out + a * d);
-      float4 val = make_float4(acc[a][0], acc[a][1], acc[a][2], acc[a][3]);
-      if (!first) {
-        const float4 old = *o;
-        val = make_float4(old.x + val.x, old.y + val.y, old.z + val.z, old.w + val.w);
+    for (int i = 0; i < N; ++i) w[i] = __shfl_xor_sync(0xffffffffu, v[i], o);
+#pragma unroll
+    for (int i = 0; i < N; ++i) v[i] = o < parts ? v[i] + w[i] : v[i];
+  }
+}
+
+// The inner steps of lane `part` of `parts` over `count` terms (interleaved).
+__device__ __forceinline__ int lane_steps(int count, int part, int parts) {
+  return (count - part + parts - 1) / parts;
+}
+
+// out[s][m] = (x[s] . y[m]) * mul / div (+ add[s * ldadd + m]) for s < sl, m
+// < rows_y, then times attn (1 - attn) at out's index where attn is given
+// (the renorm's G): x (slp, d) and y (rows_y, d) in shared memory with row
+// stride ld, out and attn with row stride ldo. A task takes four slots at
+// one m, so each float4 of y serves four dot products; its d/4 column quads
+// split over split_parts lanes, and lane `part` stores the slots o = part +
+// parts t.
+template <typename T>
+__device__ void dot_rows(float* out, int ldo, const float* x, const float* y, int ld, int sl,
+                         int rows_y, int d, float mul, float div, const T* __restrict__ add,
+                         int ldadd, const float* attn) {
+  const int tasks = ((sl + 3) >> 2) * rows_y;
+  const int parts = split_parts(tasks), part = threadIdx.x & (parts - 1);
+  for (int base = 0; base < tasks; base += kThreads / parts) {
+    const int task = base + threadIdx.x / parts;
+    const bool valid = task < tasks;
+    const int g = valid ? task / rows_y : 0, m = valid ? task - g * rows_y : 0, s = 4 * g;
+    float acc[4] = {};
+    const int steps = lane_steps(d >> 2, part, parts);
+#pragma unroll 2
+    for (int k = 0; k < steps; ++k) {
+      const int c = 4 * (part + k * parts);
+      const float4 yv = *reinterpret_cast<const float4*>(y + m * ld + c);
+#pragma unroll
+      for (int r = 0; r < 4; ++r) {
+        acc[r] = dot4(*reinterpret_cast<const float4*>(x + (s + r) * ld + c), yv, acc[r]);
       }
-      *o = val;
+    }
+    lanes_sum(acc, parts);
+#pragma unroll 1
+    for (int r = part; r < 4; r += parts) {
+      if (!valid || s + r >= sl) continue;
+      const int i = (s + r) * ldo + m;
+      float v = pick(acc, r) * mul / div;
+      if (add) v = to_f32(add[(s + r) * ldadd + m]) + v;
+      if (attn) v = v * attn[i] * (1.0f - attn[i]);
+      out[i] = v;
+    }
+  }
+}
+
+// One product of rows_split: out[s][j] (+)= (sum_i a[s][col(i)] b[i][j]) / div
+// with col(i) = i, or i + shift from `from` on (dgh's columns in the GRU's
+// gradient; `from` and `shift` multiples of 4).
+struct RowsOp {
+  float* out;
+  const float* a;
+  int lda, from, shift;
+  const float* b;
+  int ldb;
+  bool accumulate;
+};
+
+// One or two products of one shape (`ops`) over the CTA's sl slots, j < d,
+// `inner` terms (a multiple of 4: a's columns and b's rows past the true
+// count are zero): a (slp, lda) and b (inner, ldb) in shared memory, 16-byte
+// rows, out with row stride ldo. A task takes G slots at four consecutive j;
+// a step reads four inner terms of each of its slots' rows and the four rows
+// of b they meet, a float4 each, for 16 G FMAs. Its steps split over
+// split_parts lanes (interleaved), and lane `part` stores the outputs o =
+// part + parts t (slot o / 4, j o % 4).
+template <int G>
+__device__ void rows_split(const RowsOp& p0, const RowsOp& p1, int ops, int ldo, int sl,
+                           int inner, int d, float div) {
+  const int nq = d >> 2, per_op = ((sl + G - 1) / G) * nq, tasks = ops * per_op;
+  const int parts = split_parts(tasks), part = threadIdx.x & (parts - 1);
+  for (int base = 0; base < tasks; base += kThreads / parts) {
+    const int task = base + threadIdx.x / parts;
+    const bool valid = task < tasks;
+    const int op = valid ? task / per_op : 0, rest = valid ? task - op * per_op : 0;
+    const RowsOp p = op ? p1 : p0;
+    const int q = rest % nq, s = G * (rest / nq);
+    float acc[4 * G] = {};
+    const int steps = lane_steps(inner >> 2, part, parts);
+#pragma unroll 2
+    for (int k = 0; k < steps; ++k) {
+      const int i = 4 * (part + k * parts);
+      const int ai = i < p.from ? i : i + p.shift;
+      float4 av[G], bv[4];
+#pragma unroll
+      for (int r = 0; r < G; ++r) av[r] = *reinterpret_cast<const float4*>(p.a + (s + r) * p.lda + ai);
+#pragma unroll
+      for (int t = 0; t < 4; ++t) bv[t] = *reinterpret_cast<const float4*>(p.b + (i + t) * p.ldb + 4 * q);
+#pragma unroll
+      for (int r = 0; r < G; ++r)
+#pragma unroll
+        for (int t = 0; t < 4; ++t)
+#pragma unroll
+          for (int e = 0; e < 4; ++e) {
+            acc[4 * r + e] = fmaf(comp(av[r], t), comp(bv[t], e), acc[4 * r + e]);
+          }
+    }
+    lanes_sum(acc, parts);
+#pragma unroll 1
+    for (int o = part; o < 4 * G; o += parts) {
+      const int r = o >> 2;
+      if (!valid || s + r >= sl) continue;
+      float* out = p.out + (s + r) * ldo + 4 * q + (o & 3);
+      const float v = pick(acc, o) / div;
+      *out = p.accumulate ? *out + v : v;
+    }
+  }
+}
+
+constexpr int kGruGroup = 8;  // slots a task of the GRU's gates takes
+
+// The GRU's gates again for the CTA's slots, from W_ih and W_hh resident in
+// `w` and the biases b_ih, b_hh in `bias` (3d each): A[s] = [ir + hr, iz +
+// hz, in, hn] (row stride 4d), the pre-activations gru_grads reads. A task
+// takes kGruGroup slots at one output column j: the rows j, d + j, 2d + j of
+// both matrices, read once for the group (a group past the share reads rows
+// past it, whose sums it drops). Its d/4 inner quads split over split_parts
+// lanes, and after their sum lane `part` stores the group's slots o with o
+// % parts == part.
+__device__ void gru_gates(float* A, const float* x, const float* h, const float* w,
+                          const float* bias, int sl, int d) {
+  const int ld = row_ld(d), wld = w_ld(d, true), a4 = 4 * d;
+  const int tasks = (sl + kGruGroup - 1) / kGruGroup * d;
+  const int parts = split_parts(tasks), part = threadIdx.x & (parts - 1);
+  const float* wi = w;
+  const float* wh = w + (size_t)3 * d * wld;
+  for (int base = 0; base < tasks; base += kThreads / parts) {
+    const int task = base + threadIdx.x / parts;
+    const bool valid = task < tasks;
+    const int grp = valid ? task / d : 0, j = valid ? task - grp * d : 0;
+    const int sg = kGruGroup * grp;
+    float gi[kGruGroup * 3] = {}, gh[kGruGroup * 3] = {};  // [slot][gate]
+    const int steps = lane_steps(d >> 2, part, parts);
+    for (int k = 0; k < steps; ++k) {
+      const int c = 4 * (part + k * parts);
+      float4 a[3], bw[3];
+#pragma unroll
+      for (int gt = 0; gt < 3; ++gt) {
+        a[gt] = *reinterpret_cast<const float4*>(wi + (gt * d + j) * wld + c);
+        bw[gt] = *reinterpret_cast<const float4*>(wh + (gt * d + j) * wld + c);
+      }
+#pragma unroll
+      for (int r = 0; r < kGruGroup; ++r) {
+        const float4 xv = *reinterpret_cast<const float4*>(x + (sg + r) * ld + c);
+        const float4 hv = *reinterpret_cast<const float4*>(h + (sg + r) * ld + c);
+#pragma unroll
+        for (int gt = 0; gt < 3; ++gt) {
+          gi[3 * r + gt] = dot4(xv, a[gt], gi[3 * r + gt]);
+          gh[3 * r + gt] = dot4(hv, bw[gt], gh[3 * r + gt]);
+        }
+      }
+    }
+    lanes_sum(gi, parts);
+    lanes_sum(gh, parts);
+#pragma unroll
+    for (int r = 0; r < kGruGroup; ++r) {
+      if (!valid || (r & (parts - 1)) != part || sg + r >= sl) continue;
+      float* ar = A + (sg + r) * a4 + j;
+      ar[0] = (gi[3 * r] + bias[j]) + (gh[3 * r] + bias[3 * d + j]);
+      ar[d] = (gi[3 * r + 1] + bias[d + j]) + (gh[3 * r + 1] + bias[4 * d + j]);
+      ar[2 * d] = gi[3 * r + 2] + bias[2 * d + j];
+      ar[3 * d] = gh[3 * r + 2] + bias[5 * d + j];
+    }
+  }
+}
+
+// The GRU's backward for cotangent g, in place of gru_gates' pre-activations:
+// A[s] = [a_r, a_z, a_n, a_n r], dh = g z, over all of the CTA's (slot, j),
+// two a thread side by side.
+__device__ void gru_grads(float* A, float* dh, const float* g, const float* h, int sl, int d) {
+  const int ld = row_ld(d), a4 = 4 * d, total = sl * d;
+  for (int i0 = threadIdx.x; i0 < total; i0 += 2 * kThreads) {
+    int at[2], hi[2];
+    float pre[2][4], gv[2], hv[2];
+#pragma unroll
+    for (int u = 0; u < 2; ++u) {
+      const int i = min(i0 + u * kThreads, total - 1), si = i / d, j = i - si * d;
+      at[u] = si * a4 + j;
+      hi[u] = si * ld + j;
+#pragma unroll
+      for (int q = 0; q < 4; ++q) pre[u][q] = A[at[u] + q * d];
+      gv[u] = g[hi[u]];
+      hv[u] = h[hi[u]];
+    }
+#pragma unroll
+    for (int u = 0; u < 2; ++u) {
+      if (u == 1 && i0 + kThreads >= total) break;
+      const float rg_ = sigmoid_f32(pre[u][0]);
+      const float zg = sigmoid_f32(pre[u][1]);
+      const float hn = pre[u][3];
+      const float ng = tanhf(pre[u][2] + rg_ * hn);
+      const float dn = gv[u] * (1.0f - zg), dz = gv[u] * (hv[u] - ng);
+      const float a_n = dn * (1.0f - ng * ng);
+      float* ar = A + at[u];
+      ar[0] = a_n * hn * rg_ * (1.0f - rg_);
+      ar[d] = dz * zg * (1.0f - zg);
+      ar[2 * d] = a_n;
+      ar[3 * d] = a_n * rg_;
+      dh[hi[u]] = gv[u] * zg;
+    }
+  }
+}
+
+// part = the CTA's partial of one GRU iteration, stored: dW_ih = dgi^T x and
+// dW_hh = dgh^T h over its slots (dgi's rows are A's columns 0..3d, dgh's
+// 0..2d and 3d..4d), db_ih and db_hh their column sums. A task is (matrix,
+// four rows, four columns); a thread runs two of them side by side.
+__device__ void weight_grads(float* __restrict__ part, const float* A, const float* x,
+                             const float* h, int ld, int sl, int d) {
+  const int nq = d >> 2, rq = (3 * d) >> 2, a4 = 4 * d, tasks = 2 * rq * nq;
+  for (int t0 = threadIdx.x; t0 < tasks; t0 += 2 * blockDim.x) {
+    const int pair[2] = {t0, min(t0 + (int)blockDim.x, tasks - 1)};
+    int col[2], xoff[2];
+    const float* xm[2];
+    float* out[2];
+#pragma unroll
+    for (int u = 0; u < 2; ++u) {
+      const int q = pair[u] % nq, rest = pair[u] / nq, m = rest / rq, r4 = 4 * (rest - m * rq);
+      col[u] = m && r4 >= 2 * d ? r4 + d : r4;
+      xm[u] = m ? h : x;
+      xoff[u] = 4 * q;
+      out[u] = part + (size_t)m * 3 * d * d + (size_t)r4 * d + 4 * q;
+    }
+    float acc[2][4][4] = {};
+#pragma unroll 2
+    for (int s = 0; s < sl; ++s) {
+#pragma unroll
+      for (int u = 0; u < 2; ++u) {
+        const float4 gv = *reinterpret_cast<const float4*>(A + s * a4 + col[u]);
+        const float4 xv = *reinterpret_cast<const float4*>(xm[u] + s * ld + xoff[u]);
+#pragma unroll
+        for (int a = 0; a < 4; ++a)
+#pragma unroll
+          for (int e = 0; e < 4; ++e) {
+            acc[u][a][e] = fmaf(comp(gv, a), comp(xv, e), acc[u][a][e]);
+          }
+      }
+    }
+#pragma unroll
+    for (int u = 0; u < 2; ++u) {
+      if (u == 1 && t0 + (int)blockDim.x >= tasks) break;
+#pragma unroll
+      for (int a = 0; a < 4; ++a) {
+        *reinterpret_cast<float4*>(out[u] + a * d) =
+            make_float4(acc[u][a][0], acc[u][a][1], acc[u][a][2], acc[u][a][3]);
+      }
     }
   }
   for (int i = threadIdx.x; i < 6 * d; i += blockDim.x) {
     const int m = i >= 3 * d, row = i - m * 3 * d;
-    const float* dg = m ? dgh : dgi;
+    const int col = m && row >= 2 * d ? row + d : row;
     float acc = 0.0f;
-    for (int s = 0; s < sl; ++s) acc += dg[s * dg_ld + row];
-    float* o = part + 6 * (size_t)d * d + i;
-    *o = first ? acc : *o + acc;
+    for (int s = 0; s < sl; ++s) acc += A[s * a4 + col];
+    part[6 * (size_t)d * d + i] = acc;
   }
 }
 
+// acc[k][4j + e] += (sum_{s < sl} a[s][m + j] x[s][c + e]) / div for the
+// thread's tiles k (task t + k kThreads = (m / 4, c / 4) of an output of
+// `mq` row quads and d columns; a tile past the output repeats the last
+// one, unstored): a (slp, lda) with zero columns past the true count, x
+// (slp, d) with row stride ld. A slot's step reads a float4 of each for 16
+// FMAs; the slots run outermost, so the thread's tiles are independent
+// chains.
+template <int K>
+__device__ __forceinline__ void cols_accumulate(float (&acc)[K][16], const float* a, int lda,
+                                                int mq, const float* x, int ld, int sl, int d,
+                                                float div) {
+  const int nq = d >> 2, tasks = mq * nq;
+  int m[K], c[K];
+  float sum[K][16];
+#pragma unroll
+  for (int k = 0; k < K; ++k) {
+    const int task = min((int)threadIdx.x + k * kThreads, tasks - 1);
+    m[k] = 4 * (task / nq);
+    c[k] = 4 * (task % nq);
+#pragma unroll
+    for (int o = 0; o < 16; ++o) sum[k][o] = 0.0f;
+  }
+#pragma unroll 2
+  for (int s = 0; s < sl; ++s) {
+#pragma unroll
+    for (int k = 0; k < K; ++k) {
+      const float4 av = *reinterpret_cast<const float4*>(a + s * lda + m[k]);
+      const float4 xv = *reinterpret_cast<const float4*>(x + s * ld + c[k]);
+#pragma unroll
+      for (int j = 0; j < 4; ++j)
+#pragma unroll
+        for (int e = 0; e < 4; ++e) {
+          sum[k][4 * j + e] = fmaf(comp(av, j), comp(xv, e), sum[k][4 * j + e]);
+        }
+    }
+  }
+#pragma unroll
+  for (int k = 0; k < K; ++k)
+#pragma unroll
+    for (int o = 0; o < 16; ++o) acc[k][o] += sum[k][o] / div;
+}
+
+// warp_sum in f64, for the renorm's row sums
+__device__ __forceinline__ double warp_sum_f64(double x) {
+#pragma unroll
+  for (int o = 16; o > 0; o >>= 1) x += __shfl_xor_sync(0xffffffffu, x, o);
+  return x;
+}
+
+// out[r] = sum_{m < n} a[r][m] (times b[r][m] where b is given) for r <
+// rows, a and b with row stride lda, and q[r] = out[r] / rs[r] where q is
+// given (the renorm's rg and rg / rs); one warp a row. Added in f64, as the
+// tiled route adds them: the renorm divides by rs, which is near zero on
+// some rows, and its gradient by rs^2.
+__device__ inline void row_totals(float* out, float* q, const float* a, const float* b,
+                                  const float* rs, int lda, int rows, int n) {
+  const int lane = threadIdx.x & 31, warp = threadIdx.x >> 5, warps = blockDim.x >> 5;
+  for (int r = warp; r < rows; r += warps) {
+    double acc = 0.0;
+    for (int i = lane; i < n; i += 32) {
+      acc += b ? (double)a[r * lda + i] * b[r * lda + i] : (double)a[r * lda + i];
+    }
+    acc = warp_sum_f64(acc);
+    if (lane == 0) {
+      out[r] = (float)acc;
+      if (q) q[r] = (float)(acc / rs[r]);
+    }
+  }
+}
+
+// cluster_slot_sum in two halves, so that work which touches neither the
+// summed values nor any buffer a peer reads runs while the element's
+// barrier completes: slot_sum_arrive once the values are written (a CTA
+// barrier where the cluster is this CTA alone), slot_sum_wait for the sum.
+__device__ __forceinline__ void slot_sum_arrive(cg::cluster_group& cluster) {
+  if (cluster.num_blocks() == 1) {
+    __syncthreads();
+  } else {
+    asm volatile("barrier.cluster.arrive.release.aligned;\n" ::: "memory");
+  }
+}
+
+__device__ __forceinline__ float slot_sum_wait(cg::cluster_group& cluster, const float* vals,
+                                               int s) {
+  if (cluster.num_blocks() > 1) asm volatile("barrier.cluster.wait.acquire.aligned;\n" ::: "memory");
+  return slot_values_sum(cluster, vals, s);
+}
+
+// K: dk's and dv's 4 x 4 tiles a thread holds (kv_tiles).
+template <typename T, int K>
 __global__ void __launch_bounds__(kThreads, 1)
-xslot_bwd_kernel(const float* __restrict__ k, const float* __restrict__ v,
-                 const float* __restrict__ w_ih, const float* __restrict__ w_hh,
-                 const float* __restrict__ b_ih, const float* __restrict__ b_hh,
-                 const float* __restrict__ hist, const float* __restrict__ du,
-                 const float* __restrict__ dattn, float* __restrict__ dk_out,
-                 float* __restrict__ dv_out, float* __restrict__ partials,
-                 float* __restrict__ dslots0, int n, int s, int d, int iters, float scale) {
+xslot_bwd_kernel(const T* __restrict__ k, const T* __restrict__ v, const T* __restrict__ w_ih,
+                 const T* __restrict__ w_hh, const T* __restrict__ b_ih,
+                 const T* __restrict__ b_hh, const float* __restrict__ hist,
+                 const float* __restrict__ du, const float* __restrict__ dattn,
+                 float* __restrict__ dk_out, float* __restrict__ dv_out,
+                 float* __restrict__ partials, float* __restrict__ dslots0, int n, int s, int d,
+                 int iters, float scale) {
   extern __shared__ __align__(16) float smem[];
   cg::cluster_group cluster = cg::this_cluster();
   const int c = (int)cluster.num_blocks(), rank = (int)cluster.block_rank();
   const size_t b = blockIdx.x / c;
   int s0, sl;
   slot_range(s, c, rank, &s0, &sl);
-  const int slp = round4(share_max(s, c)), ld = row_ld(d), d3 = 3 * d;
+  const int slp = round4(share_max(s, c)), ld = row_ld(d), wld = w_ld(d, true);
+  const int np = round4(n), mq = np / 4;
+  const size_t wmat = (size_t)3 * d * wld;
 
-  float* ks = smem;
-  float* vs = ks + n * ld;
-  float* dk_s = vs + n * ld;
-  float* dv_s = dk_s + n * d;
-  float* h = dv_s + n * d;
-  float* x = h + slp * ld;
-  float* g = x + slp * ld;    // cotangent of the slots leaving the iteration
+  float* w = smem;  // W_ih, then W_hh
+  float* ks = w + 2 * wmat;
+  float* vs = ks + np * ld;
+  float* h = vs + np * ld;    // slots entering the iteration
+  float* xb = h + slp * ld;   // upd, then the next iteration's h
+  float* g = xb + slp * ld;   // cotangent of the slots leaving it, then dupd
   float* dh = g + slp * ld;   // cotangent of the slots entering it
-  float* dx = dh + slp * ld;  // dupd
-  float* dots = dx + slp * ld;
-  float* attn = dots + slp * n;
-  float* p = attn + slp * n;  // dattn_tot, then G, then d dots
-  float* rs = p + slp * n;
+  float* dots = dh + slp * ld;
+  float* attn = dots + slp * np;
+  float* p = attn + slp * np;  // dattn_tot, then G, then d dots
+  float* rs = p + slp * np;
   float* rg = rs + slp;
   float* qv = rg + slp;
-  float* dgi = qv + slp;
-  float* dgh = dgi + slp * d3;
-  float* tiles = dgh + slp * d3;
-  float* part = partials + blockIdx.x * partial_floats(d);
+  float* A = qv + slp;        // [a_r, a_z, a_n, a_n r] a slot
+  float* bias = A + slp * 4 * d;  // b_ih, then b_hh
+  const size_t per_part = partial_floats(d);
+  XSLOT_STAMP(0);
 
-  zero(dk_s, (size_t)(tiles - dk_s));
-  __syncthreads();
   load_rows(ks, ld, k + b * n * d, n, d);
   load_rows(vs, ld, v + b * n * d, n, d);
+  load_rows(h, ld, hist + ((b * iters + iters - 1) * s + s0) * d, sl, d);
+  load_rows(g, ld, du + (b * s + s0) * d, sl, d);  // the last iteration's dupd
+  copy_commit();
+  // every row the copies leave out is zero: k's and v's past n, the slot
+  // buffers' past sl, and the rest whole
+  zero(ks + n * ld, (size_t)(np - n) * ld);
+  zero(vs + n * ld, (size_t)(np - n) * ld);
+  zero(h + sl * ld, (size_t)(slp - sl) * ld);
+  zero(xb, (size_t)slp * ld);
+  zero(g + sl * ld, (size_t)(slp - sl) * ld);
+  zero(dh, (size_t)(A + slp * 4 * d - dh));
 
-  const GruTile tile(d);
+  float dk_acc[K][16] = {}, dv_acc[K][16] = {};
+  const RowsOp none{};
   for (int it = iters - 1; it >= 0; --it) {
     const bool last = it == iters - 1;
-    // rebuild the iteration's forward from hist[:, it]
-    load_rows(h, ld, hist + ((b * iters + it) * s + s0) * d, sl, d);
-    copy_commit();
+    [[maybe_unused]] const int phase = 1 + kStampPhases * (iters - 1 - it);  // its first stamp
+    // hist[:, it] (and at the last iteration k, v and du) have landed; the
+    // GRU's weights and biases follow while the last iteration (no GRU) runs
     copy_wait<0>();
     __syncthreads();
-    rows_dot_rows(dots, h, ks, ld, sl, n, d, scale, 1.0f, nullptr, 0);
-    __syncthreads();
-    row_sums(rs, dots, nullptr, sl, n);
-    const float total = cluster_slot_sum(cluster, rs, s);
-    for (int i = threadIdx.x; i < sl * n; i += blockDim.x) {
-      attn[i] = sigmoid_f32(dots[i] / rs[i / n] * total);
-    }
-    __syncthreads();
-    rows_times(x, ld, attn, n, vs, ld, sl, n, d, (float)d, false);
-    __syncthreads();
-
-    if (last) {
-      load_rows(dx, ld, du + (b * s + s0) * d, sl, d);
+    if (last && iters > 1) {
+      stage_all(w, w_ih, w_hh, d);
+      load_rows(bias, 3 * d, b_ih, 1, 3 * d);
+      load_rows(bias + 3 * d, 3 * d, b_hh, 1, 3 * d);
       copy_commit();
-      copy_wait<0>();
-    } else {
-      // the GRU's gates again, and its backward for cotangent g
-      for (int base = 0; base < sl; base += tile.chunk()) {
-        const int sa = tile.first(base, sl);
-        GruAcc acc;
-        gru_products(acc, x, h, sa, tile.q, sa >= 0, tiles, w_ih, w_hh, d, false);
-#pragma unroll
-        for (int r = 0; r < 2; ++r) {
-          const int si = sa + r;
-          if (sa < 0 || si >= sl) break;
-#pragma unroll
-          for (int u = 0; u < 4; ++u) {
-            const int j = gru_col(tile.q, u, d);
-            const float ir = acc.gi[r][0][u] + b_ih[j];
-            const float iz = acc.gi[r][1][u] + b_ih[d + j];
-            const float in = acc.gi[r][2][u] + b_ih[2 * d + j];
-            const float hr = acc.gh[r][0][u] + b_hh[j];
-            const float hz = acc.gh[r][1][u] + b_hh[d + j];
-            const float hn = acc.gh[r][2][u] + b_hh[2 * d + j];
-            const float rg_ = sigmoid_f32(ir + hr);
-            const float zg = sigmoid_f32(iz + hz);
-            const float ng = tanhf(in + rg_ * hn);
-            const float gv = g[si * ld + j], hv = h[si * ld + j];
-            const float dn = gv * (1.0f - zg), dz = gv * (hv - ng);
-            const float a_n = dn * (1.0f - ng * ng);
-            const float a_r = a_n * hn * rg_ * (1.0f - rg_);
-            const float a_z = dz * zg * (1.0f - zg);
-            float* gi_row = dgi + si * d3;
-            float* gh_row = dgh + si * d3;
-            gi_row[j] = a_r;
-            gi_row[d + j] = a_z;
-            gi_row[2 * d + j] = a_n;
-            gh_row[j] = a_r;
-            gh_row[d + j] = a_z;
-            gh_row[2 * d + j] = a_n * rg_;
-            dh[si * ld + j] = gv * zg;
-          }
-        }
-      }
-      __syncthreads();
-      rows_times(dx, ld, dgi, d3, w_ih, d, sl, d3, d, 1.0f, false);
-      rows_times(dh, ld, dgh, d3, w_hh, d, sl, d3, d, 1.0f, true);
-      weight_grads(part, dgi, dgh, x, h, ld, sl, d, it == iters - 2);
+    }
+    XSLOT_STAMP(phase);  // 0: the hist load
+    // rebuild the iteration's forward: dots, row sums and T, attn
+    dot_rows(dots, np, h, ks, ld, sl, n, d, scale, 1.0f, (const float*)nullptr, 0, nullptr);
+    __syncthreads();
+    row_totals(rs, nullptr, dots, nullptr, nullptr, np, sl, n);
+    XSLOT_STAMP(phase + 1);  // 1: dots, row sums
+    slot_sum_arrive(cluster);
+    // while the element's CTAs meet: the previous iteration's dk += dD^T h
+    // (its dD in p, its h in xb since the swap)
+    if (!last) cols_accumulate(dk_acc, p, np, mq, xb, ld, sl, d, 1.0f);
+    const float total = slot_sum_wait(cluster, rs, s);
+    XSLOT_STAMP(phase + 2);  // 2: the T barrier, dk
+    for (int i = threadIdx.x; i < sl * n; i += blockDim.x) {
+      const int si = i / n, e = si * np + i - si * n;
+      attn[e] = sigmoid_f32(dots[e] / rs[si] * total);
     }
     __syncthreads();
+    XSLOT_STAMP(phase + 3);  // 3: attn
 
-    // attention: dattn_tot, dv, G, the renorm's gradient, dh and dk
-    rows_dot_rows(p, dx, vs, ld, sl, n, d, 1.0f, (float)d,
-                  last ? dattn + (b * s + s0) * n : nullptr, n);
-    cols_times(dv_s, attn, n, dx, ld, sl, d, (float)d);
+    if (!last) {
+      // upd, the GRU's gates and their backward for cotangent g
+      rows_split<2>(RowsOp{xb, attn, np, np, 0, vs, ld, false}, none, 1, ld, sl, np, d,
+                    (float)d);
+      __syncthreads();
+      gru_gates(A, xb, h, w, bias, sl, d);
+      __syncthreads();
+      gru_grads(A, dh, g, h, sl, d);
+      __syncthreads();
+      XSLOT_STAMP(phase + 4);  // 4: x, the GRU's gates and gradient
+      // dx into g (read above for the last time), dh += dgh W_hh
+      rows_split<4>(RowsOp{g, A, 4 * d, 3 * d, 0, w, wld, false},
+                    RowsOp{dh, A, 4 * d, 2 * d, d, w + wmat, wld, true}, 2, ld, sl, 3 * d, d,
+                    1.0f);
+      __syncthreads();
+      XSLOT_STAMP(phase + 5);  // 5: dx, dh
+    }
+
+    // attention: dattn_tot and G in place of P; rg, q and their total
+    dot_rows(p, np, g, vs, ld, sl, n, d, 1.0f, (float)d,
+             last ? dattn + (b * s + s0) * n : nullptr, n, attn);
     __syncthreads();
+    row_totals(rg, qv, p, dots, rs, np, sl, n);
+    XSLOT_STAMP(phase + 6);  // 6: P, G, rg
+    slot_sum_arrive(cluster);
+    // while the element's CTAs meet: dv, and the GRU's dW and db
+    cols_accumulate(dv_acc, attn, np, mq, g, ld, sl, d, (float)d);
+    if (!last) {
+      weight_grads(partials + ((size_t)blockIdx.x * (iters - 1) + (iters - 2 - it)) * per_part,
+                   A, xb, h, ld, sl, d);
+    }
+    const float qsum = slot_sum_wait(cluster, qv, s);
+    XSLOT_STAMP(phase + 7);  // 7: the q barrier, dv, dW
     for (int i = threadIdx.x; i < sl * n; i += blockDim.x) {
-      p[i] = p[i] * attn[i] * (1.0f - attn[i]);
+      const int si = i / n, e = si * np + i - si * n;
+      p[e] = (total * p[e] / rs[si] - total * rg[si] / (rs[si] * rs[si]) + qsum) * scale;
     }
     __syncthreads();
-    row_sums(rg, p, dots, sl, n);
-    __syncthreads();
-    for (int i = threadIdx.x; i < sl; i += blockDim.x) qv[i] = rg[i] / rs[i];
-    const float qsum = cluster_slot_sum(cluster, qv, s);
-    for (int i = threadIdx.x; i < sl * n; i += blockDim.x) {
-      const int si = i / n;
-      p[i] = (total * p[i] / rs[si] - total * rg[si] / (rs[si] * rs[si]) + qsum) * scale;
+    if (it > 0) {  // upd is spent: the next iteration's h lands there
+      load_rows(xb, ld, hist + ((b * iters + it - 1) * s + s0) * d, sl, d);
+      copy_commit();
     }
+    // dh (+)= dD k (dk += dD^T h waits for the next iteration's barrier)
+    rows_split<2>(RowsOp{dh, p, np, np, 0, ks, ld, !last}, none, 1, ld, sl, np, d, 1.0f);
     __syncthreads();
-    rows_times(dh, ld, p, n, ks, ld, sl, n, d, 1.0f, !last);
-    cols_times(dk_s, p, n, h, ld, sl, d, 1.0f);
-    __syncthreads();
+    XSLOT_STAMP(phase + 8);  // 8: dD, dh
     float* t = g;
     g = dh;
     dh = t;
+    if (it > 0) {
+      t = h;
+      h = xb;
+      xb = t;
+    }
   }
 
+  cols_accumulate(dk_acc, p, np, mq, h, ld, sl, d, 1.0f);  // iteration 0's
   store_rows(dslots0 + (b * s + s0) * d, g, ld, sl, d);
-  if (iters == 1) {
-    for (size_t i = threadIdx.x; i < partial_floats(d); i += blockDim.x) part[i] = 0.0f;
+  XSLOT_STAMP(1 + kStampPhases * iters);
+  // dk and dv: each CTA's partials go to its k and v rows (spent since the
+  // last barrier), then the CTAs' partials are summed in rank order, each
+  // CTA writing its share of the rows; the second sync keeps this CTA's
+  // partials alive while its peers read them
+  const int nq = d >> 2;
+  float* dk_s = ks;
+  float* dv_s = vs;
+#pragma unroll
+  for (int t = 0; t < K; ++t) {
+    const int task = threadIdx.x + t * kThreads;
+    if (task >= mq * nq) continue;
+    const int m = 4 * (task / nq), col = 4 * (task % nq);
+#pragma unroll
+    for (int j = 0; j < 4; ++j) {
+      if (m + j >= n) continue;
+      const float* kr = dk_acc[t] + 4 * j;
+      const float* vr = dv_acc[t] + 4 * j;
+      *reinterpret_cast<float4*>(dk_s + (m + j) * d + col) = make_float4(kr[0], kr[1], kr[2], kr[3]);
+      *reinterpret_cast<float4*>(dv_s + (m + j) * d + col) = make_float4(vr[0], vr[1], vr[2], vr[3]);
+    }
   }
-  // dk and dv: the CTAs' partials summed in rank order, each CTA writing its
-  // share of the rows; the second sync keeps this CTA's partials alive while
-  // its peers read them
   element_sync(cluster);
   int n0, nl;
   slot_range(n, c, rank, &n0, &nl);
   for (int i = threadIdx.x; i < nl * d; i += blockDim.x) {
     const int idx = n0 * d + i;
+    float pk[kMaxCluster], pv[kMaxCluster];  // every rank's loads in flight together
+#pragma unroll
+    for (int r = 0; r < kMaxCluster; ++r) {
+      pk[r] = r < c ? cluster.map_shared_rank(dk_s, r)[idx] : 0.0f;
+      pv[r] = r < c ? cluster.map_shared_rank(dv_s, r)[idx] : 0.0f;
+    }
     float sk = 0.0f, sv = 0.0f;
-    for (int r = 0; r < c; ++r) {
-      sk += cluster.map_shared_rank(dk_s, r)[idx];
-      sv += cluster.map_shared_rank(dv_s, r)[idx];
+#pragma unroll
+    for (int r = 0; r < kMaxCluster; ++r) {
+      if (r < c) {
+        sk += pk[r];
+        sv += pv[r];
+      }
     }
     dk_out[b * n * d + idx] = sk;
     dv_out[b * n * d + idx] = sv;
   }
+  XSLOT_STAMP(2 + kStampPhases * iters);
   if (c > 1) cluster.sync();
 }
 
-// Output e of the sums over the batch, each added in a fixed order: the CTAs'
-// dW and db partials (partial p at partials + p * per_cta) into dw_ih, dw_hh
-// (3d x d), db_ih, db_hh (3d), and the elements' rows of dslots0 (B, S*d)
-// into d_init.
+// The gradient kernel's f32 instance for dk and dv of N rows of d columns,
+// or nullptr where they do not fit a thread's registers. Each holds the
+// fewest tiles that cover them: unused tiles cost time (an instance of two
+// tiles ran the flagship's shapes 13-17% slower than one of one tile, one
+// of three 6-12% slower than two at N=81; NVIDIA H100 80GB HBM3, 700 W,
+// examples/torch_k1_bench.py --cluster).
+using BwdKernel = decltype(&xslot_bwd_kernel<float, 1>);
+inline BwdKernel bwd_kernel(int n, int d) {
+  switch (kv_tiles(n, d)) {
+    case 1:
+      return &xslot_bwd_kernel<float, 1>;
+    case 2:
+      return &xslot_bwd_kernel<float, 2>;
+    case 3:
+      return &xslot_bwd_kernel<float, 3>;
+    default:
+      return nullptr;
+  }
+}
+
+// The cluster route's partials: one a CTA and GRU iteration.
+inline size_t cluster_parts(int batch, int cluster, int iters) {
+  return (size_t)batch * cluster * (iters - 1);
+}
+
+// Output e of the sums over the batch: dw_ih, dw_hh (3d x d), db_ih, db_hh
+// (3d), then d_init (S x d), in that order.
+__device__ __forceinline__ void store_sum(int e, float acc, int d, float* __restrict__ dw_ih,
+                                          float* __restrict__ dw_hh, float* __restrict__ db_ih,
+                                          float* __restrict__ db_hh, float* __restrict__ d_init) {
+  const int per_part = (int)partial_floats(d), dd = 3 * d * d;
+  if (e < dd) {
+    dw_ih[e] = acc;
+  } else if (e < 2 * dd) {
+    dw_hh[e - dd] = acc;
+  } else if (e < 2 * dd + 3 * d) {
+    db_ih[e - 2 * dd] = acc;
+  } else if (e < per_part) {
+    db_hh[e - 2 * dd - 3 * d] = acc;
+  } else {
+    d_init[e - per_part] = acc;
+  }
+}
+
+// Output e of the sums over the batch (store_sum's order), each added in a
+// fixed order: the dW and db partials (partial p at partials + p * per_cta),
+// and the elements' rows of dslots0 (B, S*d) into d_init.
 __device__ __forceinline__ void sum_partials(int e, const float* __restrict__ partials,
                                              int nparts, const float* __restrict__ dslots0,
                                              int batch, int sd, int d, float* __restrict__ dw_ih,
@@ -277,35 +751,49 @@ __device__ __forceinline__ void sum_partials(int e, const float* __restrict__ pa
                                              float* __restrict__ db_ih,
                                              float* __restrict__ db_hh,
                                              float* __restrict__ d_init) {
-  const int per_cta = (int)partial_floats(d), dd = 3 * d * d;
+  const int per_cta = (int)partial_floats(d);
   if (e < per_cta) {
     float acc = 0.0f;
     for (int i = 0; i < nparts; ++i) acc += partials[(size_t)i * per_cta + e];
-    if (e < dd) {
-      dw_ih[e] = acc;
-    } else if (e < 2 * dd) {
-      dw_hh[e - dd] = acc;
-    } else if (e < 2 * dd + 3 * d) {
-      db_ih[e - 2 * dd] = acc;
-    } else {
-      db_hh[e - 2 * dd - 3 * d] = acc;
-    }
+    store_sum(e, acc, d, dw_ih, dw_hh, db_ih, db_hh, d_init);
   } else if (e < per_cta + sd) {
     const int f = e - per_cta;
     float acc = 0.0f;
     for (int i = 0; i < batch; ++i) acc += dslots0[(size_t)i * sd + f];
-    d_init[f] = acc;
+    store_sum(e, acc, d, dw_ih, dw_hh, db_ih, db_hh, d_init);
   }
 }
 
-// The cluster route's sums over the batch (sum_partials), one thread an output.
-__global__ void xslot_bwd_sum_kernel(const float* __restrict__ partials, int nparts,
-                                     const float* __restrict__ dslots0, int batch, int sd, int d,
-                                     float* __restrict__ dw_ih, float* __restrict__ dw_hh,
-                                     float* __restrict__ db_ih, float* __restrict__ db_hh,
-                                     float* __restrict__ d_init) {
-  sum_partials(blockIdx.x * blockDim.x + threadIdx.x, partials, nparts, dslots0, batch, sd, d,
-               dw_ih, dw_hh, db_ih, db_hh, d_init);
+constexpr int kSumWarps = kThreads / 32;
+
+// The cluster route's sums over the batch, store_sum's outputs 32 a block:
+// lane l takes output 32 blockIdx.x + l, warp w adds its terms w, w + 8, ...
+// (the partials, one a CTA and GRU iteration, or the elements' d_slots0
+// rows) in order, and warp 0 adds the eight warps' sums in order.
+__global__ void __launch_bounds__(kThreads)
+cluster_sum_kernel(const float* __restrict__ partials, int nparts,
+                   const float* __restrict__ dslots0, int batch, int sd, int d,
+                   float* __restrict__ dw_ih, float* __restrict__ dw_hh,
+                   float* __restrict__ db_ih, float* __restrict__ db_hh,
+                   float* __restrict__ d_init) {
+  __shared__ float sums[kSumWarps][32];
+  const int lane = threadIdx.x & 31, warp = threadIdx.x >> 5;
+  const int per_part = (int)partial_floats(d), e = blockIdx.x * 32 + lane;
+  const bool head = e < per_part, inside = e < per_part + sd;
+  const float* src = head ? partials + e : dslots0 + (e - per_part);
+  const size_t stride = head ? per_part : sd;
+  const int terms = inside ? (head ? nparts : batch) : 0;
+  float acc = 0.0f;
+#pragma unroll 4
+  for (int i = warp; i < terms; i += kSumWarps) acc += src[i * stride];
+  sums[warp][lane] = acc;
+  __syncthreads();
+  if (warp == 0 && inside) {
+    float total = 0.0f;
+#pragma unroll
+    for (int w = 0; w < kSumWarps; ++w) total += sums[w][lane];
+    store_sum(e, total, d, dw_ih, dw_hh, db_ih, db_hh, d_init);
+  }
 }
 
 // ------------------------------------------------------------ tiled route
@@ -517,13 +1005,6 @@ struct Operand {
     }
   }
 };
-
-// warp_sum in f64, for the renorm's row sums
-__device__ __forceinline__ double warp_sum_f64(double x) {
-#pragma unroll
-  for (int o = 16; o > 0; o >>= 1) x += __shfl_xor_sync(0xffffffffu, x, o);
-  return x;
-}
 
 // The product kernel of the tiled route (see Prod and Shape). blockIdx.x,y
 // pick the tile's columns and rows, blockIdx.z = (group * pieces + piece) *
@@ -850,7 +1331,7 @@ __global__ void ddots_kernel(float* __restrict__ p, const float* __restrict__ rs
 
 // The sums that end the tiled route, each in a fixed order: the (piece,
 // element) partials of dW and db and the elements' rows of d_slots0 as
-// xslot_bwd_sum_kernel adds them, then, where dv and dk were split, their
+// sum_partials adds them, then, where dv and dk were split, their
 // `pieces` pieces (dv's, then dk's, each (pieces, bnd) floats).
 __global__ void tiled_sum_kernel(const float* __restrict__ partials, int nparts,
                                  const float* __restrict__ dslots0, int batch, int sd, int d,
@@ -999,7 +1480,7 @@ int device_sms(int* sms) {
   return (int)cudaDeviceGetAttribute(sms, cudaDevAttrMultiProcessorCount, device);
 }
 
-// The tiled route: the same gradient as xslot_bwd_kernel + xslot_bwd_sum_kernel.
+// The tiled route: the same gradient as xslot_bwd_kernel + cluster_sum_kernel.
 int tiled_bwd(const float* k, const float* v, const float* w_ih, const float* w_hh,
               const float* b_ih, const float* b_hh, const float* hist, const float* du,
               const float* dattn, float* dk, float* dv, float* d_init, float* dw_ih,
@@ -1123,22 +1604,25 @@ size_t xslot_bwd_smem_bytes(int n, int s_cta, int d) {
 // device holds at once (cudaOccupancyMaxActiveClusters), or a negative CUDA
 // error.
 int xslot_bwd_max_clusters(int n, int s_cta, int d, int cluster) {
+  const auto fn = bwd_kernel(n, d);
+  if (fn == nullptr) return 0;
   cudaLaunchAttribute attr[1];
   const cudaLaunchConfig_t config =
       cluster_config(attr, 1, cluster, xslot_bwd_smem_bytes(n, s_cta, d), nullptr);
-  return max_active_clusters((const void*)xslot_bwd_kernel, &config);
+  return max_active_clusters((const void*)fn, &config);
 }
 
 // Floats of the scratch buffer xslot_bwd needs: for a cluster of `cluster`
-// CTAs per element the per-CTA partials, then the elements' d_slots0 rows;
-// for the tiled route (cluster == 0) its plan's on the current device (0 if
-// the device cannot be read, where the route itself fails).
-size_t xslot_bwd_scratch_floats(int batch, int n, int s, int d, int cluster) {
+// CTAs per element the partials of each CTA and GRU iteration (iters - 1 of
+// them), then the elements' d_slots0 rows; for the tiled route (cluster ==
+// 0) its plan's on the current device (0 if the device cannot be read, where
+// the route itself fails).
+size_t xslot_bwd_scratch_floats(int batch, int n, int s, int d, int iters, int cluster) {
   if (cluster == 0) {
     int sms = 0;
     return device_sms(&sms) == 0 ? tiled_plan(batch, n, s, d, sms).scratch : 0;
   }
-  return (size_t)batch * cluster * partial_floats(d) + (size_t)batch * s * d;
+  return cluster_parts(batch, cluster, iters) * partial_floats(d) + (size_t)batch * s * d;
 }
 
 // The tiled route's plan at (batch, N, S, d) on the current device: for each
@@ -1177,14 +1661,17 @@ int xslot_bwd(const void* k, const void* v, const void* w_ih, const void* w_hh,
                      (float*)db_hh, (float*)scratch, batch, n, s, d, iters, scale,
                      (cudaStream_t)stream);
   }
+  const auto fn = bwd_kernel(n, d);
+  if (fn == nullptr) return (int)cudaErrorInvalidValue;  // the plan takes the tiled route
   cudaLaunchAttribute attr[1];
   const cudaLaunchConfig_t config = cluster_config(
       attr, batch, cluster, xslot_bwd_smem_bytes(n, share_max(s, cluster), d), stream);
+  const int nparts = (int)cluster_parts(batch, cluster, iters);
   float* partials = (float*)scratch;
-  float* dslots0 = partials + (size_t)batch * cluster * partial_floats(d);
-  int err = ensure_smem((const void*)xslot_bwd_kernel, config.dynamicSmemBytes);
+  float* dslots0 = partials + (size_t)nparts * partial_floats(d);
+  int err = ensure_smem((const void*)fn, config.dynamicSmemBytes);
   if (err != 0) return err;
-  err = (int)cudaLaunchKernelEx(&config, xslot_bwd_kernel, (const float*)k, (const float*)v,
+  err = (int)cudaLaunchKernelEx(&config, fn, (const float*)k, (const float*)v,
                                 (const float*)w_ih, (const float*)w_hh, (const float*)b_ih,
                                 (const float*)b_hh, (const float*)hist, (const float*)du,
                                 (const float*)dattn, (float*)dk, (float*)dv, partials, dslots0,
@@ -1193,11 +1680,35 @@ int xslot_bwd(const void* k, const void* v, const void* w_ih, const void* w_hh,
   err = (int)cudaGetLastError();
   if (err != 0) return err;
   const int total = (int)partial_floats(d) + s * d;
-  xslot_bwd_sum_kernel<<<(total + kThreads - 1) / kThreads, kThreads, 0,
-                         (cudaStream_t)stream>>>(partials, batch * cluster, dslots0, batch, s * d,
-                                                 d, (float*)dw_ih, (float*)dw_hh, (float*)db_ih,
-                                                 (float*)db_hh, (float*)d_init);
+  cluster_sum_kernel<<<(total + 31) / 32, kThreads, 0, (cudaStream_t)stream>>>(
+      partials, nparts, dslots0, batch, s * d, d, (float*)dw_ih, (float*)dw_hh, (float*)db_ih,
+      (float*)db_hh, (float*)d_init);
   return (int)cudaGetLastError();
 }
+
+#ifdef XSLOT_STAMPS
+// Copies `count` of g_stamps to `out` (kStampCtas x kStampSlots) and zeroes
+// them; returns 0 or the CUDA error.
+int xslot_bwd_stamps(long long* out, int count) {
+  void* addr = nullptr;
+  XSLOT_TRY((int)cudaMemcpyFromSymbol(out, g_stamps, (size_t)count * sizeof(long long)));
+  XSLOT_TRY((int)cudaGetSymbolAddress(&addr, g_stamps));
+  return (int)cudaMemset(addr, 0, sizeof(g_stamps));
+}
+
+// The fixed-order sum of a cluster call's scratch alone (xslot_bwd's second
+// launch), on `stream`.
+int xslot_bwd_sum_only(const void* scratch, int batch, int s, int d, int iters, int cluster,
+                       void* d_init, void* dw_ih, void* dw_hh, void* db_ih, void* db_hh,
+                       void* stream) {
+  const int nparts = (int)cluster_parts(batch, cluster, iters);
+  const float* partials = (const float*)scratch;
+  const int total = (int)partial_floats(d) + s * d;
+  cluster_sum_kernel<<<(total + 31) / 32, kThreads, 0, (cudaStream_t)stream>>>(
+      partials, nparts, partials + (size_t)nparts * partial_floats(d), batch, s * d, d,
+      (float*)dw_ih, (float*)dw_hh, (float*)db_ih, (float*)db_hh, (float*)d_init);
+  return (int)cudaGetLastError();
+}
+#endif
 
 }  // extern "C"

@@ -146,11 +146,9 @@ __device__ __forceinline__ void element_sync(cg::cluster_group& cluster) {
 // same shared-memory address, holds one value per slot it owns), in the
 // slots' order: lane l adds slots l, l+32, ... and a butterfly adds the lanes,
 // as a one-CTA kernel would. Every warp computes it; every CTA gets the same
-// bits, whatever the cluster size. Starts with element_sync (also a barrier
-// for the CTA). A CTA writes `vals` again only after the next element_sync
-// that follows this call, which its peers reach only once they have read.
-__device__ inline float cluster_slot_sum(cg::cluster_group& cluster, float* vals, int s) {
-  element_sync(cluster);
+// bits, whatever the cluster size. The caller has synchronised the element's
+// CTAs since `vals` was written (cluster_slot_sum below).
+__device__ inline float slot_values_sum(cg::cluster_group& cluster, const float* vals, int s) {
   const int c = (int)cluster.num_blocks(), lane = threadIdx.x & 31;
   int r = 0, first = 0, end = (int)((long long)s / c);
   float acc = 0.0f;
@@ -163,6 +161,14 @@ __device__ inline float cluster_slot_sum(cg::cluster_group& cluster, float* vals
     acc += cluster.map_shared_rank(vals, r)[i - first];
   }
   return warp_sum(acc);
+}
+
+// slot_values_sum after element_sync (also a barrier for the CTA). A CTA
+// writes `vals` again only after the next element_sync that follows this
+// call, which its peers reach only once they have read.
+__device__ inline float cluster_slot_sum(cg::cluster_group& cluster, float* vals, int s) {
+  element_sync(cluster);
+  return slot_values_sum(cluster, vals, s);
 }
 
 // out[r] = sum_n a[r][n] (b[r][n] if b is given) for r < rows, one warp a row
@@ -241,28 +247,6 @@ __device__ inline void rows_times(float* out, int ldo, const float* a, int lda,
         o[e] = accumulate ? o[e] + v : v;
       }
     }
-  }
-}
-
-// out[m][j] += (sum_{s < sl} a[s][m] * x[s][j]) / div for m < rows, j < d:
-// a (slp, rows) with row stride rows, x (slp, d) with row stride ld, out
-// (rows, d) with row stride d; one thread per (m, four j).
-__device__ inline void cols_times(float* out, const float* a, int rows, const float* x, int ld,
-                                  int sl, int d, float div) {
-  const int nq = d >> 2;
-  for (int task = threadIdx.x; task < rows * nq; task += blockDim.x) {
-    const int q = task % nq, m = task / nq;
-    float4 acc = make_float4(0.f, 0.f, 0.f, 0.f);
-    for (int s = 0; s < sl; ++s) {
-      const float av = a[s * rows + m];
-      const float4 xv = *reinterpret_cast<const float4*>(x + s * ld + 4 * q);
-      acc.x = fmaf(av, xv.x, acc.x); acc.y = fmaf(av, xv.y, acc.y);
-      acc.z = fmaf(av, xv.z, acc.z); acc.w = fmaf(av, xv.w, acc.w);
-    }
-    float4* o = reinterpret_cast<float4*>(out + m * d + 4 * q);
-    float4 cur = *o;
-    cur.x += acc.x / div; cur.y += acc.y / div; cur.z += acc.z / div; cur.w += acc.w / div;
-    *o = cur;
   }
 }
 

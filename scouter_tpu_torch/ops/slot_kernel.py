@@ -42,10 +42,12 @@ __all__ = ["Plan", "TiledPlan", "TiledProduct", "tiled_plan", "xslot_bwd_ref", "
            "xslot_iterations_fused", "xslot_iterations_ref"]
 
 # csrc/xslot_common.cuh: threads per CTA, columns per staged GRU weight tile
-# and the portable cluster limit
+# and the portable cluster limit; csrc/xslot_bwd.cu: the most 4 x 4 tiles
+# of dk and of dv a thread of the cluster backward holds in registers
 _THREADS = 256
 _TILE_C = 8
 _MAX_CLUSTER = 8
+_KV_TILES = 3
 
 
 def _input_dtype(tensors):
@@ -165,6 +167,14 @@ class Plan(NamedTuple):
     def tiled(self) -> bool:
         return self.cluster == 0
 
+    def launches(self, kind: str) -> int:
+        """Launches of one call on this cluster plan: the forward's kernel,
+        or the backward's gradient kernel and its fixed-order sum. The tiled
+        route's count is ``TiledPlan.launches``."""
+        if self.tiled:
+            raise ValueError("the tiled route's launches are TiledPlan.launches")
+        return 1 if kind == "fwd" else 2
+
 
 TILED = Plan(0, 0, 0, 0, False, 0)
 
@@ -173,15 +183,18 @@ def _smem_bytes(kind: str, n: int, s_cta: int, d: int, resident: bool = False) -
     """Dynamic shared memory of one CTA owning ``s_cta`` slots, as the
     layouts of ``csrc/xslot_fwd.cu`` and ``csrc/xslot_bwd.cu`` have it. The
     card's plan takes the libraries' own ``xslot_*_smem_bytes``; this copy is
-    for planning without a card, and ``chip_smoke.py`` holds it to them. Only
-    the forward keeps the weights resident."""
+    for planning without a card, and ``chip_smoke.py`` holds it to them. The
+    forward keeps the GRU weights resident where they fit (else it streams
+    them in tiles); the backward always keeps them resident."""
     slp = -(-s_cta // 4) * 4
     ld = d + 4
     weights = 2 * 3 * d * (d + 4) if resident else 4 * 3 * d * (_TILE_C + 4)
     if kind == "fwd":
         floats = 2 * n * ld + 3 * slp * ld + slp * n + 2 * slp + weights
     else:
-        floats = 2 * n * ld + 2 * n * d + 5 * slp * ld + 3 * slp * n + 3 * slp + 6 * slp * d + weights
+        n4 = -(-n // 4) * 4  # k, v and the (slots, N) buffers padded to a multiple of 4
+        floats = (2 * n4 * ld + 4 * slp * ld + 3 * slp * n4 + 3 * slp + 4 * slp * d + 6 * d
+                  + weights)
     return 4 * floats
 
 
@@ -196,21 +209,24 @@ def _plan(b: int, n: int, s: int, d: int, kind: str, max_smem: int, sms: int, sm
     of the slots fits, raised while the launch still fits in one wave (B
     clusters at once: the SMs of a cluster share one GPC), ``c`` <= 8 and
     ``c`` <= S. The forward keeps the GRU weights resident where they fit
-    beside its share. Where 8 CTAs cannot hold the shares the backward takes
+    beside its share; the backward always does, and holds dk and dv in
+    registers, ``_KV_TILES`` 4 x 4 tiles of each a thread at most. Where 8
+    CTAs cannot hold the shares (or a thread dk and dv) the backward takes
     its tiled route (``TILED``) and the forward raises ``ValueError``."""
     top = min(_MAX_CLUSTER, s)
+    kv_fits = kind == "fwd" or -(-n // 4) * (d // 4) <= _KV_TILES * _THREADS
 
     def share(c):
         return -(-s // c)
 
     def footprint(c):  # (bytes, resident)
-        if kind == "fwd" and smem(share(c), True) <= max_smem:
+        if kind == "bwd" or smem(share(c), True) <= max_smem:
             return smem(share(c), True), True
         return smem(share(c), False), False
 
     def clusters(c):
         nbytes, resident = footprint(c)
-        return active(c, share(c), resident) if nbytes <= max_smem else 0
+        return active(c, share(c), resident) if nbytes <= max_smem and kv_fits else 0
 
     fits = [c for c in range(1, top + 1) if clusters(c) > 0]
     if not fits and kind == "bwd":
@@ -328,7 +344,7 @@ def _library(name: str):
         clusters.argtypes = [ctypes.c_int] * (6 if name == "xslot_fwd" else 4)
         clusters.restype = ctypes.c_int
         if name == "xslot_bwd":
-            lib.xslot_bwd_scratch_floats.argtypes = [ctypes.c_int] * 5
+            lib.xslot_bwd_scratch_floats.argtypes = [ctypes.c_int] * 6
             lib.xslot_bwd_scratch_floats.restype = ctypes.c_size_t
             lib.xslot_tiled_plan.argtypes = [ctypes.c_int] * 4 + [ctypes.POINTER(ctypes.c_int)]
             lib.xslot_tiled_plan.restype = ctypes.c_int
@@ -401,7 +417,7 @@ def launch_tiled_plan(b: int, n: int, s: int, d: int, device) -> TiledPlan:
     out = (ctypes.c_int * (3 * len(TILED_PRODUCTS)))()
     with torch.cuda.device(device):
         err = lib.xslot_tiled_plan(b, n, s, d, out)
-        scratch = lib.xslot_bwd_scratch_floats(b, n, s, d, 0)
+        scratch = lib.xslot_bwd_scratch_floats(b, n, s, d, 1, 0)
     _raise_on(lib, -err, "xslot tiled plan")
     products = {name: TiledProduct(*out[3 * i:3 * i + 3])
                 for i, name in enumerate(TILED_PRODUCTS)}
@@ -454,8 +470,8 @@ def _launch(k, v, initial_slots, w_ih, w_hh, b_ih, b_hh, iters, emit_hist):
 
 def _launch_bwd(k, v, w_ih, w_hh, b_ih, b_hh, hist, du, dattn):
     """Run ``csrc/xslot_bwd.cu`` on CUDA tensors: the gradient kernel, then
-    the fixed-order sum of its per-CTA partials over the batch. Returns what
-    ``xslot_bwd_ref`` returns."""
+    the fixed-order sum of its partials (one a CTA and GRU iteration) over the
+    batch, or the tiled route. Returns what ``xslot_bwd_ref`` returns."""
     b, n, d = k.shape
     iters, s = hist.shape[1], hist.shape[2]
     named = dict(k=k, v=v, w_ih=w_ih, w_hh=w_hh, b_ih=b_ih, b_hh=b_hh, hist=hist, du=du,
@@ -473,7 +489,7 @@ def _launch_bwd(k, v, w_ih, w_hh, b_ih, b_hh, hist, du, dattn):
         return tuple(g.zero_() for g in grads)
     lib = _library("xslot_bwd")
     with torch.cuda.device(k.device):
-        scratch = torch.empty(lib.xslot_bwd_scratch_floats(b, n, s, d, plan.cluster),
+        scratch = torch.empty(lib.xslot_bwd_scratch_floats(b, n, s, d, iters, plan.cluster),
                               dtype=torch.float32, device=k.device)
         stream = torch.cuda.current_stream(k.device).cuda_stream
         err = lib.xslot_bwd(*(t.data_ptr() for t in named.values()),
@@ -532,8 +548,11 @@ def xslot_iterations_fused(k, v, initial_slots, w_ih, w_hh, b_ih, b_hh, iters: i
     4 up to 1024; each CTA of a cluster of at most 8 holds all of k and v
     and its share of the slots in shared memory, so at d=64 the forward runs
     up to N=343 at S=30 and S=1024 at N=81 (S=416 at N=196). The backward
-    runs wherever the forward does: on a cluster where its share fits (at
-    d=64 up to N=166 at S=30 and S=125 at N=81), else on its tiled route.
+    runs wherever the forward does: on a cluster where its share fits beside
+    the whole of the GRU weights and each thread holds its part of dk and dv
+    (N/4 * d/4 <= 768, N rounded up): at d=64 up to N=192 at S=30 and
+    S=192 at N=81, and up to d=84 at N=49. Elsewhere it runs on its tiled
+    route.
     """
     args = (k, v, initial_slots, w_ih, w_hh, b_ih, b_hh)
     if torch.is_grad_enabled() and any(t.requires_grad for t in args):

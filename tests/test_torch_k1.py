@@ -21,7 +21,7 @@ TOL = dict(rtol=1e-4, atol=1e-5)  # tests/test_slot_pallas.py:30-31
 H100_SMEM, H100_SMS = 232448, 132  # opt-in shared memory per CTA, SMs
 # CTAs per SM that each kernel's __launch_bounds__ keeps registers for, by
 # (kind, resident), and the shared memory the card reserves per CTA (sm_90)
-REG_CTAS = {("fwd", True): 1, ("fwd", False): 2, ("bwd", False): 1}
+REG_CTAS = {("fwd", True): 1, ("fwd", False): 2, ("bwd", True): 1}
 SMEM_RESERVED = 1024
 
 
@@ -183,7 +183,7 @@ def test_plan_fits_every_chip_smoke_shape(kind, b, n, s):
     assert plan.slots_per_cta == -(-s // plan.cluster)
     assert plan.smem_bytes == _smem_bytes(kind, n, plan.slots_per_cta, 64,
                                           plan.resident) <= H100_SMEM
-    assert kind == "fwd" or not plan.resident  # the backward streams its GRU weights
+    assert kind == "fwd" or plan.resident  # the backward keeps its GRU weights resident
     assert plan.ctas_per_sm >= 1
     assert b <= plan.clusters  # one wave
     assert b * plan.cluster <= H100_SMS * plan.ctas_per_sm
@@ -201,6 +201,50 @@ def test_plan_of_the_flagship_is_one_wave_and_splits_small_batches():
     fwd = h100_plan(70, 49, 30, "fwd")
     assert 70 * fwd.cluster <= H100_SMS * fwd.ctas_per_sm and fwd.resident
     assert h100_plan(1, 49, 30, "fwd").cluster == 8
+
+
+@pytest.mark.parametrize("b", [1, 4, 16])
+def test_backward_plan_at_the_engines_buckets(b):
+    # N=49, S=30: 4 slots a CTA on a cluster of 8 (the card itself may hold
+    # fewer clusters of 8 at once than this model, which ignores how SMs
+    # group into GPCs, and then plans fewer CTAs), the GRU weights resident
+    # beside them, N padded to 52: 2 x 192 x 68 + 2 x 52 x 68 + 4 x 4 x 68 +
+    # 3 x 4 x 52 + 3 x 4 + 4 x 4 x 64 + 6 x 64 floats
+    plan = h100_plan(b, 49, 30, "bwd")
+    assert (plan.cluster, plan.slots_per_cta, plan.resident) == (8, 4, True)
+    assert plan.smem_bytes == 4 * (26112 + 7072 + 1088 + 624 + 12 + 1024 + 384) == 145264
+
+
+def test_backward_plan_of_the_flagship_batch():
+    # B=70 stays one wave: one CTA an element holds all 30 slots beside the
+    # resident weights, within one SM's shared memory
+    plan = h100_plan(70, 49, 30, "bwd")
+    assert (plan.cluster, plan.slots_per_cta, plan.resident) == (1, 30, True)
+    assert plan.smem_bytes == 222208 <= H100_SMEM
+    assert 70 <= plan.clusters
+
+
+@pytest.mark.parametrize("b,n,s,d,cluster", [(16, 49, 30, 64, True), (16, 128, 30, 64, True),
+                                             (16, 144, 30, 64, True), (16, 192, 30, 64, True),
+                                             (16, 196, 30, 64, False), (16, 81, 192, 64, True),
+                                             (16, 81, 200, 64, False), (1, 49, 8, 84, True),
+                                             (1, 49, 8, 88, False)])
+def test_backward_cluster_reach(b, n, s, d, cluster):
+    # the reach in xslot_iterations_fused's docstring: dk and dv held in
+    # registers (N/4 * d/4 <= 768 tiles) bound N at S=30 (448 px's N=196
+    # takes the tiled route), shared memory bounds S at N=81 and the
+    # resident weights bound d; past it the tiled route
+    assert h100_plan(b, n, s, "fwd", d).cluster >= 1
+    assert h100_plan(b, n, s, "bwd", d).tiled != cluster
+
+
+@pytest.mark.parametrize("kind,launches", [("fwd", 1), ("bwd", 2)])
+def test_cluster_plan_counts_its_launches(kind, launches):
+    # chip_smoke.py holds the launches torch.profiler counts in one call to
+    # this: the forward's kernel; the backward's gradient kernel and its sum
+    assert h100_plan(16, 49, 30, kind).launches(kind) == launches
+    with pytest.raises(ValueError, match="TiledPlan"):
+        h100_plan(16, 81, 1000, "bwd").launches("bwd")
 
 
 @pytest.mark.parametrize("kind,s", [("fwd", 2000), ("bwd", 2000)])
@@ -312,7 +356,7 @@ def test_plan_takes_the_cards_footprint_and_occupancy():
 
     plan = _plan(4, 49, 30, 64, "bwd", 1000, 132, lambda s_cta, resident: 10 * s_cta, active)
     assert (plan.cluster, plan.slots_per_cta, plan.smem_bytes, plan.clusters) == (4, 8, 80, 6)
-    assert plan.ctas_per_sm == 1 and not plan.resident
-    assert all(not r for _, _, r in seen)
+    assert plan.ctas_per_sm == 1 and plan.resident
+    assert all(r for _, _, r in seen)  # the backward asks only for resident weights
     with pytest.raises(ValueError, match="cluster of 8"):
         _plan(4, 49, 30, 64, "fwd", 1000, 132, lambda s_cta, resident: 1001, active)
