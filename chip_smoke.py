@@ -27,7 +27,15 @@ Phases (any failure exits non-zero; nothing is caught and passed over):
    two calls, with plans, times and bounds, the tiled route's launches a
    call as torch.profiler counts them (at most 50, and as many as
    ``TiledPlan.launches`` says), and its plan (tile widths, pieces,
-   scratch) from the C library held to its Python copy;
+   scratch) from the C library held to its Python copy; then the backward
+   with bf16 residuals (a bf16 slot head) on a cluster at (70, 49, 30),
+   (16, 49, 30) and (16, 81, 125) and on its tiled route at (16, 81, 1000)
+   and (70, 196, 30): bf16 gradients equal bit for bit to the f32
+   instance's on the same values rounded once, within one bf16 ulp of the
+   plain version at max(1, max|ref|) (where missed, by no more than the f32
+   instance misses its plain version on the same values), the same bits
+   from run to run, its launches a call under torch.profiler held to its
+   plan's, and its time in a CUDA graph beside the f32 instance's;
 4. serve flagship resnest26d + xSlot (f32, seeded random weights) through
    ``InferenceEngine`` (requests from several threads) and the HTTP server
    (``.npy`` bodies, one with ``?maps=1``, and ``/healthz``), counting the
@@ -83,7 +91,25 @@ Phases (any failure exits non-zero; nothing is caught and passed over):
    the explain CLI on the tree's checkpoint and a val JPEG (K1 once,
    hist-free; 401 PNGs read back); the HTTP server answering a JPEG body
    and a PNG body, whose logits equal a ``.npy`` body's of the same staged
-   pixels; Pillow never imported.
+   pixels; Pillow never imported (phases 12-14 run before phase 11);
+12. a bf16 slot head (``--compute_dtype bfloat16 --slot_head_dtype
+   compute``) through the train CLI: the flagship for 3 epochs at batch 70
+   (K1's backward on a cluster with bf16 residuals once a train step, 9,
+   as the f32 head has in phase 7) and the CUB recipe for one epoch at
+   batch 16 (its tiled route, 16), K1's counts zeroed just before and read
+   just after; checkpoints f32; each checkpoint's val loss with the bf16
+   head within 0.08 x max(1, |f32-head loss|);
+13. ``python -m scouter_tpu_torch.serve.cli`` in two subprocesses on the
+   flagship's bf16-head checkpoint: a dynamic-batch artifact in f32 and one
+   in bf16, each verified by the CLI itself; loaded here and run at batches
+   1, 4 and 70 against the live ``make_serving_fn``: logits within the
+   CLI's tolerances, maps within 1 level, K1 launched once a call through
+   the artifact; int8 serving at batch 70 within 0.05 of f32's logit scale
+   with the decisive top-1 equal (tests/test_serve.py:394-418);
+14. img/s at batch 70 of the live function in f32, bf16 and int8 (f32 and
+   bf16 compute) and of both artifacts, and the train img/s of the bf16 and
+   the f32 slot head over a bf16 backbone, flagship and CUB, on one
+   repeated batch whose loss must fall, the state f32 after the steps.
 
 The line before the last is the kernels' JSON; the last line is
 ``{"ok": true, "device": {...}}``. Without a CUDA device, or without the
@@ -167,16 +193,18 @@ def xslot_bound(b, n, s, d, hist_iters=0, iters=3):
     return max(t_ops, t_bytes) * 1e3, ("operations" if t_ops >= t_bytes else "bytes")
 
 
-def xslot_bwd_bound(b, n, s, d, iters=3):
+def xslot_bwd_bound(b, n, s, d, iters=3, elem=4):
     """(bound ms, what bounds it) for one backward call: per element
     ``iters`` attention recomputes (two (S,N,d) products) and backwards
     (four), ``iters`` - 1 GRU recomputes (two (S,d)x(d,3d) products) and
-    backwards (four: dx, dh, dW_ih, dW_hh), 12.2 MFLOP at the flagship,
-    against HBM over k, v, the GRU weights, hist, du and dattn read once and
-    dk, dv and the seven parameter gradients written once."""
+    backwards (four: dx, dh, dW_ih, dW_hh), 12.2 MFLOP at the flagship, all
+    in f32, against HBM over k, v, the GRU weights (``elem`` bytes each: 2
+    for bf16 residuals), hist, du and dattn (f32) read once and dk, dv and
+    the seven parameter gradients (``elem`` bytes each) written once."""
     flops = b * (iters * 6 * (2 * s * n * d) + (iters - 1) * 6 * (2 * s * d * 3 * d))
-    nbytes = 4 * (2 * b * n * d + 2 * (3 * d * d + 3 * d) + b * iters * s * d + b * s * d
-                  + b * s * n + 2 * b * n * d + 2 * (3 * d * d + 3 * d) + s * d)
+    nbytes = (elem * (2 * b * n * d + 2 * (3 * d * d + 3 * d) + 2 * b * n * d
+                      + 2 * (3 * d * d + 3 * d) + s * d)
+              + 4 * (b * iters * s * d + b * s * d + b * s * n))
     t_ops, t_bytes = flops / F32_PEAK_FLOPS, nbytes / HBM_BYTES_PER_S
     return max(t_ops, t_bytes) * 1e3, ("operations" if t_ops >= t_bytes else "bytes")
 
@@ -656,6 +684,145 @@ def phase_kernel_grad_tiled(entry):
             "launches_per_call": cub["launches_per_call"], "by_shape": times}
 
 
+BF16_ULP = 2.0 ** -7  # one bf16 ulp at 1.0 (8 bits of significand)
+# K1's backward with bf16 residuals: the cluster route's shapes (the
+# flagship's train batch, a batch of 16 and (16, 81, 125)) and the tiled
+# route's (the CUB recipe's and 448 px's)
+BF16_BWD_SHAPES = ((70, 49, 30), (16, 49, 30), (16, 81, 125), (16, 81, 1000), (70, 196, 30))
+
+
+def bf16_ulp(x: float) -> float:
+    """One bf16 ulp at |x| (a power of two times BF16_ULP)."""
+    import math
+
+    return BF16_ULP * 2.0 ** math.floor(math.log2(abs(x)))
+
+
+def phase_kernel_grad_bf16():
+    """K1's backward with bf16 residuals (a bf16 slot head in training), on
+    both routes, against ``xslot_bwd_ref`` on the same bf16 inputs on the
+    card: each gradient in bf16, equal bit for bit to the f32 instance's on
+    the same values rounded once to bf16 (the conversion is exact and the
+    arithmetic after it the f32 instance's), and within one bf16 ulp of the
+    plain version's at max(1, max|ref|). Where that ulp is missed, the f32
+    instance on the same values misses the plain version by as much: the
+    renorm has no epsilon, and a row sum near zero amplifies f32 rounding
+    (Queue C of ROADMAP.md); the figures are printed, f32's beside them.
+    Also: two calls equal bit for bit; its launches a call under
+    torch.profiler held to its plan's (2 on a cluster, ``TiledPlan.launches``
+    on the tiled route, one more than f32 for the pass that converts the
+    residuals); its time in a CUDA graph beside the f32 instance's at the
+    same shape in this run, the plain version's and the bound. Returns the
+    kernels-line entries of the cluster and the tiled instances."""
+    import torch
+
+    from scouter_tpu_torch.ops import slot_kernel
+
+    names = ("k", "v", "initial_slots", "w_ih", "w_hh", "b_ih", "b_hh")
+    d = 64
+    by_shape = {}
+    for b, n, s in BF16_BWD_SHAPES:
+        label = f"{b},{n},{s}"
+        args = [a.to(torch.bfloat16) for a in xslot_inputs(b, n, s, d, "cuda")]
+        plan = check_plan("bwd", b, n, s, d, args[0].device, bf16=True)
+        with torch.no_grad():
+            upd, attn, hist = slot_kernel._launch(*args, 3, emit_hist=True)
+        cot = (2 * upd, torch.ones_like(attn))
+        res = (args[0], args[1], args[3], args[4], args[5], args[6], hist)
+        res32 = tuple(t.float() for t in res)
+        with torch.no_grad():
+            got = slot_kernel._launch_bwd(*res, *cot)
+            again = slot_kernel._launch_bwd(*res, *cot)
+            got32 = slot_kernel._launch_bwd(*res32, *cot)
+            want = slot_kernel.xslot_bwd_ref(*res, *cot)
+            want32 = slot_kernel.xslot_bwd_ref(*res32, *cot)
+            exact = slot_kernel.xslot_bwd_ref(*(t.double() for t in res + cot))
+        rounded = [n_ for n_, g, g32 in zip(names, got, got32)
+                   if not torch.equal(g, g32.to(torch.bfloat16))]
+        if rounded:
+            fail(f"xslot_bwd bf16 at {label}: {', '.join(rounded)} differ from the f32 "
+                 "instance's gradient on the same values rounded once to bf16")
+        figures, worst, missed = [], 0.0, []
+        for name, g, w, x, g32, w32 in zip(names, got, want, exact, got32, want32):
+            if g.dtype != torch.bfloat16 or w.dtype != torch.bfloat16:
+                fail(f"xslot_bwd bf16 at {label}: {name} in {g.dtype}, the plain version's "
+                     f"in {w.dtype}; both must be bfloat16")
+            diff = (g.float() - w.float()).abs()
+            err = diff.max().item()
+            bar = bf16_ulp(max(1.0, w.float().abs().max().item()))
+            e64 = (g.double() - x).abs().max().item()
+            p64 = (w.double() - x).abs().max().item()
+            r64 = (x.to(torch.bfloat16).double() - x).abs().max().item()
+            figures.append(f"{name} {err:.3e} (bar {bar:.3e}; from f64: kernel {e64:.3e}, "
+                           f"plain {p64:.3e}, f64 rounded to bf16 {r64:.3e})")
+            if not err <= bar:
+                at = int(diff.argmax())
+                e32 = (g32 - w32).abs().max().item()
+                print(f"xslot_bwd bf16 at {label}: {name} {err:.3e} from the plain version, "
+                      f"{int((diff > bar).sum())} elements past one bf16 ulp ({bar:.3e}); the "
+                      f"largest at flat index {at}: kernel {g.flatten()[at].item():.6e}, "
+                      f"plain {w.flatten()[at].item():.6e}, f64 {x.flatten()[at].item():.6e}. "
+                      f"The f32 instance on the same values: {e32:.3e} from the f32 plain "
+                      f"version, {(g32.double() - x).abs().max().item():.3e} from f64 (plain "
+                      f"{(w32.double() - x).abs().max().item():.3e})", flush=True)
+                if not e32 > err - bar:
+                    missed.append(name)
+            worst = max(worst, err)
+        route = "tiled route" if plan.tiled else f"cluster {plan.cluster}"
+        print(f"xslot_bwd bf16 B={b} N={n} S={s} ({route}), max|d| from xslot_bwd_ref on the "
+              f"same bf16 inputs: " + ", ".join(figures), flush=True)
+        if missed:
+            fail(f"xslot_bwd bf16 at {label}: {', '.join(missed)} more than one bf16 ulp "
+                 "from the plain version, and further than the f32 instance on the same "
+                 "values is from its plain version")
+        same = all(torch.equal(x, y) for x, y in zip(got, again))
+        if not same:
+            fail(f"xslot_bwd bf16 is not deterministic at {label}")
+        if plan.tiled:
+            tiled = slot_kernel.launch_tiled_plan(b, n, s, d, args[0].device, bf16=True)
+            sms = torch.cuda.get_device_properties(0).multi_processor_count
+            if tiled != slot_kernel.tiled_plan(b, n, s, d, sms, bf16=True):
+                fail(f"the bf16 tiled plan at {label} is {tiled} in the C library and "
+                     f"{slot_kernel.tiled_plan(b, n, s, d, sms, bf16=True)} in Python")
+            want_count = tiled.launches(3)
+        else:
+            want_count = plan.launches("bwd")
+        with torch.no_grad():
+            count = profiled_launches(lambda: slot_kernel._launch_bwd(*res, *cot))
+        if count != want_count:
+            fail(f"xslot_bwd bf16 made {count} launches in one call at {label}; its plan "
+                 f"says {want_count}")
+        reps, iters = (10, 10) if plan.tiled else (50, 20)
+        with torch.no_grad():
+            ms = graph_ms(lambda: slot_kernel._launch_bwd(*res, *cot), reps=reps, iters=iters)
+            ms32 = graph_ms(lambda: slot_kernel._launch_bwd(*res32, *cot), reps=reps,
+                            iters=iters)
+            plain_ms = cuda_ms(lambda: slot_kernel.xslot_bwd_ref(*res, *cot), 10)
+        bound_ms, bound_by = xslot_bwd_bound(b, n, s, d, elem=2)
+        print(f"xslot_bwd bf16 B={b} N={n} S={s} ({route}): two calls equal bit for bit; "
+              f"{count} launches a call (plan: {want_count}); {ms:.5f} ms in a CUDA graph, "
+              f"the f32 instance {ms32:.5f} ms, xslot_bwd_ref {plain_ms:.4f} ms, bound "
+              f"{bound_ms:.6f} ms ({bound_by})", flush=True)
+        by_shape[label] = dict(route=route, ms=ms, f32_ms=ms32, plain_ms=plain_ms,
+                               bound_ms=bound_ms, bound_by=bound_by, launches_per_call=count,
+                               max_abs_err=worst)
+    entries = []
+    for name, main, shapes in (("xslot_bwd_bf16", "70,49,30", ("70,49,30", "16,49,30",
+                                                                "16,81,125")),
+                               ("xslot_bwd_tiled_bf16", "16,81,1000", ("16,81,1000",
+                                                                       "70,196,30"))):
+        top = by_shape[main]
+        entries.append({"name": name, "route": "cuda",
+                        "source": "scouter_tpu_torch/csrc/xslot_bwd.cu",
+                        "replaces": "scouter_tpu/ops/slot_pallas.py:168",
+                        "max_abs_err": max(by_shape[k]["max_abs_err"] for k in shapes),
+                        "ms": top["ms"], "f32_ms": top["f32_ms"], "plain_ms": top["plain_ms"],
+                        "bound_ms": top["bound_ms"], "bound_by": top["bound_by"],
+                        "library_ms": None, "launches_per_call": top["launches_per_call"],
+                        "launches": 0, "by_shape": {k: by_shape[k] for k in shapes}})
+    return entries
+
+
 def post(url: str, body: bytes) -> dict:
     import urllib.request
 
@@ -1074,6 +1241,387 @@ def phase_cub_dtypes(cfg, state_dict, card: str):
               f"({dt * 1e3:.2f} ms/step) on {card}", flush=True)
         del trainer, state
     return val, rates
+
+
+# K1's counters (slot_kernel.xslot_iterations_fused's attributes)
+K1_COUNTERS = ("launches", "hist_launches", "bwd_launches", "bwd_tiled_launches",
+               "bwd_bf16_launches", "bwd_tiled_bf16_launches")
+BF16_HEAD = ["--compute_dtype", "bfloat16", "--slot_head_dtype", "compute"]
+
+
+def k1_counts(reset: bool = False):
+    """K1's launch counters, zeroed first with ``reset``."""
+    from scouter_tpu_torch.ops import slot_kernel
+
+    fused = slot_kernel.xslot_iterations_fused
+    if reset:
+        for name in K1_COUNTERS:
+            setattr(fused, name, 0)
+    return {name: getattr(fused, name) for name in K1_COUNTERS}
+
+
+def train_bf16_head(what: str, flags, epochs: int, train_steps: int, val_batches: int,
+                    tiled: bool):
+    """One bf16-head training run through the train CLI on the card, K1's
+    counts zeroed just before and read just after: the metrics finite, K1
+    with hist once a train step, hist-free once a val batch, the backward
+    once a train step on its route (``tiled`` or a cluster), every backward
+    call on bf16 residuals; the checkpoint f32. Returns the counts and the
+    checkpoint's state dict."""
+    import math
+    import os
+
+    import torch
+
+    from scouter_tpu_torch.train import cli
+
+    k1_counts(reset=True)
+    t0 = time.monotonic()
+    _, lines = run_cli(cli.main, flags)
+    torch.cuda.synchronize()
+    seconds = time.monotonic() - t0
+    counts = k1_counts()
+    metrics = logged_metrics(lines)
+    values = [v for vs in metrics.values() for v in vs]
+    steps = epochs * train_steps
+    print(f"{what} bf16-head train: {epochs} epochs, {steps} train steps and "
+          f"{epochs * val_batches} val batches in {seconds:.2f} s with data, eval and "
+          f"checkpoints; K1 counts {json.dumps(counts)}", flush=True)
+    if len(metrics["train loss:"]) != epochs or not all(map(math.isfinite, values)):
+        fail(f"{what} bf16-head train: logged metrics {metrics}")
+    route, other = (("bwd_tiled_launches", "bwd_launches") if tiled
+                    else ("bwd_launches", "bwd_tiled_launches"))
+    bf16_route = route.replace("_launches", "_bf16_launches")
+    want = {"hist_launches": steps, "launches": steps + epochs * val_batches, route: steps,
+            bf16_route: steps, other: 0}
+    wrong = {k: (counts[k], v) for k, v in want.items() if counts[k] != v}
+    if wrong:
+        fail(f"{what} bf16-head train: K1 counts (got, expected) {wrong}")
+    name = [n for n in os.listdir(flags[flags.index("--output_dir") + 1])
+            if n.endswith("use_slot_checkpoint.pth")]
+    payload = torch.load(os.path.join(flags[flags.index("--output_dir") + 1], name[0]),
+                         map_location="cpu", weights_only=True)
+    tensors, moments = check_f32_state(f"{what} bf16-head checkpoint", payload["model"],
+                                       payload["optimizer"]["state"])
+    print(f"{what} bf16-head checkpoint {name[0]}: {tensors} model tensors and {moments} "
+          "AdamW moments, all float32", flush=True)
+    return counts, payload["model"]
+
+
+def head_val_losses(what: str, cfg, state_dict, datasets):
+    """The val loss of the same weights with the bf16 slot head and with the
+    f32 one (both over a bf16 backbone): within 0.08 x max(1, |f32-head
+    loss|) (tests/test_train.py:139-150). Returns both."""
+    from scouter_tpu_torch.train import Trainer
+
+    val = {}
+    for head in ("compute", "float32"):
+        trainer = Trainer(cfg.replace(compute_dtype="bfloat16", slot_head_dtype=head),
+                          datasets=datasets)
+        trainer.model.load_state_dict(state_dict)
+        val[head] = trainer.run_epoch(0, "val")["loss"]
+        del trainer
+    gap = abs(val["compute"] - val["float32"])
+    print(f"{what} val loss of the bf16-head checkpoint: bf16 head {val['compute']:.6f}, f32 "
+          f"head {val['float32']:.6f}, |d| {gap:.3e} (bar 0.08 x max(1, |f32 head|))",
+          flush=True)
+    if not gap <= 0.08 * max(1.0, abs(val["float32"])):
+        fail(f"{what}: the bf16-head val loss leaves the bar of the f32 head's")
+    return val
+
+
+def head_train_rates(what: str, cfg, datasets, card: str):
+    """Train img/s of the bf16 slot head and of the f32 one (both over a bf16
+    backbone) at cfg's batch on one repeated batch: 3 warm-up steps, 10
+    timed ones ending in a synchronize; the loss must fall and the state
+    stay f32. Returns {head: img/s}."""
+    import torch
+
+    from scouter_tpu_torch.data import preprocess_batch
+    from scouter_tpu_torch.train import Trainer
+
+    bs, ds = cfg.batch_size, datasets[0]
+    images = preprocess_batch(torch.from_numpy(ds.images[:bs]).cuda(), dataset=cfg.dataset,
+                              img_size=cfg.img_size).permute(0, 3, 1, 2).contiguous()
+    batch = {"image": images, "label": torch.from_numpy(ds.labels[:bs]).long().cuda()}
+    rates = {}
+    for head in ("compute", "float32"):
+        trainer = Trainer(cfg.replace(compute_dtype="bfloat16", slot_head_dtype=head),
+                          datasets=datasets)
+        state, step = trainer.state, trainer.train_step
+        losses = []
+        for _ in range(3):
+            state, m = step(state, batch)
+            losses.append(m["loss"])
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        for _ in range(10):
+            state, m = step(state, batch)
+            losses.append(m["loss"])
+        torch.cuda.synchronize()
+        dt = (time.perf_counter() - t0) / 10
+        losses = torch.stack(losses).tolist()
+        check_f32_state(f"{what} {head}-head train state", state.model.state_dict(),
+                        state.optimizer.state)
+        label = "bf16 head" if head == "compute" else "f32 head"
+        print(f"{what} bf16 {label} train loss on one repeated batch of {bs}, 13 steps: "
+              f"{', '.join(f'{v:.4f}' for v in losses)}", flush=True)
+        if not losses[-1] < losses[0]:
+            fail(f"{what} {label}: the loss did not fall on a repeated batch: {losses}")
+        rates[head] = bs / dt
+        print(f"{what} train throughput bf16 backbone, {label}, bs={bs}: {bs / dt:.1f} img/s "
+              f"({dt * 1e3:.2f} ms/step) on {card}", flush=True)
+        del trainer, state
+    return rates
+
+
+def phase_flagship_bf16_head(tmp: str):
+    """The flagship with a bf16 slot head through the train CLI on the card:
+    3 epochs of the synthetic stand-in (9 train steps, 6 val batches), K1's
+    backward on a cluster with bf16 residuals once a step, as the f32 head's
+    9 in phase 7; its checkpoint f32, and that checkpoint's val loss with
+    the bf16 head and with the f32 one. Returns (K1's counts, config, the
+    checkpoint's weights, the val losses)."""
+    import os
+
+    from scouter_tpu_torch.core import ScouterConfig
+    from scouter_tpu_torch.data import select_dataset
+
+    flags = flagship_flags(tmp) + BF16_HEAD + ["--epochs", "3", "--lr_drop", "1"]
+    counts, state_dict = train_bf16_head("flagship", flags, 3, 256 // 70, -(-128 // 70),
+                                         tiled=False)
+    cfg = ScouterConfig(**FLAGSHIP).replace(
+        device="cuda", output_dir=tmp, dataset_dir=os.path.join(tmp, "no_dataset"),
+        compute_dtype="bfloat16", slot_head_dtype="compute")
+    datasets = (select_dataset(cfg, train=True), select_dataset(cfg, train=False))
+    val = head_val_losses("flagship", cfg, state_dict, datasets)
+    return counts, cfg, state_dict, val, datasets
+
+
+def phase_cub_bf16_head(tmp: str):
+    """The CUB-200 recipe with a bf16 slot head through the train CLI on the
+    card for one epoch on the stand-in (16 train steps, 8 val batches): K1's
+    tiled backward on bf16 residuals once a step; its checkpoint f32 and that
+    checkpoint's val loss with the bf16 head and with the f32 one. Returns
+    (K1's counts, config, datasets, the val losses)."""
+    import os
+
+    from scouter_tpu_torch.core import ScouterConfig
+    from scouter_tpu_torch.data import select_dataset
+
+    counts, state_dict = train_bf16_head("CUB", cub_flags(tmp) + BF16_HEAD[2:], 1, 256 // 16,
+                                         128 // 16, tiled=True)
+    cfg = ScouterConfig(**CUB).replace(device="cuda", output_dir=tmp,
+                                       dataset_dir=os.path.join(tmp, "no_dataset"),
+                                       slot_head_dtype="compute")
+    datasets = (select_dataset(cfg, train=True), select_dataset(cfg, train=False))
+    val = head_val_losses("CUB", cfg, state_dict, datasets)
+    return counts, cfg, datasets, val
+
+
+def start_exports(tmp: str):
+    """``python -m scouter_tpu_torch.serve.cli`` in two subprocesses at once,
+    on the flagship's bf16-head checkpoint in ``tmp``: a dynamic-batch
+    artifact in f32 and one in bf16 (whose slot head is bf16, as trained).
+    Returns {dtype: (artifact path, process)}."""
+    import os
+
+    procs = {}
+    for name, extra in (("float32", []), ("bfloat16", ["--serve_dtype", "bfloat16"])):
+        path = os.path.join(tmp, f"flagship_{name}.pt2")
+        cmd = [sys.executable, "-m", "scouter_tpu_torch.serve.cli",
+               *flagship_flags(tmp), *BF16_HEAD, "--export_path", path,
+               "--serve_batch", "dynamic", *extra]
+        procs[name] = (path, subprocess.Popen(cmd, cwd=str(ROOT), stdout=subprocess.PIPE,
+                                              stderr=subprocess.STDOUT, text=True))
+    return procs
+
+
+def finish_exports(procs):
+    """Wait for the export CLIs: each exits 0 having written its artifact and
+    verified its round trip (its own check). Returns {dtype: path}."""
+    paths = {}
+    for name, (path, proc) in procs.items():
+        out, _ = proc.communicate(timeout=600)
+        lines = [line for line in out.splitlines() if line.strip()]
+        print(f"serve.cli ({name}, in a subprocess, exit {proc.returncode}):\n  "
+              + "\n  ".join(lines[-4:]), flush=True)
+        if proc.returncode != 0 or not any(line.startswith("round-trip verified")
+                                           for line in lines):
+            fail(f"serve.cli {name} failed:\n{out[-4000:]}")
+        paths[name] = path
+    return paths
+
+
+def serving_rate(fn, images, iters: int = 20) -> float:
+    """img/s of ``fn(images)``: 3 warm-up calls, then ``iters`` ending in a
+    synchronize; its logits must be finite."""
+    import torch
+
+    for _ in range(3):
+        fn(images)
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    for _ in range(iters):
+        out = fn(images)
+    torch.cuda.synchronize()
+    if not torch.isfinite(out["logits"]).all():
+        fail("non-finite logits in a serving throughput run")
+    return images.shape[0] * iters / (time.perf_counter() - t0)
+
+
+def phase_export_check(cfg, state_dict, paths):
+    """The artifacts the CLI wrote, loaded here, against the live serving
+    function on the same weights at batches 1, 4 and 70: logits within the
+    CLI's tolerances (rtol/atol 2e-5 in f32, 3e-2 in bf16,
+    scouter_tpu/serve/cli.py:80-82), uint8 maps within 1 level (in bf16
+    within max(1, the live bf16 maps' level difference from f32's on the
+    same images), the bar of tests/test_torch_models.py's bf16 maps: the
+    artifact runs batch 1 padded to 2, where cuDNN's bf16 kernels round
+    otherwise; against the live function on that padded batch, within 1
+    level), and K1's forward launched once a call through the artifact,
+    hist-free (its counts zeroed just before and read just after). Then int8
+    serving at batch 70 against the float path (tests/test_serve.py:394-418):
+    the top-1 equal wherever the float margin exceeds twice the int8 error,
+    and the logits' error as a share of the logit scale, held to 0.05 on the
+    flagship's backbone and classifier (use_slot false: the same resnest26d
+    and its 20 pointwise convs). With the slot head the share is printed,
+    not held: the renorm (no epsilon) amplifies the quantisation noise, and
+    the JAX package's own int8 serving misses 0.05 there too (0.0695 at 96
+    px on the CPU, PERF.md). Returns the loaded artifacts, the live
+    functions, the int8 figures and the artifact's K1 launches."""
+    import numpy as np
+    import torch
+
+    from scouter_tpu_torch.serve import load_artifact, make_serving_fn
+
+    def levels(a, b):
+        return int(np.abs(a["slot_maps"].cpu().numpy().astype(int)
+                          - b["slot_maps"].cpu().numpy().astype(int)).max())
+
+    calls, lives, launches = {}, {}, 0
+    for name, dtype, tol in (("float32", None, 2e-5), ("bfloat16", torch.bfloat16, 3e-2)):
+        call = load_artifact(paths[name], device="cuda")
+        live = make_serving_fn(cfg, state_dict, compute_dtype=dtype, device="cuda")
+        for b in (1, 4, 70):
+            images = torch.from_numpy(np.random.RandomState(10 + b).randint(
+                0, 256, (b, cfg.img_size, cfg.img_size, 3), np.uint8)).cuda()
+            k1_counts(reset=True)
+            got = call(images)
+            torch.cuda.synchronize()
+            counts = k1_counts()
+            want = live(images)
+            lg, lw = got["logits"].float().cpu().numpy(), want["logits"].float().cpu().numpy()
+            maps = levels(got, want)
+            bar = 1 if dtype is None else max(1, levels(want, lives["float32"](images)))
+            padded = ""
+            if b < 2:  # the artifact ran it padded to its least batch
+                pad = torch.cat([images, images.new_zeros((2 - b, *images.shape[1:]))])
+                same = {k: v[:b] for k, v in live(pad).items()}
+                err = (got["logits"] - same["logits"]).abs().max().item()
+                padded = (f"; against the live function on the padded batch: max|d logits| "
+                          f"{err:.3e}, max|d maps| {levels(got, same)} (bar 1)")
+                if not (err <= tol + tol * same["logits"].abs().max().item()
+                        and levels(got, same) <= 1):
+                    fail(f"artifact {name} at batch {b}: differs from the live function on "
+                         "the padded batch")
+            print(f"artifact {name} batch {b}: max|d logits| from the live function "
+                  f"{np.abs(lg - lw).max():.3e} (bar rtol/atol {tol:g}), max|d maps| {maps} "
+                  f"(bar {bar}){padded}; K1 launches through the artifact "
+                  f"{counts['launches']} (hist {counts['hist_launches']})", flush=True)
+            if lg.shape != (b, cfg.num_classes) or not np.allclose(lg, lw, rtol=tol, atol=tol):
+                fail(f"artifact {name} at batch {b}: logits differ from the live function's")
+            if maps > bar:
+                fail(f"artifact {name} at batch {b}: slot maps differ by {maps} levels")
+            if counts["launches"] != 1 or counts["hist_launches"]:
+                fail(f"artifact {name} at batch {b}: K1 counts {counts}, expected one "
+                     "hist-free launch")
+            launches += counts["launches"]
+        calls[name], lives[name] = call, live
+
+    images = torch.from_numpy(np.random.RandomState(9).randint(
+        0, 256, (cfg.batch_size, cfg.img_size, cfg.img_size, 3), np.uint8)).cuda()
+    # the backbone and classifier alone: the checkpoint's backbone, a seeded
+    # classifier
+    from scouter_tpu_torch.models import build_slot_model
+
+    plain_cfg = cfg.replace(use_slot=False)
+    plain_sd = build_slot_model(plain_cfg, device="cpu").state_dict()
+    plain_sd.update({k: v for k, v in state_dict.items() if k.startswith("backbone.")})
+    int8 = {}
+    for name, dtype, c, sd, held in (
+            ("float32", None, cfg, state_dict, False),
+            ("bfloat16", torch.bfloat16, cfg, state_dict, False),
+            ("float32_no_slot", None, plain_cfg, plain_sd, True)):
+        q = make_serving_fn(c, sd, compute_dtype=dtype, quant="int8", device="cuda")
+        convs = sum(m.substitute is not None for m in q.model.modules()
+                    if hasattr(m, "substitute"))
+        ref_fn = (lives[name] if name in lives
+                  else make_serving_fn(c, sd, compute_dtype=dtype, device="cuda"))
+        ref = ref_fn(images)["logits"].float().cpu().numpy()
+        got = q(images)["logits"].float().cpu().numpy()
+        err = np.abs(ref - got).max()
+        rel = err / max(np.abs(ref).max(), 1e-3)
+        srt = np.sort(ref, axis=1)
+        decisive = srt[:, -1] - srt[:, -2] > 2 * err
+        agree = bool(np.array_equal(ref[decisive].argmax(1), got[decisive].argmax(1)))
+        print(f"int8 serving ({name}, {convs} pointwise convs in int8) batch "
+              f"{cfg.batch_size}: max|d logits| from the float path {err:.3e}, {rel:.4f} of "
+              f"the logit scale ({'bar 0.05' if held else 'printed, not held'}); top-1 equal "
+              f"on the {int(decisive.sum())} decisive rows: {agree}", flush=True)
+        if convs != 20 or not agree or (held and not rel < 0.05):
+            fail(f"int8 serving ({name}) leaves tests/test_serve.py's bars")
+        int8[name] = dict(fn=q, convs=convs, rel_err=float(rel), decisive=int(decisive.sum()),
+                          top1_agree=agree)
+    return calls, lives, int8, images, launches
+
+
+def phase_serving_rates(calls, lives, int8, images, card: str):
+    """Serving img/s at batch 70 of the live function in f32, bf16 and int8
+    (f32 and bf16 compute), and of the loaded f32 and bf16 artifacts."""
+    rates = {}
+    for name in ("float32", "bfloat16"):
+        rates[f"live_{name}"] = serving_rate(lives[name], images)
+        rates[f"artifact_{name}"] = serving_rate(calls[name], images)
+        rates[f"int8_{name}"] = serving_rate(int8[name]["fn"], images)
+    for key, rate in rates.items():
+        print(f"serving throughput bs={images.shape[0]} {key}: {rate:.1f} img/s on {card}",
+              flush=True)
+    return rates
+
+
+def phase_bf16_head_and_export(tmp: str, card: str):
+    """Phases 12-14: bf16-head training of the flagship (then its export in
+    two subprocesses while the CUB recipe trains with a bf16 head), the
+    artifacts and int8 against the live serving function, and the img/s of
+    serving and of both heads' training. Returns the figures."""
+    import tempfile as _tempfile
+
+    from scouter_tpu_torch.serve.server import load_state_dict
+
+    flag_counts, cfg, _, flag_val, flag_datasets = phase_flagship_bf16_head(tmp)
+    state_dict, source = load_state_dict(cfg)
+    if source is None:
+        fail("the bf16-head flagship checkpoint was not found for export")
+    procs = start_exports(tmp)
+    try:
+        with _tempfile.TemporaryDirectory() as cub_tmp:
+            cub_counts, cub_cfg, cub_datasets, cub_val = phase_cub_bf16_head(cub_tmp)
+        paths = finish_exports(procs)
+    finally:
+        for _, proc in procs.values():
+            if proc.poll() is None:
+                proc.kill()
+                proc.wait()
+    calls, lives, int8, images, artifact_launches = phase_export_check(cfg, state_dict, paths)
+    rates = phase_serving_rates(calls, lives, int8, images, card)
+    return {"flagship_k1_counts": flag_counts, "cub_k1_counts": cub_counts,
+            "flagship_val_loss": flag_val, "cub_val_loss": cub_val,
+            "flagship_train_img_per_s": head_train_rates("flagship", cfg, flag_datasets, card),
+            "cub_train_img_per_s": head_train_rates("CUB", cub_cfg, cub_datasets, card),
+            "serving_img_per_s": rates, "artifact_launches": artifact_launches,
+            "int8": {k: {f: v[f] for f in ("convs", "rel_err", "decisive", "top1_agree")}
+                     for k, v in int8.items()}}
 
 
 # the committed image fixtures (tests/torch_fixtures/make_fixtures.py)
@@ -1808,6 +2356,7 @@ def main() -> int:
     entry = phase_kernels()
     bwd_entry = phase_kernel_grad(entry)
     tiled_entry = phase_kernel_grad_tiled(entry)
+    bf16_entry, tiled_bf16_entry = phase_kernel_grad_bf16()
 
     cfg = ScouterConfig(**FLAGSHIP)
     state_dict = build_slot_model(cfg, device="cpu").state_dict()
@@ -1827,6 +2376,12 @@ def main() -> int:
         entry["cub_launches"], tiled_entry["launches"], cub_cfg, cub_sd = phase_cub_train(tmp)
         tiled_entry["cub_val_loss"], tiled_entry["cub_train_img_per_s"] = phase_cub_dtypes(
             cub_cfg, cub_sd, card)
+    with tempfile.TemporaryDirectory() as tmp:
+        summary = phase_bf16_head_and_export(tmp, card)
+    entry["artifact_launches"] = summary.pop("artifact_launches")
+    bf16_entry["launches"] = summary["flagship_k1_counts"]["bwd_bf16_launches"]
+    tiled_bf16_entry["launches"] = summary["cub_k1_counts"]["bwd_tiled_bf16_launches"]
+    print(json.dumps({"bf16_head_and_export": summary}), flush=True)
     phase_folder_decode(card)
     with tempfile.TemporaryDirectory() as tmp:
         tree, out, entry["tree_launches"], tiled_entry["tree_launches"] = phase_folder_train(
@@ -1839,7 +2394,8 @@ def main() -> int:
     print(f"chip_smoke finished in {time.monotonic() - t0:.1f} s after the build started",
           flush=True)
 
-    print(json.dumps({"kernels": [entry, bwd_entry, tiled_entry, render_entry]}), flush=True)
+    print(json.dumps({"kernels": [entry, bwd_entry, tiled_entry, bf16_entry, tiled_bf16_entry,
+                                  render_entry]}), flush=True)
     print(json.dumps({"ok": True, "device": {"platform": "gpu",
                                              "kind": torch.cuda.get_device_name(0),
                                              "count": torch.cuda.device_count()}}), flush=True)

@@ -204,8 +204,8 @@ def stamped_backward(slot_kernel):
     lib.xslot_bwd.argtypes = slot_kernel._BWD_SIGNATURE
     lib.xslot_bwd_smem_bytes.argtypes = [ctypes.c_int] * 3
     lib.xslot_bwd_smem_bytes.restype = ctypes.c_size_t
-    lib.xslot_bwd_max_clusters.argtypes = [ctypes.c_int] * 4
-    lib.xslot_bwd_scratch_floats.argtypes = [ctypes.c_int] * 6
+    lib.xslot_bwd_max_clusters.argtypes = [ctypes.c_int] * 5
+    lib.xslot_bwd_scratch_floats.argtypes = [ctypes.c_int] * 7
     lib.xslot_bwd_scratch_floats.restype = ctypes.c_size_t
     lib.xslot_bwd_sum_only.argtypes = [ctypes.c_void_p] + [ctypes.c_int] * 5 + [ctypes.c_void_p] * 6
     per_cta, iters = 32, 3
@@ -220,17 +220,17 @@ def stamped_backward(slot_kernel):
         plan = slot_kernel._plan(
             b, n, s, d, "bwd", lib.xslot_max_smem(dev), sms,
             lambda s_cta, resident: lib.xslot_bwd_smem_bytes(n, s_cta, d),
-            lambda c, s_cta, resident: lib.xslot_bwd_max_clusters(n, s_cta, d, c))
+            lambda c, s_cta, resident: lib.xslot_bwd_max_clusters(n, s_cta, d, 0, c))
         grads = [torch.empty_like(t) for t in (res[0], res[1])] + [
             torch.empty((s, d), device="cuda")] + [torch.empty_like(t) for t in res[2:6]]
-        scratch = torch.empty(lib.xslot_bwd_scratch_floats(b, n, s, d, iters, plan.cluster),
+        scratch = torch.empty(lib.xslot_bwd_scratch_floats(b, n, s, d, iters, plan.cluster, 0),
                               device="cuda")
 
         def call():
             stream = torch.cuda.current_stream().cuda_stream
             err = lib.xslot_bwd(*(t.data_ptr() for t in res + cot),
                                 *(g.data_ptr() for g in grads), scratch.data_ptr(), b, n, s, d,
-                                iters, float(d) ** -0.5, plan.cluster, stream)
+                                iters, float(d) ** -0.5, 0, plan.cluster, stream)
             if err:
                 raise RuntimeError(f"stamped xslot_bwd failed: error {err}")
 

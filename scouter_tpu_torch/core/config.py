@@ -6,8 +6,7 @@ default, including the reference's string-typed sweepable flags
 (``num_classes``, ``lambda_value``, ``power``, ``slots_per_class``), which
 :func:`config_from_args` coerces to scalars. ``device`` is ``cuda`` (the
 default) or ``cpu``. Flags of features the port does not have yet (the device
-mesh, ZeRO-1, per-replica BN, preemption, async checkpoints, a bf16 slot head
-in training) parse, and :func:`check_serving_supported` and
+mesh, ZeRO-1, per-replica BN) parse, and :func:`check_serving_supported` and
 :func:`check_training_supported` refuse them.
 :func:`expand_sweep` is the reference's sweep over comma lists
 (``train.py:207-230``).
@@ -220,15 +219,11 @@ def check_serving_supported(cfg: ScouterConfig) -> None:
 
 def check_training_supported(cfg: ScouterConfig) -> None:
     """Raise for a device the port does not know and for flags of training
-    features it has not ported yet: the device mesh, per-replica BN, ZeRO-1,
-    and a slot head that follows a bf16 compute dtype (K1's gradient is f32
-    only)."""
+    features it has not ported yet: the device mesh, per-replica BN and
+    ZeRO-1. A bf16 slot head (``--slot_head_dtype compute`` under
+    ``--compute_dtype bfloat16``) trains; ``float32`` stays the default, for
+    the JAX package's reason (``scouter_tpu/core/config.py:92-97``)."""
     check_serving_supported(cfg)
-    if cfg.compute_dtype != "float32" and cfg.slot_head_dtype == "compute":
-        raise NotImplementedError(
-            f"--compute_dtype={cfg.compute_dtype!r} with --slot_head_dtype='compute' (a "
-            "bf16 slot head and K1 gradient) is not ported to the PyTorch package's "
-            "training yet (see ROADMAP.md)")
 
 
 def compute_dtype(cfg: ScouterConfig):

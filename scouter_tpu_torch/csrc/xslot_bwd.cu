@@ -1,4 +1,5 @@
-// Checkpointed backward of the fused xSlot loop for Hopper (sm_90a), f32.
+// Checkpointed backward of the fused xSlot loop for Hopper (sm_90a): f32
+// arithmetic, residuals in f32 or bf16, gradients in the residuals' dtype.
 //
 // Replaces the backward of the Pallas op scouter_tpu/ops/slot_pallas.py::
 // xslot_iterations_fused, its custom_vjp _bwd (:168-208), which the JAX
@@ -20,6 +21,15 @@
 //     dD = (T G / rs - T rg / rs^2 + sum_i rg_i / rs_i) * scale;
 //     dh += dD k; dk += dD^T h
 // The last iteration's GRU has a zero cotangent and is skipped.
+//
+// bf16 residuals (a bf16 slot head in training): k, v, the GRU weights and
+// biases arrive in bf16, as xslot_fwd.cu takes them, and are converted to f32
+// exactly, on load into shared memory (the cluster route) or by one pass into
+// the scratch at the head of the tiled route; hist, du and dattn stay f32.
+// Everything after is the f32 instance's arithmetic in its order, and each
+// gradient is rounded once to bf16 where it is written last: dk and dv at the
+// cluster's closing sum (on the tiled route from f32 partials by the closing
+// sums), the weight, bias and initial-slot gradients by the closing sums.
 //
 // What bounds it: per element 3 attention recomputes and backwards and 2 GRU
 // recomputes and backwards, ~12.2 MFLOP at the flagship (S=30, N=49, d=64):
@@ -72,6 +82,7 @@
 // with ctypes (scouter_tpu_torch/ops/cuda_build.py).
 
 #include <algorithm>
+#include <type_traits>
 
 #include "xslot_common.cuh"
 
@@ -114,6 +125,10 @@ __host__ __device__ inline size_t bwd_smem_floats(int n, int s_cta, int d) {
   const size_t slp = round4(s_cta), ld = row_ld(d), np = round4(n);
   return tile_floats(d, true) + 2 * np * ld + 4 * slp * ld + 3 * slp * np + 3 * slp +
          4 * slp * d + 6 * d;
+}
+
+inline size_t bwd_smem_bytes(int n, int s_cta, int d) {
+  return bwd_smem_floats(n, s_cta, d) * sizeof(float);
 }
 
 // floats of one partial: dW_ih, dW_hh (3d, d), db_ih, db_hh (3d)
@@ -505,14 +520,15 @@ __device__ __forceinline__ float slot_sum_wait(cg::cluster_group& cluster, const
   return slot_values_sum(cluster, vals, s);
 }
 
-// K: dk's and dv's 4 x 4 tiles a thread holds (kv_tiles).
+// T: the residuals' and dk's and dv's type (f32 or bf16); K: dk's and dv's
+// 4 x 4 tiles a thread holds (kv_tiles).
 template <typename T, int K>
 __global__ void __launch_bounds__(kThreads, 1)
 xslot_bwd_kernel(const T* __restrict__ k, const T* __restrict__ v, const T* __restrict__ w_ih,
                  const T* __restrict__ w_hh, const T* __restrict__ b_ih,
                  const T* __restrict__ b_hh, const float* __restrict__ hist,
                  const float* __restrict__ du, const float* __restrict__ dattn,
-                 float* __restrict__ dk_out, float* __restrict__ dv_out,
+                 T* __restrict__ dk_out, T* __restrict__ dv_out,
                  float* __restrict__ partials, float* __restrict__ dslots0, int n, int s, int d,
                  int iters, float scale) {
   extern __shared__ __align__(16) float smem[];
@@ -690,28 +706,30 @@ xslot_bwd_kernel(const T* __restrict__ k, const T* __restrict__ v, const T* __re
         sv += pv[r];
       }
     }
-    dk_out[b * n * d + idx] = sk;
-    dv_out[b * n * d + idx] = sv;
+    dk_out[b * n * d + idx] = from_f32<T>(sk);
+    dv_out[b * n * d + idx] = from_f32<T>(sv);
   }
   XSLOT_STAMP(2 + kStampPhases * iters);
   if (c > 1) cluster.sync();
 }
 
-// The gradient kernel's f32 instance for dk and dv of N rows of d columns,
-// or nullptr where they do not fit a thread's registers. Each holds the
-// fewest tiles that cover them: unused tiles cost time (an instance of two
-// tiles ran the flagship's shapes 13-17% slower than one of one tile, one
-// of three 6-12% slower than two at N=81; NVIDIA H100 80GB HBM3, 700 W,
-// examples/torch_k1_bench.py --cluster).
-using BwdKernel = decltype(&xslot_bwd_kernel<float, 1>);
-inline BwdKernel bwd_kernel(int n, int d) {
+// The gradient kernel's instance for residuals of type T and dk and dv of N
+// rows of d columns, or nullptr where they do not fit a thread's registers.
+// Each holds the fewest tiles that cover them: unused tiles cost time (an
+// instance of two tiles ran the flagship's shapes 13-17% slower than one of
+// one tile, one of three 6-12% slower than two at N=81; NVIDIA H100 80GB
+// HBM3, 700 W, examples/torch_k1_bench.py --cluster).
+template <typename T>
+using BwdKernel = decltype(&xslot_bwd_kernel<T, 1>);
+template <typename T>
+inline BwdKernel<T> bwd_kernel(int n, int d) {
   switch (kv_tiles(n, d)) {
     case 1:
-      return &xslot_bwd_kernel<float, 1>;
+      return &xslot_bwd_kernel<T, 1>;
     case 2:
-      return &xslot_bwd_kernel<float, 2>;
+      return &xslot_bwd_kernel<T, 2>;
     case 3:
-      return &xslot_bwd_kernel<float, 3>;
+      return &xslot_bwd_kernel<T, 3>;
     default:
       return nullptr;
   }
@@ -723,34 +741,35 @@ inline size_t cluster_parts(int batch, int cluster, int iters) {
 }
 
 // Output e of the sums over the batch: dw_ih, dw_hh (3d x d), db_ih, db_hh
-// (3d), then d_init (S x d), in that order.
-__device__ __forceinline__ void store_sum(int e, float acc, int d, float* __restrict__ dw_ih,
-                                          float* __restrict__ dw_hh, float* __restrict__ db_ih,
-                                          float* __restrict__ db_hh, float* __restrict__ d_init) {
+// (3d), then d_init (S x d), in that order, in the outputs' type T.
+template <typename T>
+__device__ __forceinline__ void store_sum(int e, float acc, int d, T* __restrict__ dw_ih,
+                                          T* __restrict__ dw_hh, T* __restrict__ db_ih,
+                                          T* __restrict__ db_hh, T* __restrict__ d_init) {
   const int per_part = (int)partial_floats(d), dd = 3 * d * d;
+  const T v = from_f32<T>(acc);
   if (e < dd) {
-    dw_ih[e] = acc;
+    dw_ih[e] = v;
   } else if (e < 2 * dd) {
-    dw_hh[e - dd] = acc;
+    dw_hh[e - dd] = v;
   } else if (e < 2 * dd + 3 * d) {
-    db_ih[e - 2 * dd] = acc;
+    db_ih[e - 2 * dd] = v;
   } else if (e < per_part) {
-    db_hh[e - 2 * dd - 3 * d] = acc;
+    db_hh[e - 2 * dd - 3 * d] = v;
   } else {
-    d_init[e - per_part] = acc;
+    d_init[e - per_part] = v;
   }
 }
 
 // Output e of the sums over the batch (store_sum's order), each added in a
 // fixed order: the dW and db partials (partial p at partials + p * per_cta),
 // and the elements' rows of dslots0 (B, S*d) into d_init.
+template <typename T>
 __device__ __forceinline__ void sum_partials(int e, const float* __restrict__ partials,
                                              int nparts, const float* __restrict__ dslots0,
-                                             int batch, int sd, int d, float* __restrict__ dw_ih,
-                                             float* __restrict__ dw_hh,
-                                             float* __restrict__ db_ih,
-                                             float* __restrict__ db_hh,
-                                             float* __restrict__ d_init) {
+                                             int batch, int sd, int d, T* __restrict__ dw_ih,
+                                             T* __restrict__ dw_hh, T* __restrict__ db_ih,
+                                             T* __restrict__ db_hh, T* __restrict__ d_init) {
   const int per_cta = (int)partial_floats(d);
   if (e < per_cta) {
     float acc = 0.0f;
@@ -770,12 +789,12 @@ constexpr int kSumWarps = kThreads / 32;
 // lane l takes output 32 blockIdx.x + l, warp w adds its terms w, w + 8, ...
 // (the partials, one a CTA and GRU iteration, or the elements' d_slots0
 // rows) in order, and warp 0 adds the eight warps' sums in order.
+template <typename T>
 __global__ void __launch_bounds__(kThreads)
 cluster_sum_kernel(const float* __restrict__ partials, int nparts,
                    const float* __restrict__ dslots0, int batch, int sd, int d,
-                   float* __restrict__ dw_ih, float* __restrict__ dw_hh,
-                   float* __restrict__ db_ih, float* __restrict__ db_hh,
-                   float* __restrict__ d_init) {
+                   T* __restrict__ dw_ih, T* __restrict__ dw_hh, T* __restrict__ db_ih,
+                   T* __restrict__ db_hh, T* __restrict__ d_init) {
   __shared__ float sums[kSumWarps][32];
   const int lane = threadIdx.x & 31, warp = threadIdx.x >> 5;
   const int per_part = (int)partial_floats(d), e = blockIdx.x * 32 + lane;
@@ -1329,29 +1348,63 @@ __global__ void ddots_kernel(float* __restrict__ p, const float* __restrict__ rs
   }
 }
 
-// The sums that end the tiled route, each in a fixed order: the (piece,
-// element) partials of dW and db and the elements' rows of d_slots0 as
-// sum_partials adds them, then, where dv and dk were split, their
-// `pieces` pieces (dv's, then dk's, each (pieces, bnd) floats).
+// The sums that end the tiled route, each in a fixed order, written in the
+// outputs' type T: the (piece, element) partials of dW and db and the
+// elements' rows of d_slots0 as sum_partials adds them, then, where dv and
+// dk went to the scratch (split, or bf16 outputs), their `pieces` pieces
+// (dv's, then dk's, each (pieces, bnd) floats).
+template <typename T>
 __global__ void tiled_sum_kernel(const float* __restrict__ partials, int nparts,
                                  const float* __restrict__ dslots0, int batch, int sd, int d,
-                                 float* __restrict__ dw_ih, float* __restrict__ dw_hh,
-                                 float* __restrict__ db_ih, float* __restrict__ db_hh,
-                                 float* __restrict__ d_init, const float* __restrict__ kv,
-                                 int pieces, long long bnd, float* __restrict__ dv,
-                                 float* __restrict__ dk) {
+                                 T* __restrict__ dw_ih, T* __restrict__ dw_hh,
+                                 T* __restrict__ db_ih, T* __restrict__ db_hh,
+                                 T* __restrict__ d_init, const float* __restrict__ kv,
+                                 int pieces, long long bnd, T* __restrict__ dv,
+                                 T* __restrict__ dk) {
   const long long e = blockIdx.x * (long long)blockDim.x + threadIdx.x;
   const long long head = (long long)partial_floats(d) + sd;
   if (e < head) {
     sum_partials((int)e, partials, nparts, dslots0, batch, sd, d, dw_ih, dw_hh, db_ih, db_hh,
                  d_init);
   } else if (kv != nullptr && e < head + 2 * bnd) {
-    const long long f = e - head, grp = f / bnd, r = f - grp * bnd;
+    const long long f = e - head, grp = f >= bnd, r = f - grp * bnd;
     const float* src = kv + grp * pieces * bnd + r;
     float acc = 0.0f;
     for (int p = 0; p < pieces; ++p) acc += src[p * bnd];
-    (grp ? dk : dv)[r] = acc;
+    (grp ? dk : dv)[r] = from_f32<T>(acc);
   }
+}
+
+// bf16 residuals to f32 for the tiled route, one pass over all of them, four
+// elements a thread: k, v (bnd each), w_ih, w_hh (dd each) and b_ih, b_hh
+// (d3 each) into `out` (16-byte aligned), in that order (tiled_bwd's
+// layout). Every count is a multiple of 4, as d is.
+__global__ void residuals_to_f32_kernel(const __nv_bfloat16* __restrict__ k,
+                                        const __nv_bfloat16* __restrict__ v,
+                                        const __nv_bfloat16* __restrict__ w_ih,
+                                        const __nv_bfloat16* __restrict__ w_hh,
+                                        const __nv_bfloat16* __restrict__ b_ih,
+                                        const __nv_bfloat16* __restrict__ b_hh, long long bnd,
+                                        int dd, int d3, float* __restrict__ out) {
+  const long long e = 4 * (blockIdx.x * (long long)blockDim.x + threadIdx.x);
+  long long at = e;
+  const __nv_bfloat16* src;
+  if (at < bnd) {
+    src = k;
+  } else if ((at -= bnd) < bnd) {
+    src = v;
+  } else if ((at -= bnd) < dd) {
+    src = w_ih;
+  } else if ((at -= dd) < dd) {
+    src = w_hh;
+  } else if ((at -= dd) < d3) {
+    src = b_ih;
+  } else if ((at -= d3) < d3) {
+    src = b_hh;
+  } else {
+    return;
+  }
+  *reinterpret_cast<float4*>(out + e) = load4(src + at);
 }
 
 enum { kDots, kX, kGates, kDGates, kDW, kP, kDH, kDKV, kProducts };
@@ -1387,14 +1440,15 @@ inline ProductPlan plan_product(int rows, int cols, int inner, int batch, int gr
 
 // The tiled route's plan at (batch, N, S, d) on a card of `sms` SMs: its
 // products (in the order of the enum above), whether the row passes ride in
-// the products' epilogues and the scratch in floats.
+// the products' epilogues and the scratch in floats (with bf16 residuals
+// also their f32 copies and dv's and dk's f32 sums).
 struct TiledPlan {
   ProductPlan prod[kProducts];
   bool fused;
   size_t scratch;
 };
 
-inline TiledPlan tiled_plan(int batch, int n, int s, int d, int sms) {
+inline TiledPlan tiled_plan(int batch, int n, int s, int d, int sms, bool bf16) {
   TiledPlan t;
   const int bs = batch * s;
   t.prod[kDots] = plan_product(s, n, d, batch, 1, false, sms);
@@ -1408,10 +1462,13 @@ inline TiledPlan tiled_plan(int batch, int n, int s, int d, int sms) {
   t.fused = n <= t.prod[kDots].bn;
   const int kv = t.prod[kDKV].pieces;
   // the (piece, element) dW and db partials; g, dh, x, dx (B, S, d); gi, gh
-  // (B, S, 3d); dots, attn, P (B, S, N); rs, rg, q (B, S); dv's and dk's pieces
+  // (B, S, 3d); dots, attn, P (B, S, N); rs, rg, q (B, S); dv's and dk's
+  // pieces; with bf16 residuals their f32 copies (k, v, W_ih, W_hh, b_ih, b_hh)
+  // from the next multiple of 4 floats
+  const size_t bnd = (size_t)batch * n * d;
   t.scratch = (size_t)t.prod[kDW].pieces * batch * partial_floats(d) +
-              (size_t)bs * (10 * d + 3 * n + 3) +
-              (kv > 1 ? 2 * (size_t)kv * batch * n * d : 0);
+              (size_t)bs * (10 * d + 3 * n + 3) + (kv > 1 || bf16 ? 2 * (size_t)kv * bnd : 0) +
+              (bf16 ? 2 * bnd + 6 * (size_t)d * d + 6 * (size_t)d + 3 : 0);
   return t;
 }
 
@@ -1480,15 +1537,18 @@ int device_sms(int* sms) {
   return (int)cudaDeviceGetAttribute(sms, cudaDevAttrMultiProcessorCount, device);
 }
 
-// The tiled route: the same gradient as xslot_bwd_kernel + cluster_sum_kernel.
-int tiled_bwd(const float* k, const float* v, const float* w_ih, const float* w_hh,
-              const float* b_ih, const float* b_hh, const float* hist, const float* du,
-              const float* dattn, float* dk, float* dv, float* d_init, float* dw_ih,
-              float* dw_hh, float* db_ih, float* db_hh, float* scratch, int batch, int n,
-              int s, int d, int iters, float scale, cudaStream_t stream) {
+// The tiled route: the same gradient as xslot_bwd_kernel + cluster_sum_kernel,
+// for residuals and gradients of type T (f32 or bf16).
+template <typename T>
+int tiled_bwd(const T* k_in, const T* v_in, const T* w_ih_in, const T* w_hh_in,
+              const T* b_ih_in, const T* b_hh_in, const float* hist, const float* du,
+              const float* dattn, T* dk, T* dv, T* d_init, T* dw_ih, T* dw_hh, T* db_ih,
+              T* db_hh, float* scratch, int batch, int n, int s, int d, int iters, float scale,
+              cudaStream_t stream) {
+  constexpr bool bf16 = !std::is_same<T, float>::value;
   int sms = 0;
   XSLOT_TRY(device_sms(&sms));
-  const TiledPlan plan = tiled_plan(batch, n, s, d, sms);
+  const TiledPlan plan = tiled_plan(batch, n, s, d, sms, bf16);
   const long long sd = (long long)s * d, sn = (long long)s * n, s3 = 3 * sd;
   const long long nd = (long long)n * d, rows = (long long)batch * s, bnd = batch * nd;
   const size_t per_z = partial_floats(d);
@@ -1506,7 +1566,31 @@ int tiled_bwd(const float* k, const float* v, const float* w_ih, const float* w_
   float* rs = p + rows * n;
   float* rg = rs + rows;
   float* q = rg + rows;
-  float* kv = pkv > 1 ? q + rows : nullptr;
+  // dv's and dk's pieces, where they are split or rounded to bf16 at the end
+  float* kv = pkv > 1 || bf16 ? q + rows : nullptr;
+  const float *k, *v, *w_ih, *w_hh, *b_ih, *b_hh;
+  if constexpr (bf16) {
+    // the residuals' f32 copies, after dv's and dk's pieces, from a 16-byte
+    // boundary (the products' operands copy 16 bytes at a time where aligned)
+    const int dd = 3 * d * d;
+    const size_t at = (size_t)(kv + 2 * (long long)pkv * bnd - scratch);
+    float* f = scratch + ((at + 3) & ~(size_t)3);
+    k = f;
+    v = k + bnd;
+    w_ih = v + bnd;
+    w_hh = w_ih + dd;
+    b_ih = w_hh + dd;
+    b_hh = b_ih + 3 * d;
+    residuals_to_f32_kernel<<<blocks((2 * bnd + 2 * dd + 6 * d) / 4), kThreads, 0, stream>>>(
+        k_in, v_in, w_ih_in, w_hh_in, b_ih_in, b_hh_in, bnd, dd, 3 * d, f);
+  } else {
+    k = k_in;
+    v = v_in;
+    w_ih = w_ih_in;
+    w_hh = w_hh_in;
+    b_ih = b_ih_in;
+    b_hh = b_hh_in;
+  }
   if (iters == 1) {
     XSLOT_TRY((int)cudaMemsetAsync(partials, 0, (size_t)pw * batch * per_z * sizeof(float),
                                    stream));
@@ -1572,9 +1656,11 @@ int tiled_bwd(const float* k, const float* v, const float* w_ih, const float* w_
     Prod dh_att = prod(View{p, sn, n, 1}, View{k, nd, d, 1}, dh, sd, d);
     dh_att.accumulate = !last;
     XSLOT_TRY(gemm(plan.prod[kDH], dh_att, nullptr, d, n, s, batch, kStore, no_renorm, stream));
-    Prod dv_p = prod(View{attn, sn, 1, n}, View{dupd, sd, d, 1}, kv ? kv : dv, nd, d, 1.0f,
-                     (float)d);
-    Prod dk_p = prod(View{p, sn, 1, n}, hv, kv ? kv + pkv * bnd : dk, nd, d);
+    // (f32 outputs only where kv is null)
+    Prod dv_p = prod(View{attn, sn, 1, n}, View{dupd, sd, d, 1},
+                     kv ? kv : reinterpret_cast<float*>(dv), nd, d, 1.0f, (float)d);
+    Prod dk_p = prod(View{p, sn, 1, n}, hv, kv ? kv + pkv * bnd : reinterpret_cast<float*>(dk),
+                     nd, d);
     for (Prod* w : {&dv_p, &dk_p}) {
       w->pc = bnd;
       w->accumulate = !last;
@@ -1585,9 +1671,42 @@ int tiled_bwd(const float* k, const float* v, const float* w_ih, const float* w_
     dh = t;
   }
   const long long sums = (long long)per_z + sd + (kv ? 2 * bnd : 0);
-  tiled_sum_kernel<<<blocks(sums), kThreads, 0, stream>>>(
+  tiled_sum_kernel<T><<<blocks(sums), kThreads, 0, stream>>>(
       partials, pw * batch, g, batch, (int)sd, d, dw_ih, dw_hh, db_ih, db_hh, d_init, kv, pkv,
       bnd, dv, dk);
+  return (int)cudaGetLastError();
+}
+
+// The cluster route on `stream`: the gradient kernel (`cluster` CTAs per
+// batch element) for residuals and gradients of type T, then the
+// fixed-order sum.
+template <typename T>
+int cluster_bwd(const void* k, const void* v, const void* w_ih, const void* w_hh,
+                const void* b_ih, const void* b_hh, const void* hist, const void* du,
+                const void* dattn, void* dk, void* dv, void* d_init, void* dw_ih, void* dw_hh,
+                void* db_ih, void* db_hh, void* scratch, int batch, int n, int s, int d,
+                int iters, float scale, int cluster, void* stream) {
+  const auto fn = bwd_kernel<T>(n, d);
+  if (fn == nullptr) return (int)cudaErrorInvalidValue;  // the plan takes the tiled route
+  cudaLaunchAttribute attr[1];
+  const cudaLaunchConfig_t config = cluster_config(
+      attr, batch, cluster, bwd_smem_bytes(n, share_max(s, cluster), d), stream);
+  const int nparts = (int)cluster_parts(batch, cluster, iters);
+  float* partials = (float*)scratch;
+  float* dslots0 = partials + (size_t)nparts * partial_floats(d);
+  int err = ensure_smem((const void*)fn, config.dynamicSmemBytes);
+  if (err != 0) return err;
+  err = (int)cudaLaunchKernelEx(&config, fn, (const T*)k, (const T*)v, (const T*)w_ih,
+                                (const T*)w_hh, (const T*)b_ih, (const T*)b_hh,
+                                (const float*)hist, (const float*)du, (const float*)dattn,
+                                (T*)dk, (T*)dv, partials, dslots0, n, s, d, iters, scale);
+  if (err != 0) return err;
+  err = (int)cudaGetLastError();
+  if (err != 0) return err;
+  const int total = (int)partial_floats(d) + s * d;
+  cluster_sum_kernel<T><<<(total + 31) / 32, kThreads, 0, (cudaStream_t)stream>>>(
+      partials, nparts, dslots0, batch, s * d, d, (T*)dw_ih, (T*)dw_hh, (T*)db_ih, (T*)db_hh,
+      (T*)d_init);
   return (int)cudaGetLastError();
 }
 
@@ -1595,32 +1714,35 @@ int tiled_bwd(const float* k, const float* v, const float* w_ih, const float* w_
 
 extern "C" {
 
-// Dynamic shared memory of one CTA owning `s_cta` slots, in bytes.
+// Dynamic shared memory of one CTA owning `s_cta` slots, in bytes (the same
+// for f32 and bf16 residuals: both are staged in f32).
 size_t xslot_bwd_smem_bytes(int n, int s_cta, int d) {
-  return bwd_smem_floats(n, s_cta, d) * sizeof(float);
+  return bwd_smem_bytes(n, s_cta, d);
 }
 
 // How many clusters of `cluster` CTAs owning `s_cta` slots each the current
-// device holds at once (cudaOccupancyMaxActiveClusters), or a negative CUDA
-// error.
-int xslot_bwd_max_clusters(int n, int s_cta, int d, int cluster) {
-  const auto fn = bwd_kernel(n, d);
+// device holds at once (cudaOccupancyMaxActiveClusters) for the instance of
+// f32 (bf16 == 0) or bf16 residuals, or a negative CUDA error.
+int xslot_bwd_max_clusters(int n, int s_cta, int d, int bf16, int cluster) {
+  const void* fn = bf16 ? (const void*)bwd_kernel<__nv_bfloat16>(n, d)
+                        : (const void*)bwd_kernel<float>(n, d);
   if (fn == nullptr) return 0;
   cudaLaunchAttribute attr[1];
   const cudaLaunchConfig_t config =
-      cluster_config(attr, 1, cluster, xslot_bwd_smem_bytes(n, s_cta, d), nullptr);
-  return max_active_clusters((const void*)fn, &config);
+      cluster_config(attr, 1, cluster, bwd_smem_bytes(n, s_cta, d), nullptr);
+  return max_active_clusters(fn, &config);
 }
 
 // Floats of the scratch buffer xslot_bwd needs: for a cluster of `cluster`
 // CTAs per element the partials of each CTA and GRU iteration (iters - 1 of
 // them), then the elements' d_slots0 rows; for the tiled route (cluster ==
-// 0) its plan's on the current device (0 if the device cannot be read, where
-// the route itself fails).
-size_t xslot_bwd_scratch_floats(int batch, int n, int s, int d, int iters, int cluster) {
+// 0) its plan's on the current device, for f32 or bf16 residuals (0 if the
+// device cannot be read, where the route itself fails).
+size_t xslot_bwd_scratch_floats(int batch, int n, int s, int d, int iters, int cluster,
+                                int bf16) {
   if (cluster == 0) {
     int sms = 0;
-    return device_sms(&sms) == 0 ? tiled_plan(batch, n, s, d, sms).scratch : 0;
+    return device_sms(&sms) == 0 ? tiled_plan(batch, n, s, d, sms, bf16 != 0).scratch : 0;
   }
   return cluster_parts(batch, cluster, iters) * partial_floats(d) + (size_t)batch * s * d;
 }
@@ -1633,7 +1755,7 @@ int xslot_tiled_plan(int batch, int n, int s, int d, int* out) {
   int sms = 0;
   const int err = device_sms(&sms);
   if (err != 0) return -err;
-  const TiledPlan t = tiled_plan(batch, n, s, d, sms);
+  const TiledPlan t = tiled_plan(batch, n, s, d, sms, false);
   for (int i = 0; i < kProducts; ++i) {
     out[3 * i] = t.prod[i].rows;
     out[3 * i + 1] = t.prod[i].bn;
@@ -1644,15 +1766,24 @@ int xslot_tiled_plan(int batch, int n, int s, int d, int* out) {
 
 // Launches the gradient kernel (`cluster` CTAs per batch element) and the
 // fixed-order sum on `stream`, or with cluster == 0 the tiled route; returns
-// 0 or the error. Pointers are contiguous f32 device arrays: k, v (B,N,d);
-// w_ih, w_hh (3d,d); b_ih, b_hh (3d); hist (B,iters,S,d); du (B,S,d); dattn
-// (B,S,N); outputs dk, dv (B,N,d), d_init (S,d), dw_ih, dw_hh (3d,d), db_ih,
-// db_hh (3d); scratch of xslot_bwd_scratch_floats floats.
+// 0 or the error. Pointers are contiguous device arrays: k, v (B,N,d);
+// w_ih, w_hh (3d,d); b_ih, b_hh (3d), all f32 (bf16 == 0) or all bf16
+// (bf16 == 1); hist (B,iters,S,d), du (B,S,d) and dattn (B,S,N), f32;
+// outputs dk, dv (B,N,d), d_init (S,d), dw_ih, dw_hh (3d,d), db_ih, db_hh
+// (3d) in the residuals' type; scratch of xslot_bwd_scratch_floats floats.
 int xslot_bwd(const void* k, const void* v, const void* w_ih, const void* w_hh,
               const void* b_ih, const void* b_hh, const void* hist, const void* du,
               const void* dattn, void* dk, void* dv, void* d_init, void* dw_ih, void* dw_hh,
               void* db_ih, void* db_hh, void* scratch, int batch, int n, int s, int d, int iters,
-              float scale, int cluster, void* stream) {
+              float scale, int bf16, int cluster, void* stream) {
+  using bf = __nv_bfloat16;
+  if (cluster == 0 && bf16) {
+    return tiled_bwd((const bf*)k, (const bf*)v, (const bf*)w_ih, (const bf*)w_hh,
+                     (const bf*)b_ih, (const bf*)b_hh, (const float*)hist, (const float*)du,
+                     (const float*)dattn, (bf*)dk, (bf*)dv, (bf*)d_init, (bf*)dw_ih,
+                     (bf*)dw_hh, (bf*)db_ih, (bf*)db_hh, (float*)scratch, batch, n, s, d, iters,
+                     scale, (cudaStream_t)stream);
+  }
   if (cluster == 0) {
     return tiled_bwd((const float*)k, (const float*)v, (const float*)w_ih, (const float*)w_hh,
                      (const float*)b_ih, (const float*)b_hh, (const float*)hist,
@@ -1661,29 +1792,9 @@ int xslot_bwd(const void* k, const void* v, const void* w_ih, const void* w_hh,
                      (float*)db_hh, (float*)scratch, batch, n, s, d, iters, scale,
                      (cudaStream_t)stream);
   }
-  const auto fn = bwd_kernel(n, d);
-  if (fn == nullptr) return (int)cudaErrorInvalidValue;  // the plan takes the tiled route
-  cudaLaunchAttribute attr[1];
-  const cudaLaunchConfig_t config = cluster_config(
-      attr, batch, cluster, xslot_bwd_smem_bytes(n, share_max(s, cluster), d), stream);
-  const int nparts = (int)cluster_parts(batch, cluster, iters);
-  float* partials = (float*)scratch;
-  float* dslots0 = partials + (size_t)nparts * partial_floats(d);
-  int err = ensure_smem((const void*)fn, config.dynamicSmemBytes);
-  if (err != 0) return err;
-  err = (int)cudaLaunchKernelEx(&config, fn, (const float*)k, (const float*)v,
-                                (const float*)w_ih, (const float*)w_hh, (const float*)b_ih,
-                                (const float*)b_hh, (const float*)hist, (const float*)du,
-                                (const float*)dattn, (float*)dk, (float*)dv, partials, dslots0,
-                                n, s, d, iters, scale);
-  if (err != 0) return err;
-  err = (int)cudaGetLastError();
-  if (err != 0) return err;
-  const int total = (int)partial_floats(d) + s * d;
-  cluster_sum_kernel<<<(total + 31) / 32, kThreads, 0, (cudaStream_t)stream>>>(
-      partials, nparts, dslots0, batch, s * d, d, (float*)dw_ih, (float*)dw_hh, (float*)db_ih,
-      (float*)db_hh, (float*)d_init);
-  return (int)cudaGetLastError();
+  return (bf16 ? cluster_bwd<bf> : cluster_bwd<float>)(
+      k, v, w_ih, w_hh, b_ih, b_hh, hist, du, dattn, dk, dv, d_init, dw_ih, dw_hh, db_ih, db_hh,
+      scratch, batch, n, s, d, iters, scale, cluster, stream);
 }
 
 #ifdef XSLOT_STAMPS
@@ -1696,15 +1807,15 @@ int xslot_bwd_stamps(long long* out, int count) {
   return (int)cudaMemset(addr, 0, sizeof(g_stamps));
 }
 
-// The fixed-order sum of a cluster call's scratch alone (xslot_bwd's second
-// launch), on `stream`.
+// The fixed-order sum of an f32 cluster call's scratch alone (xslot_bwd's
+// second launch), on `stream`.
 int xslot_bwd_sum_only(const void* scratch, int batch, int s, int d, int iters, int cluster,
                        void* d_init, void* dw_ih, void* dw_hh, void* db_ih, void* db_hh,
                        void* stream) {
   const int nparts = (int)cluster_parts(batch, cluster, iters);
   const float* partials = (const float*)scratch;
   const int total = (int)partial_floats(d) + s * d;
-  cluster_sum_kernel<<<(total + 31) / 32, kThreads, 0, (cudaStream_t)stream>>>(
+  cluster_sum_kernel<float><<<(total + 31) / 32, kThreads, 0, (cudaStream_t)stream>>>(
       partials, nparts, partials + (size_t)nparts * partial_floats(d), batch, s * d, d,
       (float*)dw_ih, (float*)dw_hh, (float*)db_ih, (float*)db_hh, (float*)d_init);
   return (int)cudaGetLastError();

@@ -54,6 +54,15 @@ __host__ __device__ inline int share_max(int s, int c) { return (s + c - 1) / c;
 __device__ __forceinline__ float sigmoid_f32(float x) { return 1.0f / (1.0f + expf(-x)); }
 __device__ __forceinline__ float to_f32(float x) { return x; }
 __device__ __forceinline__ float to_f32(__nv_bfloat16 x) { return __bfloat162float(x); }
+// f32 to an output element: as it is, or rounded to the nearest bf16 (ties to even)
+template <typename T>
+__device__ __forceinline__ T from_f32(float x);
+template <>
+__device__ __forceinline__ float from_f32<float>(float x) { return x; }
+template <>
+__device__ __forceinline__ __nv_bfloat16 from_f32<__nv_bfloat16>(float x) {
+  return __float2bfloat16_rn(x);
+}
 
 __device__ __forceinline__ float comp(const float4& a, int u) {
   return u == 0 ? a.x : u == 1 ? a.y : u == 2 ? a.z : a.w;

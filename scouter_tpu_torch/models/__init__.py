@@ -92,10 +92,9 @@ def build_slot_model(cfg, fused_slot: bool = False, device="cuda",
       backbone's parameters and BatchNorm statistics f32 and runs its convs,
       BatchNorms and classifier in it, as the JAX package's
       ``build_slot_model(cfg, dtype=...)`` (flax's ``dtype`` over f32
-      ``param_dtype``); the slot head stays f32 unless
-      ``cfg.slot_head_dtype == 'compute'``, where it is cast to it (it has no
-      BatchNorm, so that computes what a cast at use would; training refuses
-      it in ``check_training_supported``)
+      ``param_dtype``); the slot head computes in f32 unless
+      ``cfg.slot_head_dtype == 'compute'``, where it computes in it too, its
+      parameters f32 and cast at use (so every state dict is f32)
     - ``fused_slot`` runs the xSlot loop through the CUDA kernel
       (``ops.slot_kernel``); ``generator`` seeds the init (default: cfg.seed)
     """
@@ -104,6 +103,8 @@ def build_slot_model(cfg, fused_slot: bool = False, device="cuda",
     backbone = create_model(cfg.model, num_classes=0 if cfg.use_slot else cfg.num_classes,
                             in_chans=1 if mnist else 3, mnist_stem=mnist,
                             compute_dtype=compute_dtype)
+    head_compute = (compute_dtype is not None and cfg.use_slot
+                    and cfg.slot_head_dtype == "compute")
     model = SlotModel(
         backbone=backbone,
         use_slot=cfg.use_slot,
@@ -115,9 +116,7 @@ def build_slot_model(cfg, fused_slot: bool = False, device="cuda",
         to_k_layer=cfg.to_k_layer,
         lambda_value=float(cfg.lambda_value),
         fused_slot=fused_slot,
+        head_dtype=compute_dtype if head_compute else None,
     )
     init_weights(model, generator or torch.Generator().manual_seed(cfg.seed))
-    if compute_dtype is not None and cfg.use_slot and cfg.slot_head_dtype == "compute":
-        model.conv1x1.to(compute_dtype)
-        model.slot.to(compute_dtype)
     return model.eval().to(dev)

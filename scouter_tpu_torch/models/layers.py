@@ -10,7 +10,16 @@ A ``compute_dtype`` (e.g. bf16) is flax's ``dtype`` with f32 ``param_dtype``:
 ``Conv2d`` and ``Linear`` cast their input and their f32 parameters to it at
 use, and ``BatchNorm2d`` takes its statistics in f32 from an input in it and
 returns it, with f32 scale, bias and running stats. ``None`` computes in the
-parameters' own dtype (serving's ``model.to(dtype)``).
+parameters' own dtype.
+
+The conv-substitution hook (the JAX package's ``_conv_policy``,
+``scouter_tpu/models/layers.py:20-30, 74-78``) lives on the built model:
+:func:`set_conv_policy` asks a policy, for each conv built by :func:`conv2d`
+(the convs JAX's ``conv2d`` builds), for a replacement by its kernel size and
+groups (``serve/quant.py``'s int8 pointwise convs). JAX installs its policy
+in a thread-local at trace time; eager PyTorch has no trace, so the model
+carries it, and whichever thread calls the model (the engine's dispatcher)
+runs the substituted convs.
 """
 
 from __future__ import annotations
@@ -30,6 +39,7 @@ __all__ = [
     "conv2d",
     "global_avg_pool",
     "max_pool_3x3_s2_p1",
+    "set_conv_policy",
     "torch_conv_padding",
 ]
 
@@ -42,14 +52,19 @@ def torch_conv_padding(kernel_size: int, stride: int, dilation: int = 1) -> int:
 class Conv2d(nn.Conv2d):
     """``nn.Conv2d`` computing in ``compute_dtype`` where one is given: the
     input, weight and bias are cast to it at use (the ``dtype`` of
-    ``scouter_tpu/models/layers.py:88``), the parameters keep their dtype."""
+    ``scouter_tpu/models/layers.py:88``), the parameters keep their dtype.
+    ``substitute`` (set by :func:`set_conv_policy`) replaces the conv: it
+    gets the input cast to the compute dtype."""
 
     def __init__(self, *args, compute_dtype=None, **kw):
         super().__init__(*args, **kw)
         self.compute_dtype = compute_dtype
+        self.substitute = None
 
     def forward(self, x: torch.Tensor) -> torch.Tensor:
         dt = self.compute_dtype
+        if self.substitute is not None:
+            return self.substitute(x if dt is None else x.to(dt))
         if dt is None:
             return super().forward(x)
         bias = None if self.bias is None else self.bias.to(dt)
@@ -81,6 +96,21 @@ def conv2d(in_channels: int, out_channels: int, kernel_size: int, *, stride: int
                   dilation=dilation, groups=groups, bias=bias, compute_dtype=compute_dtype)
     conv.fan_out_init = True
     return conv
+
+
+def set_conv_policy(model: nn.Module, policy) -> int:
+    """Install a conv-substitution ``policy`` on ``model``: for each conv built
+    by :func:`conv2d`, ``policy(kernel_size, groups)`` gives None (the conv
+    stays as it is) or a factory, and ``factory(conv)`` the callable that
+    replaces the conv's forward (it may prepare the conv's weights once).
+    ``policy=None`` puts every conv back. Returns the number substituted."""
+    count = 0
+    for m in model.modules():
+        if isinstance(m, Conv2d) and getattr(m, "fan_out_init", False):
+            make = policy(m.kernel_size[0], m.groups) if policy is not None else None
+            m.substitute = make(m) if make is not None else None
+            count += m.substitute is not None
+    return count
 
 
 class BatchNorm2d(nn.BatchNorm2d):

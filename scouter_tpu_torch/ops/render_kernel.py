@@ -15,8 +15,10 @@ kernel has no caller outside its test, and the port keeps it as the same
 public op.
 
 The wrapper casts to f32 and makes the input contiguous, as
-render_pallas.py:60 does. It takes the plain version only for tensors on
-the CPU; for CUDA tensors it launches the kernel or raises.
+render_pallas.py:60 does, and calls the ``torch.library`` custom op
+``scouter_tpu_torch::render_heatmaps``: its CUDA implementation launches the
+kernel (or raises), its CPU implementation is the plain version, and its fake
+implementation gives the output's shape for tracing.
 """
 
 from __future__ import annotations
@@ -58,6 +60,23 @@ def _library():
     return lib
 
 
+@torch.library.custom_op("scouter_tpu_torch::render_heatmaps", mutates_args=(),
+                         device_types="cuda")
+def _render_op(attn: torch.Tensor, alpha: float) -> torch.Tensor:
+    """K2 on a contiguous f32 (C, N) tensor: (C, N, 4) f32."""
+    return _launch(attn, alpha)
+
+
+@_render_op.register_kernel("cpu")
+def _(attn, alpha):
+    return render_heatmaps_ref(attn, alpha)
+
+
+@_render_op.register_fake
+def _(attn, alpha):
+    return attn.new_empty((*attn.shape, 4), dtype=torch.float32)
+
+
 def _launch(attn: torch.Tensor, alpha: float) -> torch.Tensor:
     """Run ``csrc/render_heatmaps.cu`` on a contiguous f32 CUDA (C, N) tensor."""
     if attn.device.type != "cuda":
@@ -85,10 +104,7 @@ def render_heatmaps_fused(attn: torch.Tensor, alpha: float = 0.4) -> torch.Tenso
         raise ValueError(f"attn must be (C, N), got shape {tuple(attn.shape)}")
     if attn.shape[1] == 0:
         raise ValueError("attn rows are empty (N = 0): min and max are undefined")
-    attn = attn.to(torch.float32).contiguous()
-    if attn.device.type == "cpu":
-        return render_heatmaps_ref(attn, alpha)
-    return _launch(attn, alpha)
+    return _render_op(attn.to(torch.float32).contiguous(), float(alpha))
 
 
 # launches of the CUDA kernel (the CPU path does not count)

@@ -17,7 +17,18 @@ kernel with hist, and the backward runs ``csrc/xslot_bwd.cu``, which walks
 the iterations in reverse and rebuilds each one from its hist checkpoint
 (``_bwd``, slot_pallas.py:168-208). ``xslot_bwd_ref`` writes the same
 gradient formulas out by hand in plain ops, in the kernel's order; it is the
-backward's CPU path.
+backward's CPU path. bfloat16 inputs train too (a bf16 slot head): hist and
+the cotangents are float32, the backward converts the bf16 residuals to
+float32 exactly, computes in float32 and rounds each gradient once to
+bfloat16. JAX's own fused op cannot take bf16 under grad (slot_pallas.py:58
+stores bf16 slots into its f32 hist); its bf16 head trains on the jnp path
+in bf16 arithmetic, so the port's bf16 gradient lies closer to float64.
+
+Each launch goes through a ``torch.library`` custom op of the namespace
+``scouter_tpu_torch`` (``xslot_fwd``, ``xslot_fwd_hist``, ``xslot_bwd``):
+its CUDA implementation launches the kernel, its CPU implementation is the
+plain version, and its fake implementation gives the outputs' shapes and
+dtypes, so ``torch.export`` traces the slot head (ctypes it cannot trace).
 
 Each batch element runs on one thread-block cluster of ``c`` CTAs that split
 its slots; ``_plan`` chooses ``c``. Where the backward's share of an element
@@ -32,7 +43,7 @@ from __future__ import annotations
 
 import ctypes
 import functools
-from typing import Dict, NamedTuple
+from typing import Dict, NamedTuple, Tuple
 
 import torch
 
@@ -96,7 +107,13 @@ def xslot_bwd_ref(k, v, w_ih, w_hh, b_ih, b_hh, hist, du, dattn):
     returns (dk, dv, d_initial_slots, dW_ih, dW_hh, db_ih, db_hh). Iteration i
     is rebuilt from hist[:, i]; its cotangent is (dslots, du, dattn) at the
     last iteration and (dslots, 0, 0) before it. The last iteration's GRU
-    output is unused, so its backward is skipped."""
+    output is unused, so its backward is skipped. bfloat16 residuals (with
+    float32 hist and cotangents) are upcast, the arithmetic is float32, and
+    the gradients are cast back to bfloat16 once, at the end."""
+    if k.dtype == torch.bfloat16:
+        grads = xslot_bwd_ref(*(t.float() for t in (k, v, w_ih, w_hh, b_ih, b_hh)), hist, du,
+                              dattn)
+        return tuple(g.to(torch.bfloat16) for g in grads)
     b, iters, s, d = hist.shape
     scale = float(d) ** -0.5
     bi, bh = b_ih[0], b_hh[0]
@@ -267,21 +284,24 @@ class TiledPlan(NamedTuple):
     """The tiled route at one shape: its products by name (``TILED_PRODUCTS``:
     the dots, the update x, the GRU's gates gi|gh, their input gradients
     dx|dh, dW_ih|dW_hh, P, dh and dv|dk), whether the row passes ride in the
-    products' epilogues (``fused``: N <= the tile's width) and the scratch in
-    floats."""
+    products' epilogues (``fused``: N <= the tile's width), the scratch in
+    floats and whether the residuals are bf16."""
 
     products: Dict[str, TiledProduct]
     fused: bool
     scratch_floats: int
+    bf16: bool = False
 
     def launches(self, iters: int) -> int:
         """The launches ``tiled_bwd`` makes in one call of ``iters``
         iterations: per iteration dots, attn, x, P, dD, dh and dv|dk (and
         two row passes where the epilogues cannot take them); per GRU gi|gh,
         its backward, dx|dh and dW; the closing sums; a memset of the
-        partials where no GRU runs. ``chip_smoke.py`` holds it to the count
-        torch.profiler makes of one call on the card."""
-        return iters * (7 if self.fused else 9) + 4 * (iters - 1) + 1 + int(iters == 1)
+        partials where no GRU runs; with bf16 residuals the pass that
+        converts them to float32 first. ``chip_smoke.py`` holds it to the
+        count torch.profiler makes of one call on the card."""
+        return (iters * (7 if self.fused else 9) + 4 * (iters - 1) + 1 + int(iters == 1)
+                + int(self.bf16))
 
 
 def _cdiv(a: int, b: int) -> int:
@@ -304,10 +324,11 @@ def _plan_product(rows, cols, inner, batch, groups, split, sms) -> TiledProduct:
     return TiledProduct(rows, bn, _cdiv(inner, chunk))
 
 
-def tiled_plan(b: int, n: int, s: int, d: int, sms: int) -> TiledPlan:
+def tiled_plan(b: int, n: int, s: int, d: int, sms: int, bf16: bool = False) -> TiledPlan:
     """The backward's tiled route at (B, N, S, d) on a card of ``sms`` SMs, as
-    ``tiled_plan`` of csrc/xslot_bwd.cu has it; ``chip_smoke.py`` holds this
-    copy to the library's ``xslot_tiled_plan`` and scratch size."""
+    ``tiled_plan`` of csrc/xslot_bwd.cu has it, for f32 or bf16 residuals;
+    ``chip_smoke.py`` holds this copy to the library's ``xslot_tiled_plan``
+    and scratch size."""
     bs = b * s
     shapes = dict(dots=(s, n, d, b, 1, False), x=(s, d, n, b, 1, False),
                   gates=(bs, 3 * d, d, 1, 2, False), dgates=(bs, d, 3 * d, 1, 2, False),
@@ -317,16 +338,19 @@ def tiled_plan(b: int, n: int, s: int, d: int, sms: int) -> TiledPlan:
     fused = n <= products["dots"].tile_cols
     kv = products["dkv"].pieces
     # the (piece, element) dW and db partials; g, dh, x, dx (B, S, d); gi, gh
-    # (B, S, 3d); dots, attn, P (B, S, N); rs, rg, q (B, S); dv's and dk's pieces
+    # (B, S, 3d); dots, attn, P (B, S, N); rs, rg, q (B, S); dv's and dk's
+    # pieces (split, or rounded to bf16 by the closing sums); with bf16
+    # residuals their f32 copies, from the next multiple of 4 floats
     scratch = (products["dw"].pieces * b * (6 * d * d + 6 * d) + bs * (10 * d + 3 * n + 3)
-               + (2 * kv * b * n * d if kv > 1 else 0))
-    return TiledPlan(products, fused, scratch)
+               + (2 * kv * b * n * d if kv > 1 or bf16 else 0)
+               + (2 * b * n * d + 6 * d * d + 6 * d + 3 if bf16 else 0))
+    return TiledPlan(products, fused, scratch, bf16)
 
 
 _FWD_SIGNATURE = ([ctypes.c_void_p] * 10 + [ctypes.c_int] * 5
                   + [ctypes.c_float] + [ctypes.c_int] * 3 + [ctypes.c_void_p])
 _BWD_SIGNATURE = ([ctypes.c_void_p] * 17 + [ctypes.c_int] * 5
-                  + [ctypes.c_float, ctypes.c_int, ctypes.c_void_p])
+                  + [ctypes.c_float, ctypes.c_int, ctypes.c_int, ctypes.c_void_p])
 
 
 def _library(name: str):
@@ -341,10 +365,10 @@ def _library(name: str):
         smem.argtypes = [ctypes.c_int] * (4 if name == "xslot_fwd" else 3)
         smem.restype = ctypes.c_size_t
         clusters = getattr(lib, f"{name}_max_clusters")
-        clusters.argtypes = [ctypes.c_int] * (6 if name == "xslot_fwd" else 4)
+        clusters.argtypes = [ctypes.c_int] * (6 if name == "xslot_fwd" else 5)
         clusters.restype = ctypes.c_int
         if name == "xslot_bwd":
-            lib.xslot_bwd_scratch_floats.argtypes = [ctypes.c_int] * 6
+            lib.xslot_bwd_scratch_floats.argtypes = [ctypes.c_int] * 7
             lib.xslot_bwd_scratch_floats.restype = ctypes.c_size_t
             lib.xslot_tiled_plan.argtypes = [ctypes.c_int] * 4 + [ctypes.POINTER(ctypes.c_int)]
             lib.xslot_tiled_plan.restype = ctypes.c_int
@@ -355,15 +379,19 @@ def _library(name: str):
     return lib
 
 
-def _check_cuda_inputs(named, want, dtype):
+def _check_cuda_inputs(named, want, dtype, float32=()):
+    """Every tensor of ``named`` on one CUDA device, contiguous, 16-byte
+    aligned, of the shape ``want`` gives, in ``dtype`` (float32 for the
+    names in ``float32``)."""
     device = next(iter(named.values())).device
     if device.type != "cuda":
         raise ValueError(f"xslot kernel runs on CUDA tensors, k is on {device}")
     for name, t in named.items():
         if t.device != device:
             raise ValueError(f"xslot kernel: {name} is on {t.device}, k on {device}")
-        if t.dtype != dtype:
-            raise TypeError(f"xslot kernel: {name} is {t.dtype}, expected {dtype}")
+        expected = torch.float32 if name in float32 else dtype
+        if t.dtype != expected:
+            raise TypeError(f"xslot kernel: {name} is {t.dtype}, expected {expected}")
         if tuple(t.shape) != want[name]:
             raise ValueError(f"xslot kernel: {name} has shape {tuple(t.shape)}, "
                              f"expected {want[name]}")
@@ -380,9 +408,10 @@ def _check_dim(d):
 
 def launch_plan(kind: str, b: int, n: int, s: int, d: int, device, bf16: bool = False) -> Plan:
     """``_plan`` for the card that holds ``device``, with its own count of
-    the clusters it holds at once. The backward plans where the forward
-    does (it reads the forward's hist): past the forward's limit its tiled
-    route raises the forward's ``ValueError``."""
+    the clusters it holds at once for the instance of f32 or bf16 inputs
+    (the shared memory is the same: both stage f32). The backward plans
+    where the forward does (it reads the forward's hist): past the
+    forward's limit its tiled route raises the forward's ``ValueError``."""
     dev = device.index if device.index is not None else torch.cuda.current_device()
     return _device_plan(kind, b, n, s, d, dev, bf16)
 
@@ -399,29 +428,30 @@ def _device_plan(kind, b, n, s, d, dev, bf16):
     def active(c, s_cta, resident):
         with torch.cuda.device(dev):
             got = (lib.xslot_fwd_max_clusters(n, s_cta, d, int(resident), int(bf16), c)
-                   if kind == "fwd" else lib.xslot_bwd_max_clusters(n, s_cta, d, c))
+                   if kind == "fwd" else lib.xslot_bwd_max_clusters(n, s_cta, d, int(bf16), c))
         if got < 0:
             _raise_on(lib, -got, f"xslot {kind} occupancy query")
         return got
 
     plan = _plan(b, n, s, d, kind, lib.xslot_max_smem(dev), sms, smem, active)
     if plan.tiled:
-        _device_plan("fwd", b, n, s, d, dev, False)
+        _device_plan("fwd", b, n, s, d, dev, bf16)
     return plan
 
 
-def launch_tiled_plan(b: int, n: int, s: int, d: int, device) -> TiledPlan:
+def launch_tiled_plan(b: int, n: int, s: int, d: int, device, bf16: bool = False) -> TiledPlan:
     """The tiled route's plan as the C library makes it on the card that holds
-    ``device`` (``xslot_tiled_plan`` and ``xslot_bwd_scratch_floats``)."""
+    ``device`` (``xslot_tiled_plan`` and ``xslot_bwd_scratch_floats``), for
+    f32 or bf16 residuals."""
     lib = _library("xslot_bwd")
     out = (ctypes.c_int * (3 * len(TILED_PRODUCTS)))()
     with torch.cuda.device(device):
         err = lib.xslot_tiled_plan(b, n, s, d, out)
-        scratch = lib.xslot_bwd_scratch_floats(b, n, s, d, 1, 0)
+        scratch = lib.xslot_bwd_scratch_floats(b, n, s, d, 1, 0, int(bf16))
     _raise_on(lib, -err, "xslot tiled plan")
     products = {name: TiledProduct(*out[3 * i:3 * i + 3])
                 for i, name in enumerate(TILED_PRODUCTS)}
-    return TiledPlan(products, n <= products["dots"].tile_cols, scratch)
+    return TiledPlan(products, n <= products["dots"].tile_cols, scratch, bf16)
 
 
 def _raise_on(lib, err, what):
@@ -471,61 +501,137 @@ def _launch(k, v, initial_slots, w_ih, w_hh, b_ih, b_hh, iters, emit_hist):
 def _launch_bwd(k, v, w_ih, w_hh, b_ih, b_hh, hist, du, dattn):
     """Run ``csrc/xslot_bwd.cu`` on CUDA tensors: the gradient kernel, then
     the fixed-order sum of its partials (one a CTA and GRU iteration) over the
-    batch, or the tiled route. Returns what ``xslot_bwd_ref`` returns."""
+    batch, or the tiled route. The residuals (k, v, the GRU weights and
+    biases) are all float32 or all bfloat16, hist and the cotangents float32.
+    Returns what ``xslot_bwd_ref`` returns, in the residuals' dtype."""
     b, n, d = k.shape
     iters, s = hist.shape[1], hist.shape[2]
-    named = dict(k=k, v=v, w_ih=w_ih, w_hh=w_hh, b_ih=b_ih, b_hh=b_hh, hist=hist, du=du,
-                 dattn=dattn)
-    _check_cuda_inputs(named, {"k": (b, n, d), "v": (b, n, d), "w_ih": (3 * d, d),
-                               "w_hh": (3 * d, d), "b_ih": (1, 3 * d), "b_hh": (1, 3 * d),
-                               "hist": (b, iters, s, d), "du": (b, s, d),
-                               "dattn": (b, s, n)}, torch.float32)
+    residuals = dict(k=k, v=v, w_ih=w_ih, w_hh=w_hh, b_ih=b_ih, b_hh=b_hh)
+    dtype = _input_dtype(residuals.values())
+    want = {"k": (b, n, d), "v": (b, n, d), "w_ih": (3 * d, d), "w_hh": (3 * d, d),
+            "b_ih": (1, 3 * d), "b_hh": (1, 3 * d), "hist": (b, iters, s, d), "du": (b, s, d),
+            "dattn": (b, s, n)}
+    _check_cuda_inputs(dict(residuals, hist=hist, du=du, dattn=dattn), want, dtype,
+                       float32=("hist", "du", "dattn"))
     _check_dim(d)
-    plan = launch_plan("bwd", b, n, s, d, k.device)
-    grads = (torch.empty_like(k), torch.empty_like(v), torch.empty((s, d), device=k.device),
-             torch.empty_like(w_ih), torch.empty_like(w_hh), torch.empty_like(b_ih),
-             torch.empty_like(b_hh))
+    bf16 = dtype == torch.bfloat16
+    plan = launch_plan("bwd", b, n, s, d, k.device, bf16)
+    grads = (torch.empty_like(k), torch.empty_like(v),
+             torch.empty((s, d), dtype=dtype, device=k.device), torch.empty_like(w_ih),
+             torch.empty_like(w_hh), torch.empty_like(b_ih), torch.empty_like(b_hh))
     if b == 0:
         return tuple(g.zero_() for g in grads)
     lib = _library("xslot_bwd")
     with torch.cuda.device(k.device):
-        scratch = torch.empty(lib.xslot_bwd_scratch_floats(b, n, s, d, iters, plan.cluster),
-                              dtype=torch.float32, device=k.device)
+        scratch = torch.empty(
+            lib.xslot_bwd_scratch_floats(b, n, s, d, iters, plan.cluster, int(bf16)),
+            dtype=torch.float32, device=k.device)
         stream = torch.cuda.current_stream(k.device).cuda_stream
-        err = lib.xslot_bwd(*(t.data_ptr() for t in named.values()),
+        err = lib.xslot_bwd(*(t.data_ptr() for t in (k, v, w_ih, w_hh, b_ih, b_hh, hist, du,
+                                                     dattn)),
                             *(g.data_ptr() for g in grads), scratch.data_ptr(),
-                            b, n, s, d, iters, float(d) ** -0.5, plan.cluster, stream)
+                            b, n, s, d, iters, float(d) ** -0.5, int(bf16), plan.cluster,
+                            stream)
     _raise_on(lib, err, "xslot backward kernel")
+    fused = xslot_iterations_fused
     if plan.tiled:
-        xslot_iterations_fused.bwd_tiled_launches += 1
+        fused.bwd_tiled_launches += 1
+        fused.bwd_tiled_bf16_launches += int(bf16)
     else:
-        xslot_iterations_fused.bwd_launches += 1
+        fused.bwd_launches += 1
+        fused.bwd_bf16_launches += int(bf16)
     return grads
+
+
+# The launches as custom ops: CUDA launches the kernel, the CPU runs the plain
+# version, and the fake implementation gives shapes and dtypes for tracing.
+_Tensors2 = Tuple[torch.Tensor, torch.Tensor]
+_Tensors3 = Tuple[torch.Tensor, torch.Tensor, torch.Tensor]
+_Tensors7 = Tuple[torch.Tensor, torch.Tensor, torch.Tensor, torch.Tensor, torch.Tensor,
+                  torch.Tensor, torch.Tensor]
+
+
+@torch.library.custom_op("scouter_tpu_torch::xslot_fwd", mutates_args=(), device_types="cuda")
+def _fwd_op(k: torch.Tensor, v: torch.Tensor, initial_slots: torch.Tensor, w_ih: torch.Tensor,
+            w_hh: torch.Tensor, b_ih: torch.Tensor, b_hh: torch.Tensor, iters: int) -> _Tensors2:
+    """K1's forward without hist: (upd, attn), float32."""
+    return _launch(k, v, initial_slots, w_ih, w_hh, b_ih, b_hh, iters, emit_hist=False)
+
+
+@_fwd_op.register_kernel("cpu")
+def _(k, v, initial_slots, w_ih, w_hh, b_ih, b_hh, iters):
+    return xslot_fwd_ref(k, v, initial_slots, w_ih, w_hh, b_ih, b_hh, iters=iters)
+
+
+@_fwd_op.register_fake
+def _(k, v, initial_slots, w_ih, w_hh, b_ih, b_hh, iters):
+    b, n, d = k.shape
+    s = initial_slots.shape[0]
+    return (k.new_empty((b, s, d), dtype=torch.float32),
+            k.new_empty((b, s, n), dtype=torch.float32))
+
+
+@torch.library.custom_op("scouter_tpu_torch::xslot_fwd_hist", mutates_args=(),
+                         device_types="cuda")
+def _fwd_hist_op(k: torch.Tensor, v: torch.Tensor, initial_slots: torch.Tensor,
+                 w_ih: torch.Tensor, w_hh: torch.Tensor, b_ih: torch.Tensor, b_hh: torch.Tensor,
+                 iters: int) -> _Tensors3:
+    """K1's forward with hist: (upd, attn, hist (B, iters, S, d)), float32."""
+    return _launch(k, v, initial_slots, w_ih, w_hh, b_ih, b_hh, iters, emit_hist=True)
+
+
+@_fwd_hist_op.register_kernel("cpu")
+def _(k, v, initial_slots, w_ih, w_hh, b_ih, b_hh, iters):
+    return xslot_fwd_ref(k, v, initial_slots, w_ih, w_hh, b_ih, b_hh, iters=iters,
+                         emit_hist=True)
+
+
+@_fwd_hist_op.register_fake
+def _(k, v, initial_slots, w_ih, w_hh, b_ih, b_hh, iters):
+    b, n, d = k.shape
+    s = initial_slots.shape[0]
+    return (k.new_empty((b, s, d), dtype=torch.float32),
+            k.new_empty((b, s, n), dtype=torch.float32),
+            k.new_empty((b, iters, s, d), dtype=torch.float32))
+
+
+@torch.library.custom_op("scouter_tpu_torch::xslot_bwd", mutates_args=(), device_types="cuda")
+def _bwd_op(k: torch.Tensor, v: torch.Tensor, w_ih: torch.Tensor, w_hh: torch.Tensor,
+            b_ih: torch.Tensor, b_hh: torch.Tensor, hist: torch.Tensor, du: torch.Tensor,
+            dattn: torch.Tensor) -> _Tensors7:
+    """K1's backward: (dk, dv, d_initial_slots, dW_ih, dW_hh, db_ih, db_hh) in
+    the residuals' dtype."""
+    return _launch_bwd(k, v, w_ih, w_hh, b_ih, b_hh, hist, du, dattn)
+
+
+@_bwd_op.register_kernel("cpu")
+def _(k, v, w_ih, w_hh, b_ih, b_hh, hist, du, dattn):
+    return xslot_bwd_ref(k, v, w_ih, w_hh, b_ih, b_hh, hist, du, dattn)
+
+
+@_bwd_op.register_fake
+def _(k, v, w_ih, w_hh, b_ih, b_hh, hist, du, dattn):
+    s, d = hist.shape[2], hist.shape[3]
+    return (torch.empty_like(k), torch.empty_like(v), k.new_empty((s, d)),
+            torch.empty_like(w_ih), torch.empty_like(w_hh), torch.empty_like(b_ih),
+            torch.empty_like(b_hh))
 
 
 class _XSlotFused(torch.autograd.Function):
     """The xSlot loop with K1's checkpointed gradient (the ``custom_vjp`` of
-    slot_pallas.py:144-211)."""
+    slot_pallas.py:144-211): the forward with hist, then the backward, each
+    through its custom op (the kernel on CUDA tensors, the plain version on
+    CPU tensors)."""
 
     @staticmethod
     def forward(ctx, k, v, initial_slots, w_ih, w_hh, b_ih, b_hh, iters):
-        args = (k, v, initial_slots, w_ih, w_hh, b_ih, b_hh)
-        if all(t.device.type == "cpu" for t in args):
-            upd, attn, hist = xslot_fwd_ref(*args, iters=iters, emit_hist=True)
-        else:
-            upd, attn, hist = _launch(*args, iters, emit_hist=True)
+        upd, attn, hist = _fwd_hist_op(k, v, initial_slots, w_ih, w_hh, b_ih, b_hh, iters)
         ctx.save_for_backward(k, v, w_ih, w_hh, b_ih, b_hh, hist)
         return upd, attn
 
     @staticmethod
     def backward(ctx, du, dattn):
-        """``_bwd``: the backward kernel on CUDA tensors, ``xslot_bwd_ref``
-        on CPU tensors."""
-        saved = ctx.saved_tensors
-        if all(t.device.type == "cpu" for t in saved):
-            grads = xslot_bwd_ref(*saved, du, dattn)
-        else:
-            grads = _launch_bwd(*saved, du.contiguous(), dattn.contiguous())
+        grads = _bwd_op(*ctx.saved_tensors, du.contiguous(), dattn.contiguous())
         return (*grads, None)
 
 
@@ -535,14 +641,15 @@ def xslot_iterations_fused(k, v, initial_slots, w_ih, w_hh, b_ih, b_hh, iters: i
     Args:
       k: (B, N, d) keys (to_k output); v: (B, N, d) values (raw features).
       initial_slots: (S, d); GRU weights in torch layout (3d, d), biases (1, 3d).
-      All in float32, or all in bfloat16 (inference only).
+      All in float32, or all in bfloat16.
     Returns: (updates (B, S, d), attn (B, S, N)) from the final iteration, in
     float32.
 
     Under grad (grad mode on and an input requiring grad) the call goes
     through the checkpointed gradient, launching the forward kernel with hist
-    and the backward kernel on CUDA tensors; otherwise the forward kernel
-    runs without hist. CPU tensors take the plain versions either way.
+    and the backward kernel on CUDA tensors, which returns the gradients in
+    the inputs' dtype; otherwise the forward kernel runs without hist. CPU
+    tensors take the plain versions either way.
 
     Limits of the CUDA kernels, each raising ``ValueError``: d a multiple of
     4 up to 1024; each CTA of a cluster of at most 8 holds all of k and v
@@ -556,20 +663,19 @@ def xslot_iterations_fused(k, v, initial_slots, w_ih, w_hh, b_ih, b_hh, iters: i
     """
     args = (k, v, initial_slots, w_ih, w_hh, b_ih, b_hh)
     if torch.is_grad_enabled() and any(t.requires_grad for t in args):
-        if any(t.dtype == torch.bfloat16 for t in args):
-            raise TypeError("the xslot gradient is float32 only; bfloat16 slot heads are "
-                            "for inference")
         return _XSlotFused.apply(*args, iters)
-    if all(t.device.type == "cpu" for t in args):
-        return xslot_iterations_ref(*args, iters=iters)
-    return _launch(*args, iters, emit_hist=False)
+    return _fwd_op(*args, iters)
 
 
-# launches of the forward kernel, with and without hist (the CPU path does not
-# count), of those the launches that emitted hist, calls of the backward
-# kernel on a cluster (each one gradient launch and its fixed-order sum) and
-# calls of its tiled route (each its chain of launches)
+# Counts of the CUDA launches, kept where the kernels launch (a loaded export
+# artifact's calls count too; the CPU path does not count): launches of the
+# forward kernel, with and without hist, of those the launches that emitted
+# hist, calls of the backward kernel on a cluster (each one gradient launch
+# and its fixed-order sum) and calls of its tiled route (each its chain of
+# launches), and of these two the calls with bfloat16 residuals
 xslot_iterations_fused.launches = 0
 xslot_iterations_fused.hist_launches = 0
 xslot_iterations_fused.bwd_launches = 0
 xslot_iterations_fused.bwd_tiled_launches = 0
+xslot_iterations_fused.bwd_bf16_launches = 0
+xslot_iterations_fused.bwd_tiled_bf16_launches = 0

@@ -53,11 +53,14 @@ class InferenceEngine:
         compute_dtype=None,
         include_maps: bool = True,
         max_inflight: int = 8,
+        quant=None,
         resolvers: int = 4,
         device="cuda",
     ):
         """max_inflight: batches dispatched and not yet fetched before the
         dispatcher blocks (pipelining depth; 1 = fully serial).
+        quant: a ``serve/quant.py`` policy name ('int8'), installed on the
+        served model, so the dispatcher thread serves it.
         resolvers: threads doing the device->host fetch and resolving futures."""
         self.cfg = cfg
         channels = 1 if cfg.dataset == "MNIST" else 3
@@ -67,7 +70,7 @@ class InferenceEngine:
             raise ValueError("buckets must be positive ints")
         self.max_wait_s = max_wait_ms / 1e3
         self._fn = make_serving_fn(cfg, state_dict, compute_dtype=compute_dtype,
-                                   include_maps=include_maps, device=device)
+                                   include_maps=include_maps, quant=quant, device=device)
         self.device = resolve_device(device)
         self._queue: "queue.Queue" = queue.Queue()
         # bucket_fill["b/n"] counts batches that ran bucket b carrying n live images

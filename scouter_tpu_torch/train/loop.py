@@ -26,6 +26,11 @@ loop's.
 (``scouter_tpu/train/loop.py:71-77``): the backbone's convs and BatchNorms
 compute in bf16 from f32 master parameters, the slot head (and so K1) and
 the loss stay f32, AdamW's state is f32, and checkpoints hold f32 weights.
+With ``slot_head_dtype='compute'`` the slot head computes in bf16 too: its
+f32 parameters are cast at use, K1 takes bf16 inputs (f32 arithmetic inside)
+and returns bf16 gradients, which reach the f32 parameters through the
+casts. Where JAX's bf16 head runs in bf16 arithmetic on its jnp path, K1's
+gradient is the f32 one rounded once, so it lies closer to float64.
 """
 
 from __future__ import annotations

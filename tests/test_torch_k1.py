@@ -73,10 +73,20 @@ def test_bf16_inputs_match_pallas_on_the_same_bf16_inputs(b, n, s, seed, magnitu
 
 
 def test_bf16_under_grad_is_refused():
+    """No longer refused: bf16 inputs under grad take the checkpointed
+    gradient, whose plain version upcasts the residuals, computes in f32 and
+    returns each gradient rounded once to bf16."""
     args = [torch.from_numpy(a).to(torch.bfloat16) for a in k1_inputs(0, 2, 9, 4, d=8)]
-    args[3].requires_grad_(True)
-    with pytest.raises(TypeError, match="float32 only"):
-        xslot_iterations_fused(*args)
+    leaves = [a.clone().requires_grad_(True) for a in args]
+    upd, attn = xslot_iterations_fused(*leaves)
+    assert upd.dtype == attn.dtype == torch.float32
+    grads = torch.autograd.grad((upd, attn), leaves, (2 * upd.detach(), torch.ones_like(attn)))
+    f32 = [a.float().requires_grad_(True) for a in args]
+    u32, a32 = xslot_iterations_fused(*f32)
+    want = torch.autograd.grad((u32, a32), f32, (2 * u32.detach(), torch.ones_like(a32)))
+    for g, w in zip(grads, want):
+        assert g.dtype == torch.bfloat16
+        assert torch.equal(g, w.to(torch.bfloat16))
 
 
 # ------------------------------------------------------------------ backward
@@ -301,6 +311,20 @@ def test_tiled_plan_of_the_cub_step():
     assert not plan.fused and plan.launches(3) == 36
     # one iteration runs no GRU: its partials are zeroed by a memset
     assert tiled_plan(16, 81, 1000, 64, H100_SMS).launches(1) == 9
+
+
+@pytest.mark.parametrize("b,n,s", [(16, 81, 1000), (70, 196, 30)])
+def test_tiled_plan_with_bf16_residuals(b, n, s):
+    """bf16 residuals: the same products, one launch more (the pass that
+    converts the residuals), and the scratch holds their f32 copies (from a
+    multiple of 4 floats) and dv's and dk's pieces even unsplit."""
+    d = 64
+    f32, bf16 = tiled_plan(b, n, s, d, H100_SMS), tiled_plan(b, n, s, d, H100_SMS, bf16=True)
+    assert bf16.products == f32.products and bf16.fused == f32.fused
+    assert bf16.launches(3) == f32.launches(3) + 1
+    kv = f32.products["dkv"].pieces
+    extra = (2 * b * n * d if kv == 1 else 0) + 2 * b * n * d + 6 * d * d + 6 * d + 3
+    assert bf16.scratch_floats == f32.scratch_floats + extra
 
 
 def test_tiled_plan_at_d48():

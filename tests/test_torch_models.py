@@ -246,11 +246,13 @@ def test_bf16_backbone_keeps_slot_head_f32(slice_case):
     assert all(p.dtype == torch.float32 for p in model.backbone.parameters())
     assert model.conv1x1.weight.dtype == torch.float32
     assert model.slot.initial_slots.dtype == torch.float32
+    # a bf16 slot head keeps f32 parameters and computes in bf16, cast at use
     compute = build_slot_model(cfg.replace(slot_head_dtype="compute"),
                                compute_dtype=torch.bfloat16, device="cpu")
-    assert compute.slot.initial_slots.dtype == torch.bfloat16
-    assert compute.conv1x1.weight.dtype == torch.bfloat16
-    assert all(p.dtype == torch.float32 for p in compute.backbone.parameters())
+    assert compute.slot.initial_slots.dtype == torch.float32
+    assert compute.conv1x1.weight.dtype == torch.float32
+    assert compute.slot.compute_dtype == compute.conv1x1.compute_dtype == torch.bfloat16
+    assert all(p.dtype == torch.float32 for p in compute.parameters())
 
 
 # ------------------------------------------------------------------- data

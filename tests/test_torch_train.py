@@ -368,11 +368,15 @@ def test_training_refuses_what_is_not_ported(flag, value):
         # ported: tests/test_torch_resilience.py
         check_training_supported(ScouterConfig(device="cpu", **{flag: value}))
         return
-    # bf16 training is ported; a slot head that follows it (a bf16 K1
-    # gradient) is not
-    extra = {"slot_head_dtype": "compute"} if flag == "compute_dtype" else {}
+    if flag == "compute_dtype":
+        # ported: bf16 training, also with a slot head that follows it (a bf16
+        # K1 gradient; tests/test_torch_bf16_head.py)
+        for head in ("float32", "compute"):
+            check_training_supported(ScouterConfig(device="cpu", **{flag: value},
+                                                   slot_head_dtype=head))
+        return
     with pytest.raises(NotImplementedError, match=flag):
-        check_training_supported(ScouterConfig(device="cpu", **{flag: value}, **extra))
+        check_training_supported(ScouterConfig(device="cpu", **{flag: value}))
 
 
 def test_cli_sweep_trains_on_the_cpu(tmp_path, capsys):

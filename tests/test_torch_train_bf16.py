@@ -213,9 +213,16 @@ def test_bf16_checkpoint_restores_for_inference(tmp_path):
 
 
 def test_bf16_training_refuses_a_bf16_slot_head():
+    """No longer refused: a bf16 slot head trains. The config passes, the
+    Trainer builds the head in bf16 compute over f32 parameters, and one
+    train step leaves the parameters and AdamW's state f32."""
     check_training_supported(ScouterConfig(device="cpu", compute_dtype="bfloat16"))
-    with pytest.raises(NotImplementedError, match="slot_head_dtype"):
-        check_training_supported(ScouterConfig(device="cpu", compute_dtype="bfloat16",
-                                               slot_head_dtype="compute"))
-    with pytest.raises(NotImplementedError, match="ROADMAP"):
-        tiny_trainer(slot_head_dtype="compute")
+    check_training_supported(ScouterConfig(device="cpu", compute_dtype="bfloat16",
+                                           slot_head_dtype="compute"))
+    trainer = tiny_trainer(slot_head_dtype="compute")
+    assert trainer.model.head_dtype == torch.bfloat16
+    assert trainer.model.slot.compute_dtype == torch.bfloat16
+    (x, y), = batches(6, 1)
+    state, m = trainer.train_step(trainer.state, {"image": nchw(x), "label": torch.from_numpy(y)})
+    assert np.isfinite(m["loss"].item())
+    assert_state_f32(state)
