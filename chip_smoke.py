@@ -15,8 +15,9 @@ Phases (any failure exits non-zero; nothing is caught and passed over):
    library's, and its time at B = 1, 4, 16 and 70; its hist output; its
    backward kernel (xslot_bwd) on a cluster against ``xslot_bwd_ref`` at
    (70, 49, 30), (16, 81, 10), (16, 81, 125), d=48 (16, 49, 30), 384 px's
-   (16, 144, 30) and B = 1, 4 and 16, equal bit for bit across two calls, its launches a call as
-   torch.profiler counts them held to its plan's, its time and bound at
+   (16, 144, 30) and B = 1, 4 and 16, equal bit for bit across two calls,
+   its launches a call (the nodes of its CUDA graph, held to the launch
+   calls torch.profiler records) held to its plan's, its time and bound at
    each, and the op's gradient against autograd through the plain
    version; then the backward where no cluster of 8 holds an element's
    share, on its tiled route, at the CUB recipe's (16, 81, 1000) at d=64
@@ -25,17 +26,18 @@ Phases (any failure exits non-zero; nothing is caught and passed over):
    at (16, 81, 1000)), the backward against ``xslot_bwd_ref`` and the op's
    gradient against autograd through the plain version, bit for bit across
    two calls, with plans, times and bounds, the tiled route's launches a
-   call as torch.profiler counts them (at most 50, and as many as
-   ``TiledPlan.launches`` says), and its plan (tile widths, pieces,
-   scratch) from the C library held to its Python copy; then the backward
-   with bf16 residuals (a bf16 slot head) on a cluster at (70, 49, 30),
+   call (its CUDA graph's nodes, held to torch.profiler's launch calls; at
+   most 50, and as many as ``TiledPlan.launches`` says), and its plan (tile
+   widths, pieces, scratch) from the C library held to its Python copy;
+   then the backward with bf16 residuals (a bf16 slot head) on a cluster at (70, 49, 30),
    (16, 49, 30) and (16, 81, 125) and on its tiled route at (16, 81, 1000)
    and (70, 196, 30): bf16 gradients equal bit for bit to the f32
    instance's on the same values rounded once, within one bf16 ulp of the
    plain version at max(1, max|ref|) (where missed, by no more than the f32
    instance misses its plain version on the same values), the same bits
-   from run to run, its launches a call under torch.profiler held to its
-   plan's, and its time in a CUDA graph beside the f32 instance's;
+   from run to run, its launches a call (graph nodes, held to the
+   profiler's launch calls) held to its plan's, and its time in a CUDA
+   graph beside the f32 instance's;
 4. serve flagship resnest26d + xSlot (f32, seeded random weights) through
    ``InferenceEngine`` (requests from several threads) and the HTTP server
    (``.npy`` bodies, one with ``?maps=1``, and ``/healthz``), counting the
@@ -110,6 +112,28 @@ Phases (any failure exits non-zero; nothing is caught and passed over):
    bf16 compute) and of both artifacts, and the train img/s of the bf16 and
    the f32 slot head over a bf16 backbone, flagship and CUB, on one
    repeated batch whose loss must fall, the state f32 after the steps.
+
+15. the ResNet zoo: one full-depth representative per mechanism (resnet50,
+   resnext50_32x4d, seresnext26d/26t/26tn_32x4d, ecaresnet50d_pruned,
+   res2net50_26w_4s, skresnet18, skresnext50_32x4d, resnetblur50,
+   gluon_senet154, resnet50 at output stride 16, resnest26d at 8, resnet18
+   with the space-to-depth stem) with the same seeded weights on the card
+   and on the CPU at 224 px, batch 2: features and logits within 1e-3 of
+   the CPU's scale; then the flagship's config on resnet50 (S=30, N=49,
+   batch 70, f32) through phases 4-7's entry points: the engine and HTTP,
+   card vs CPU logits, ``make_serving_fn`` img/s in f32 and bf16, the train
+   CLI for two epochs and a resumed third (K1's hist, hist-free and cluster
+   backward counts equal to the train steps and val batches, its tiled
+   route never), the explain CLI on that checkpoint (K1 once, K2 never),
+   train img/s; and the model built with ``output_stride=16`` (N=196): one
+   train step at batch 4 on the card and on the CPU from the same weights
+   (the loss within 1e-3, every gradient within 0.1 in norm), K1's
+   backward on its tiled route once and held to its plain version on the
+   step's own residuals, and its launches a call (graph nodes, held to the
+   profiler's launch calls) held to its plan;
+   at output stride 8 (N=784) the slot model's K1 forward raises
+   ValueError (its documented reach, ROADMAP Queue C); the phase's
+   seconds.
 
 The line before the last is the kernels' JSON; the last line is
 ``{"ok": true, "device": {...}}``. Without a CUDA device, or without the
@@ -359,8 +383,8 @@ def _alloc_only():
 
 
 def cluster_bwd_launches(label, plan, res, cot):
-    """One cluster backward call's launches as torch.profiler counts them,
-    held to the plan's count; returns the count."""
+    """One cluster backward call's launches (``profiled_launches``), held to
+    the plan's count; returns the count."""
     import torch
 
     from scouter_tpu_torch.ops import slot_kernel
@@ -368,8 +392,8 @@ def cluster_bwd_launches(label, plan, res, cot):
     with torch.no_grad():
         count = profiled_launches(lambda: slot_kernel._launch_bwd(*res, *cot))
     want = plan.launches("bwd")
-    print(f"xslot_bwd {label} (cluster {plan.cluster}): {count} launches in one call as "
-          f"torch.profiler counts them (the plan: {want})", flush=True)
+    print(f"xslot_bwd {label} (cluster {plan.cluster}): {count} launches in one call, "
+          f"graph nodes held to torch.profiler's launch calls (the plan: {want})", flush=True)
     if count != want:
         fail(f"the cluster backward made {count} launches in one call at {label}; its plan "
              f"says {want}")
@@ -562,27 +586,74 @@ def check_tiled_plans(shapes):
     return plans
 
 
-PROFILER_SESSIONS = 4  # profiler sessions a launch count may take
+PROFILER_SESSIONS = 5  # torch.profiler sessions a launch count is held to
+# the runtime calls that put a kernel or a memset on a stream
+LAUNCH_CALLS = ("cudaLaunchKernel", "cudaLaunchKernelExC", "cudaMemsetAsync", "cuLaunchKernel",
+                "cuLaunchKernelEx")
+
+
+def graph_launches(fn):
+    """The kernels and memsets one call of ``fn`` puts on its stream: the
+    nodes of a CUDA graph captured from that call (``cuGraphGetNodes``)."""
+    import ctypes
+
+    import torch
+
+    side = torch.cuda.Stream()
+    side.wait_stream(torch.cuda.current_stream())
+    with torch.cuda.stream(side):
+        fn()
+    torch.cuda.current_stream().wait_stream(side)
+    graph = torch.cuda.CUDAGraph(keep_graph=True)
+    with torch.cuda.graph(graph):
+        fn()
+    nodes = ctypes.c_size_t(0)
+    err = ctypes.CDLL("libcuda.so.1").cuGraphGetNodes(
+        ctypes.c_void_p(graph.raw_cuda_graph()), None, ctypes.byref(nodes))
+    if err:
+        fail(f"cuGraphGetNodes returned CUresult {err}")
+    return nodes.value
 
 
 def profiled_launches(fn):
-    """The kernels and memsets one call of ``fn`` puts on the card, as
-    torch.profiler records them. A session that records no device event at
-    all (the tracer drops one now and then, most often the first of a
-    process) is run again, up to ``PROFILER_SESSIONS`` times; the first count
-    that is not empty is returned, 0 if none."""
+    """The kernels and memsets one call of ``fn`` puts on the card: the nodes
+    of a CUDA graph captured from one call (``graph_launches``), held to the
+    launch calls (``LAUNCH_CALLS``) torch.profiler records on the host for
+    one call in each of ``PROFILER_SESSIONS`` sessions: every session must
+    record exactly as many. Its device records are printed where a session
+    has fewer, with the kernels it lacks beside the fullest session's: late
+    in ``chip_smoke``'s long process the tracer loses the first device
+    records of most sessions (24 or 25 of 36 at the OS16 shape), while the
+    host's launch calls stay whole; it never records more."""
+    import collections
+
     import torch
     from torch.profiler import ProfilerActivity, profile
 
+    nodes = graph_launches(fn)
+    calls, records = [], []
     for _ in range(PROFILER_SESSIONS):
         torch.cuda.synchronize()
-        with profile(activities=[ProfilerActivity.CUDA]) as prof:
+        with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA]) as prof:
             fn()
             torch.cuda.synchronize()
-        count = sum(ev.device_type == torch.autograd.DeviceType.CUDA for ev in prof.events())
-        if count:
-            return count
-    return 0
+        events = prof.events()
+        calls.append(sum(ev.device_type != torch.autograd.DeviceType.CUDA
+                         and ev.name in LAUNCH_CALLS for ev in events))
+        records.append(collections.Counter(
+            ev.name for ev in events if ev.device_type == torch.autograd.DeviceType.CUDA))
+    counts = [sum(names.values()) for names in records]
+    fullest = records[counts.index(max(counts))]
+    for i, names in enumerate(records):
+        if counts[i] != nodes:
+            print(f"torch.profiler session {i + 1} of {PROFILER_SESSIONS}: {calls[i]} launch "
+                  f"calls, {counts[i]} device records, the graph {nodes} nodes; the records "
+                  f"lack {json.dumps(dict(fullest - names))} beside the fullest session",
+                  flush=True)
+    if calls != [nodes] * PROFILER_SESSIONS or max(counts) > nodes:
+        fail(f"torch.profiler's sessions recorded {calls} launch calls and {counts} device "
+             f"records for one call, the call's CUDA graph {nodes} nodes")
+    return nodes
 
 
 def phase_kernel_grad_tiled(entry):
@@ -593,8 +664,8 @@ def phase_kernel_grad_tiled(entry):
     backward against ``xslot_bwd_ref`` and the op's gradient against
     autograd through the plain version to chip_smoke's gradient bar, two
     backward calls equal bit for bit, its plan, time in a CUDA graph and
-    bound; on the tiled route the launches of one call as torch.profiler
-    counts them, held to ``TiledPlan.launches`` and to at most 50; the tiled
+    bound; on the tiled route the launches of one call
+    (``profiled_launches``), held to ``TiledPlan.launches`` and to at most 50; the tiled
     plans held to their Python copy (also at (64, 81, 1000)). Adds the
     forward with hist's time at (16, 81, 1000) to the forward's ``entry``;
     returns the tiled route's kernels-line entry."""
@@ -665,8 +736,8 @@ def phase_kernel_grad_tiled(entry):
                 count = profiled_launches(lambda: slot_kernel._launch_bwd(*res, *cot))
             want_count = tiled_plans[label].launches(3)
             print(f"xslot_bwd B={b} N={n} S={s} d={d} (tiled route): {count} launches in one "
-                  f"call as torch.profiler counts them (TiledPlan.launches: {want_count}, "
-                  f"bar 50)", flush=True)
+                  f"call, graph nodes held to torch.profiler's launch calls (TiledPlan.launches: "
+                  f"{want_count}, bar 50)", flush=True)
             if count != want_count or count > 50:
                 fail(f"the tiled route made {count} launches in one call at {label}: "
                      f"TiledPlan.launches says {want_count}, the bar is 50")
@@ -708,8 +779,8 @@ def phase_kernel_grad_bf16():
     instance on the same values misses the plain version by as much: the
     renorm has no epsilon, and a row sum near zero amplifies f32 rounding
     (Queue C of ROADMAP.md); the figures are printed, f32's beside them.
-    Also: two calls equal bit for bit; its launches a call under
-    torch.profiler held to its plan's (2 on a cluster, ``TiledPlan.launches``
+    Also: two calls equal bit for bit; its launches a call
+    (``profiled_launches``) held to its plan's (2 on a cluster, ``TiledPlan.launches``
     on the tiled route, one more than f32 for the pass that converts the
     residuals); its time in a CUDA graph beside the f32 instance's at the
     same shape in this run, the plain version's and the bound. Returns the
@@ -898,7 +969,7 @@ def phase_serve(cfg, state_dict):
     seconds = time.monotonic() - t0
     if health["status"] != "ok" or health["stats"]["requests"] < len(images) + 4:
         fail(f"/healthz: {health}")
-    print(f"serve: {len(images)} engine requests + 4 HTTP requests answered in "
+    print(f"serve {cfg.model}: {len(images)} engine requests + 4 HTTP requests answered in "
           f"{seconds:.2f} s; engine stats {json.dumps(stats)}; xslot_fwd launches {launches}",
           flush=True)
     if launches == 0:
@@ -919,10 +990,11 @@ def phase_gpu_vs_cpu(cfg, state_dict):
     cpu = make_serving_fn(cfg, state_dict, device="cpu")(images)
     lg, lc = gpu["logits"].cpu().numpy(), cpu["logits"].numpy()
     maps = np.abs(gpu["slot_maps"].cpu().numpy().astype(int) - cpu["slot_maps"].numpy()).max()
-    print(f"gpu vs cpu: max|d logits| {np.abs(lg - lc).max():.3e} (bar rtol/atol 1e-3), "
+    print(f"gpu vs cpu {cfg.model}: max|d logits| {np.abs(lg - lc).max():.3e} (bar rtol/atol "
+          f"1e-3), "
           f"max|d slot_maps| {maps}", flush=True)
     if not np.allclose(lg, lc, rtol=1e-3, atol=1e-3):
-        fail(f"flagship logits on the card differ from the CPU's:\n{lg}\n{lc}")
+        fail(f"{cfg.model} logits on the card differ from the CPU's:\n{lg}\n{lc}")
 
 
 def phase_throughput(cfg, state_dict, card: str):
@@ -938,7 +1010,7 @@ def phase_throughput(cfg, state_dict, card: str):
     bs = cfg.batch_size
     images = torch.from_numpy(np.random.RandomState(3).randint(
         0, 256, (bs, cfg.img_size, cfg.img_size, 3), np.uint8)).cuda()
-    maps = {}
+    maps, rates = {}, {}
     for name, dtype in (("float32", None), ("bfloat16", torch.bfloat16)):
         fn = make_serving_fn(cfg, state_dict, compute_dtype=dtype, device="cuda")
         bns = [m for m in fn.model.modules() if isinstance(m, torch.nn.BatchNorm2d)]
@@ -961,12 +1033,14 @@ def phase_throughput(cfg, state_dict, card: str):
         dt = (time.perf_counter() - t0) / iters
         if not torch.isfinite(out["logits"]).all():
             fail(f"non-finite logits in the {name} throughput run")
-        print(f"throughput make_serving_fn bs={bs} {name}: {bs / dt:.1f} img/s "
+        rates[name] = bs / dt
+        print(f"throughput make_serving_fn {cfg.model} bs={bs} {name}: {bs / dt:.1f} img/s "
               f"({dt * 1e3:.2f} ms/batch) on {card}", flush=True)
     gap = np.abs(maps["bfloat16"] - maps["float32"])
-    print(f"serving bs={bs}: bf16 vs f32 uint8 slot maps on the card, max level "
+    print(f"serving {cfg.model} bs={bs}: bf16 vs f32 uint8 slot maps on the card, max level "
           f"difference {gap.max()}, mean {gap.mean():.3f}, share of pixels more than 2 "
           f"levels apart {(gap > 2).mean():.4f}", flush=True)
+    return rates
 
 
 def run_cli(main, flags):
@@ -982,12 +1056,13 @@ def run_cli(main, flags):
     return result, buf.getvalue().splitlines()
 
 
-def flagship_flags(tmp: str):
-    """The CLIs' flags for the flagship on the card, the synthetic stand-in
-    (nothing at ``--dataset_dir``) and ``tmp`` as the output directory."""
+def flagship_flags(tmp: str, model: str = "resnest26d"):
+    """The CLIs' flags for the flagship (or its config on another backbone)
+    on the card, the synthetic stand-in (nothing at ``--dataset_dir``) and
+    ``tmp`` as the output directory."""
     import os
 
-    return ["--device", "cuda", "--dataset", "ImageNet", "--model", "resnest26d",
+    return ["--device", "cuda", "--dataset", "ImageNet", "--model", model,
             "--num_classes", "10", "--channel", "2048", "--hidden_dim", "64",
             "--slots_per_class", "3", "--to_k_layer", "3", "--power", "2",
             "--loss_status", "1", "--lambda_value", "1", "--img_size", "224",
@@ -1011,10 +1086,10 @@ def logged_metrics(lines):
     return found
 
 
-def phase_train(tmp: str):
-    """Flagship training through the train CLI on the card: two epochs, then a
-    resume for a third; returns K1's forward and backward launches over both
-    runs."""
+def phase_train(tmp: str, model: str = "resnest26d"):
+    """Flagship training (on ``model``) through the train CLI on the card: two
+    epochs, then a resume for a third; returns K1's forward and backward
+    launches over both runs."""
     import math
     import os
 
@@ -1022,7 +1097,7 @@ def phase_train(tmp: str):
     from scouter_tpu_torch.train import cli
 
     fused = slot_kernel.xslot_iterations_fused
-    flags = flagship_flags(tmp) + ["--lr_drop", "1"]
+    flags = flagship_flags(tmp, model) + ["--lr_drop", "1"]
     train_steps, val_batches = 256 // 70, -(-128 // 70)  # the synthetic stand-in
     launches = bwd_launches = 0
     # the backward's plain version, watched for CUDA tensors: the train path
@@ -1058,7 +1133,8 @@ def phase_train(tmp: str):
         if run == 1 and not any(line.startswith("resumed from") and line.endswith("epoch 1")
                                 for line in lines):
             fail("the resumed run did not report resuming after epoch 1")
-        print(f"train run {run}: epochs {started}, {len(epochs) * train_steps} train steps, "
+        print(f"train run {run} ({model}): epochs {started}, {len(epochs) * train_steps} "
+              f"train steps, "
               f"{seconds:.2f} s ({seconds / (len(epochs) * train_steps):.3f} s per train step "
               f"with data, eval and checkpoints); xslot_fwd launches with hist {hist}, "
               f"without {plain}; xslot_bwd launches {fused.bwd_launches}, xslot_bwd_ref "
@@ -1624,6 +1700,9 @@ def phase_bf16_head_and_export(tmp: str, card: str):
                      for k, v in int8.items()}}
 
 
+# phase 11's cold- and warm-cache epoch img/s when the Loader decoded on the
+# consumer's thread (this script on NVIDIA H100 80GB HBM3 at 700 W)
+CONSUMER_THREAD_FOLDER_RATES = (154.9, 217.7)
 # the committed image fixtures (tests/torch_fixtures/make_fixtures.py)
 FIXTURES = ROOT / "tests" / "torch_fixtures"
 FIXTURE_JPEGS = ("rgb420_500x375.jpg", "rgb444_375x500.jpg", "progressive_500x333.jpg",
@@ -1774,6 +1853,7 @@ def phase_folder_train(tmp: str, card: str):
     if not isinstance(ds_train, FolderDataset):
         fail(f"select_dataset on the tree gave {type(ds_train).__name__}")
     trainer = Trainer(cfg, datasets=(ds_train, select_dataset(cfg, train=False)))
+    trainer_prefetch = trainer.loader_train.prefetch
     rates = {}
     for epoch, name in ((0, "cold cache"), (1, "warm cache")):
         torch.cuda.synchronize()
@@ -1793,10 +1873,13 @@ def phase_folder_train(tmp: str, card: str):
     torch.cuda.synchronize()
     rates["synthetic stand-in"] = 256 // 16 * 16 / (time.perf_counter() - t1)
     del stand_in
-    print(f"CUB bf16 train epoch img/s at batch 16, Loader and decode included: "
+    print(f"CUB bf16 train epoch img/s at batch 16, Loader (producer thread, prefetch "
+          f"{trainer_prefetch}) and decode included: "
           + ", ".join(f"{k} {v:.1f}" for k, v in rates.items())
           + f"; the tree's cache {ds_train.cached_bytes} bytes of {ds_train.cache_bytes} on "
-          f"the card, on {card}", flush=True)
+          f"the card, on {card} (the Loader decoding on the consumer's thread measured cold "
+          f"{CONSUMER_THREAD_FOLDER_RATES[0]} and warm {CONSUMER_THREAD_FOLDER_RATES[1]} on "
+          f"NVIDIA H100 80GB HBM3 at 700 W)", flush=True)
     if "PIL" in sys.modules:
         fail("Pillow was imported on the card's train path")
     return tree, out, counts[0] + counts[1], counts[2]
@@ -2323,8 +2406,290 @@ def phase_train_throughput(cfg, card: str):
           f"{', '.join(f'{v:.4f}' for v in losses)}", flush=True)
     if not losses[-1] < losses[0]:
         fail(f"the loss did not fall on a repeated batch: {losses[0]} -> {losses[-1]}")
-    print(f"train throughput f32 bs={bs}: {bs / dt:.1f} img/s ({dt * 1e3:.2f} ms/step) "
-          f"on {card}", flush=True)
+    print(f"train throughput {cfg.model} f32 bs={bs}: {bs / dt:.1f} img/s "
+          f"({dt * 1e3:.2f} ms/step) on {card}", flush=True)
+    return bs / dt
+
+
+# phase 15: one full-depth representative per mechanism of the ResNet zoo
+# (name, backbone kwargs), card against CPU at 224 px, batch 2
+ZOO = (("resnet50", {}), ("resnext50_32x4d", {}), ("seresnext26d_32x4d", {}),
+       ("seresnext26t_32x4d", {}), ("seresnext26tn_32x4d", {}), ("ecaresnet50d_pruned", {}),
+       ("res2net50_26w_4s", {}), ("skresnet18", {}), ("skresnext50_32x4d", {}),
+       ("resnetblur50", {}), ("gluon_senet154", {}), ("resnet50", {"output_stride": 16}),
+       ("resnest26d", {"output_stride": 8}), ("resnet18", {"s2d_stem": True}))
+ZOO_BAR = 1e-3  # max|d| over max(1, max|CPU|), logits and features
+
+
+def phase_zoo_gpu_vs_cpu():
+    """Each representative with the same seeded weights (``init_weights``)
+    on the card and on the CPU, eval mode, one seeded batch of 2 at 224 px:
+    features and logits within ZOO_BAR of the CPU's scale. On the CPU the
+    logits are the model's head on its features (the forward's own head
+    code), to run each deep net once there."""
+    import numpy as np
+    import torch
+
+    from scouter_tpu_torch.models import create_model, init_weights, layers
+
+    x = torch.from_numpy(np.random.RandomState(21).randn(2, 3, 224, 224).astype(np.float32))
+    results = {}
+    for i, (name, kw) in enumerate(ZOO):
+        label = name + "".join(f" {k}={v}" for k, v in kw.items())
+        t0 = time.monotonic()
+        cpu = create_model(name, **kw)
+        init_weights(cpu, torch.Generator().manual_seed(100 + i))
+        cpu.eval()
+        gpu = create_model(name, **kw)
+        gpu.load_state_dict(cpu.state_dict())
+        gpu = gpu.cuda().eval()
+        with torch.no_grad():
+            f_cpu = cpu(x, features_only=True)
+            l_cpu = cpu.fc(layers.global_avg_pool(f_cpu))
+            f_gpu = gpu(x.cuda(), features_only=True).cpu()
+            l_gpu = gpu(x.cuda()).cpu()
+        errs = {}
+        for what, got, want in (("features", f_gpu, f_cpu), ("logits", l_gpu, l_cpu)):
+            if got.shape != want.shape or not torch.isfinite(got).all():
+                fail(f"zoo {label}: {what} of shape {tuple(got.shape)} on the card, "
+                     f"{tuple(want.shape)} on the CPU, or not finite")
+            scale = max(1.0, want.abs().max().item())
+            errs[what] = (got - want).abs().max().item() / scale
+        print(f"zoo {label}: features {tuple(f_gpu.shape)}, card vs CPU max|d| / max(1, "
+              f"max|CPU|): features {errs['features']:.3e}, logits {errs['logits']:.3e} (bar "
+              f"{ZOO_BAR}); {time.monotonic() - t0:.1f} s", flush=True)
+        if max(errs.values()) > ZOO_BAR:
+            fail(f"zoo {label}: the card differs from the CPU by {errs}")
+        results[label] = errs
+        del cpu, gpu
+    return results
+
+
+def phase_zoo_explain(tmp: str, cfg):
+    """The explain CLI on ``cfg.model``'s checkpoint that phase_train wrote:
+    K1 once, hist-free, K2 never, 1 + 2 x classes PNGs."""
+    import os
+
+    import torch
+
+    from scouter_tpu_torch.explain import cli
+    from scouter_tpu_torch.ops import render_kernel
+
+    run_dir = os.path.join(tmp, "explain")
+    os.makedirs(run_dir)
+    k1_counts(reset=True)
+    render_kernel.render_heatmaps_fused.launches = 0
+    cwd = os.getcwd()
+    os.chdir(run_dir)
+    try:
+        path, lines = run_cli(cli.main, flagship_flags(tmp, cfg.model))
+    finally:
+        os.chdir(cwd)
+    torch.cuda.synchronize()
+    counts = k1_counts()
+    pngs = sorted(f for f in os.listdir(os.path.join(run_dir, "sloter_vis"))
+                  if f.endswith(".png"))
+    print(f"explain {cfg.model}: restored {os.path.basename(path)}, predicted {lines[-1]}, "
+          f"{len(pngs)} PNGs; xslot_fwd launches {counts['launches']} (hist "
+          f"{counts['hist_launches']}), render_heatmaps launches "
+          f"{render_kernel.render_heatmaps_fused.launches}", flush=True)
+    if counts["launches"] != 1 or counts["hist_launches"]:
+        fail(f"explain {cfg.model}: K1 counts {counts}, expected one hist-free launch")
+    if render_kernel.render_heatmaps_fused.launches:
+        fail(f"explain {cfg.model}: the CLI launched K2")
+    if len(pngs) != 1 + 2 * cfg.num_classes or int(lines[-1]) not in range(cfg.num_classes):
+        fail(f"explain {cfg.model}: {len(pngs)} PNGs, prediction {lines[-1]!r}")
+    return counts["launches"]
+
+
+OS16_GRAD_NORM_BAR = 0.1  # ||g_card - g_cpu|| / ||g_cpu|| for each parameter
+
+
+def phase_zoo_os16(cfg):
+    """``cfg``'s slot model built with ``backbone_kwargs={"output_stride":
+    16}`` (N = 196): one train step at batch 4 on the card and on the CPU
+    from the same weights and batch (cuDNN deterministic). Held: the loss
+    and the BatchNorm statistics within 1e-3; on the card K1's counts zeroed
+    just before the step and read just after it (hist 1, the backward's
+    tiled route 1, a cluster 0); the tiled route's call inside the card's
+    step, on the residuals and cotangents the step gave it, against
+    ``xslot_bwd_ref`` to chip_smoke's gradient bar; every parameter's
+    gradient, as the step leaves it before the optimizer's update, within
+    ``OS16_GRAD_NORM_BAR`` of the CPU's in norm. At random weights the
+    step is ill-conditioned (the renorm has no epsilon, and the error grows
+    on its way down the backbone): the CPU's f32 gradients lie several
+    percent of a tensor's max|g| from the same step in float64 on the CPU,
+    which is printed beside the card's figures, so no per-element bar of
+    1e-3 holds. Then
+    the tiled route's launches in one call (``profiled_launches``) held to
+    ``TiledPlan.launches``. Returns (the step's K1 counts, launches a
+    call)."""
+    import numpy as np
+    import torch
+
+    from scouter_tpu_torch.models import build_slot_model
+    from scouter_tpu_torch.ops import slot_kernel
+    from scouter_tpu_torch.train import create_train_state, make_train_step
+
+    b, kw = 4, {"output_stride": 16}
+    s = cfg.slots_per_class * cfg.num_classes
+    cfg4 = cfg.replace(batch_size=b)
+    init = build_slot_model(cfg4, device="cpu", backbone_kwargs=kw).state_dict()
+    rng = np.random.RandomState(22)
+    images = torch.from_numpy(rng.randn(b, 3, cfg.img_size, cfg.img_size).astype(np.float32))
+    labels = torch.from_numpy(rng.randint(0, cfg.num_classes, b))
+    results, counts, calls = {}, None, []
+    launch_bwd = slot_kernel._launch_bwd
+
+    def recorded_launch_bwd(*args):
+        out = launch_bwd(*args)
+        calls.append(([a.clone() for a in args], [g.clone() for g in out]))
+        return out
+
+    torch.backends.cudnn.deterministic = True
+    try:
+        for dev, dtype in (("cuda", torch.float32), ("cpu", torch.float32),
+                           ("cpu", torch.float64)):
+            model = build_slot_model(cfg4, fused_slot=True, device=dev, backbone_kwargs=kw)
+            model.load_state_dict(init)
+            model.to(dtype)
+            state = create_train_state(model, cfg.lr)
+            step = make_train_step(cfg.lambda_value)
+            k1_counts(reset=True)
+            slot_kernel._launch_bwd = recorded_launch_bwd
+            try:
+                _, m = step(state, {"image": images.to(dev, dtype), "label": labels.to(dev)})
+            finally:
+                slot_kernel._launch_bwd = launch_bwd
+            if dtype == torch.float64:
+                exact_grads = {k: p.grad for k, p in model.named_parameters()
+                               if p.grad is not None}
+                continue
+            if dev == "cuda":
+                torch.cuda.synchronize()
+                counts = k1_counts()
+            grads = {k: p.grad.cpu() for k, p in model.named_parameters() if p.grad is not None}
+            stats = {k: t.cpu() for k, t in model.state_dict().items()
+                     if k.endswith(("running_mean", "running_var"))}
+            with torch.no_grad():
+                attn_n = model.eval()(images[:1].to(dev))["attn"].shape[-1]
+            results[dev] = (m["loss"].item(), grads, stats, attn_n)
+    finally:
+        torch.backends.cudnn.deterministic = False
+    (lg, gg, sg, n_gpu), (lc, gc, sc, n_cpu) = results["cuda"], results["cpu"]
+    if (n_gpu, n_cpu) != (196, 196):
+        fail(f"output stride 16 gave N={n_gpu} on the card and {n_cpu} on the CPU, not 196")
+    if set(gg) != set(gc) or not any(k.startswith("slot.") for k in gc):
+        fail(f"the OS16 step left gradients for {len(gg)} parameters on the card and "
+             f"{len(gc)} on the CPU")
+    by_max = {k: ((gg[k] - gc[k]).abs().max() / gc[k].abs().max()).item() for k in gc}
+    by_norm = {k: ((gg[k] - gc[k]).norm() / gc[k].norm()).item() for k in gc}
+    cpu_by_max = max(((gc[k].double() - g).abs().max() / g.abs().max()).item()
+                     for k, g in exact_grads.items())
+    cpu_by_norm = max(((gc[k].double() - g).norm() / g.norm()).item()
+                      for k, g in exact_grads.items())
+    head = [k for k in gc if not k.startswith("backbone.")]
+    stat_err = max((sg[k] - sc[k]).abs().max().item() for k in sc)
+    worst = max(by_norm, key=by_norm.get)
+    print(f"{cfg.model} output_stride 16 train step (batch {b}, N={n_gpu}): loss {lg:.6f} on "
+          f"the card vs {lc:.6f} on the CPU; {len(gc)} gradients card vs CPU, "
+          f"||d|| / ||g|| worst {by_norm[worst]:.3e} ({worst}; bar {OS16_GRAD_NORM_BAR}), "
+          f"max|d| / max|g| worst {max(by_max.values()):.3e}, in the slot head and conv1x1 "
+          f"{max(by_max[k] for k in head):.3e} (the CPU's f32 gradients from its float64 "
+          f"run: worst {cpu_by_norm:.3e} of a norm, {cpu_by_max:.3e} of a max|g|); "
+          f"BatchNorm statistics max|d| {stat_err:.3e} "
+          f"(bar rtol/atol 1e-3); K1 in the card's step {json.dumps(counts)}", flush=True)
+    if not np.isclose(lg, lc, rtol=1e-3, atol=1e-3):
+        fail(f"OS16 train-step loss on the card {lg} differs from the CPU's {lc}")
+    if by_norm[worst] > OS16_GRAD_NORM_BAR:
+        fail(f"{worst}'s gradient in the OS16 train step differs between card and CPU by "
+             f"{by_norm[worst]:.3e} of its norm")
+    for k in sc:
+        if not torch.allclose(sg[k], sc[k], rtol=1e-3, atol=1e-3):
+            fail(f"{k} after the OS16 train step differs between card and CPU")
+    if (counts["hist_launches"], counts["bwd_tiled_launches"], counts["bwd_launches"]) != (
+            1, 1, 0):
+        fail(f"the OS16 train step's K1 counts {counts}: expected hist 1, tiled backward 1, "
+             "cluster 0")
+    (plan,) = check_tiled_plans(((b, 196, s, cfg.hidden_dim),)).values()
+    ((res, got),) = calls  # the card's call: the CPU runs the plain version
+    if res[0].device.type != "cuda" or tuple(res[6].shape) != (b, 3, s, cfg.hidden_dim):
+        fail(f"K1's backward in the OS16 step saw hist {tuple(res[6].shape)} on "
+             f"{res[0].device}")
+    with torch.no_grad():
+        want = slot_kernel.xslot_bwd_ref(*res)
+        exact = slot_kernel.xslot_bwd_ref(*(t.double() for t in res))
+    check_grads("xslot_bwd tiled route in the OS16 step vs xslot_bwd_ref,", b, 196, s,
+                ("k", "v", "initial_slots", "w_ih", "w_hh", "b_ih", "b_hh"), got, want, exact)
+    with torch.no_grad():
+        per_call = profiled_launches(lambda: slot_kernel._launch_bwd(*res))
+    print(f"xslot_bwd tiled route at ({b}, 196, {s}), the OS16 step's shape: {per_call} "
+          f"launches in one call, graph nodes held to torch.profiler's launch calls "
+          f"(TiledPlan.launches: {plan.launches(3)})", flush=True)
+    if per_call != plan.launches(3):
+        fail(f"the tiled route made {per_call} launches at the OS16 shape, the plan says "
+             f"{plan.launches(3)}")
+    return counts, per_call
+
+
+def phase_zoo_os8_limit(cfg):
+    """The slot model at output stride 8 reaches N = 28 x 28 = 784 at 224 px,
+    past K1's forward reach at S=30 (N=343, ROADMAP Queue C): on the card
+    its forward raises ValueError, where JAX's trains on the jnp path. The
+    backbone itself runs at OS8 (phase 15's zoo)."""
+    import torch
+
+    from scouter_tpu_torch.models import build_slot_model
+
+    model = build_slot_model(cfg.replace(batch_size=1), fused_slot=True, device="cuda",
+                             backbone_kwargs={"output_stride": 8})
+    x = torch.zeros(1, 3, cfg.img_size, cfg.img_size, device="cuda")
+    try:
+        with torch.no_grad():
+            model(x)
+    except ValueError as exc:
+        print(f"{cfg.model} output_stride 8 slot model (N=784): K1 raises as documented: "
+              f"{exc}", flush=True)
+        return
+    fail(f"{cfg.model} at output stride 8 (N=784) ran K1's forward past its documented reach")
+
+
+def phase_zoo(card: str):
+    """Phase 15: the ResNet zoo, and the flagship's config on resnet50 through
+    the normal entry points. Returns what the kernels line carries."""
+    import tempfile
+
+    from scouter_tpu_torch.core import ScouterConfig
+    from scouter_tpu_torch.models import build_slot_model
+
+    t0 = time.monotonic()
+    zoo = phase_zoo_gpu_vs_cpu()
+    cfg = ScouterConfig(**FLAGSHIP).replace(model="resnet50")
+    state_dict = build_slot_model(cfg, device="cpu").state_dict()
+    serve_launches = phase_serve(cfg, state_dict)
+    phase_gpu_vs_cpu(cfg, state_dict)
+    serve_rates = phase_throughput(cfg, state_dict, card)
+    with tempfile.TemporaryDirectory() as tmp:
+        k1_counts(reset=True)
+        launches, bwd_launches = phase_train(tmp, model=cfg.model)
+        tiled = k1_counts()["bwd_tiled_launches"]
+        if tiled:
+            fail(f"{cfg.model} training took K1's tiled backward {tiled} times; (70, 49, 30) "
+                 "runs on a cluster")
+        explain_launches = phase_zoo_explain(tmp, cfg)
+    train_rate = phase_train_throughput(cfg, card)
+    os16_counts, os16_per_call = phase_zoo_os16(cfg)
+    phase_zoo_os8_limit(cfg)
+    seconds = time.monotonic() - t0
+    summary = dict(zoo_max_rel_err=max(max(e.values()) for e in zoo.values()),
+                   serve_img_per_s=serve_rates, train_img_per_s=train_rate)
+    print(json.dumps({"resnet50_xslot": summary}), flush=True)
+    print(f"phase 15 (zoo, resnet50 + xSlot) took {seconds:.1f} s", flush=True)
+    return dict(serve_launches=serve_launches, train_launches=launches,
+                bwd_launches=bwd_launches, explain_launches=explain_launches,
+                os16_tiled_launches=os16_counts["bwd_tiled_launches"],
+                os16_hist_launches=os16_counts["hist_launches"],
+                os16_launches_per_call=os16_per_call)
 
 
 def main() -> int:
@@ -2389,6 +2754,14 @@ def main() -> int:
         phase_folder_preempt(tmp)
         entry["tree_explain_launches"] = phase_folder_explain(tree, out)
         phase_folder_serve(out)
+    zoo = phase_zoo(card)
+    entry["resnet50_launches"] = zoo["train_launches"]
+    entry["resnet50_serve_launches"] = zoo["serve_launches"]
+    entry["resnet50_explain_launches"] = zoo["explain_launches"]
+    entry["os16_hist_launches"] = zoo["os16_hist_launches"]
+    bwd_entry["resnet50_launches"] = zoo["bwd_launches"]
+    tiled_entry["os16_launches"] = zoo["os16_tiled_launches"]
+    tiled_entry["os16_launches_per_call"] = zoo["os16_launches_per_call"]
     if "PIL" in sys.modules:
         fail("Pillow was imported")
     print(f"chip_smoke finished in {time.monotonic() - t0:.1f} s after the build started",

@@ -1,10 +1,12 @@
 """Where the time of the PyTorch port's flagship serving call goes, on one GPU.
 
-    python examples/torch_profile_serve.py [--batch 70] [--iters 20] [--out FILE]
+    python examples/torch_profile_serve.py [--model NAME] [--batch 70] [--iters 20]
+        [--out FILE]
 
 Builds the flagship resnest26d + xSlot (seeded random weights, the config of
-``chip_smoke.py``) and runs ``make_serving_fn`` at one batch with an f32 and a
-bf16 backbone. For each it reports, as one JSON line:
+``chip_smoke.py``; ``--model`` swaps in another registered backbone) and runs
+``make_serving_fn`` at one batch with an f32 and a bf16 backbone. For each
+it reports, as one JSON line:
 
 - ``stages_ms``: device time per call of preprocess, backbone, head
   (conv1x1 + ReLU + position embedding), xSlot (to_k, the xSlot kernel and
@@ -130,6 +132,7 @@ def profile_kernels(fn, images, iters):
 
 def main(argv=None) -> int:
     p = argparse.ArgumentParser(description=__doc__.split("\n")[0])
+    p.add_argument("--model", default=None, help="backbone (default: the flagship's)")
     p.add_argument("--batch", type=int, default=70)
     p.add_argument("--iters", type=int, default=20)
     p.add_argument("--out", default=None, help="also write the JSON lines to this file")
@@ -152,6 +155,7 @@ def main(argv=None) -> int:
         ["nvidia-smi", "--query-gpu=name,power.limit", "--format=csv,noheader"],
         capture_output=True, text=True, check=True).stdout.strip().splitlines()[0]
     cfg = ScouterConfig(**FLAGSHIP)
+    cfg = cfg.replace(model=args.model or cfg.model)
     state_dict = build_slot_model(cfg, device="cpu").state_dict()
     images = torch.from_numpy(np.random.RandomState(3).randint(
         0, 256, (args.batch, cfg.img_size, cfg.img_size, 3), np.uint8)).cuda()
@@ -161,7 +165,8 @@ def main(argv=None) -> int:
         for _ in range(3):
             fn(images)
         torch.cuda.synchronize()
-        record = {"card": card, "batch": args.batch, "backbone_dtype": name,
+        record = {"card": card, "model": cfg.model, "batch": args.batch,
+                  "backbone_dtype": name,
                   "stages_ms": stage_times(fn, images, args.iters)}
         record.update(profile_kernels(fn, images, args.iters))
         lines.append(json.dumps(record))

@@ -1,11 +1,12 @@
 """Where the time of the PyTorch port's train step goes, on one GPU.
 
-    python examples/torch_profile_train.py [--config flagship|cub] [--batch B]
-        [--compute_dtype float32|bfloat16] [--iters 10] [--out FILE]
+    python examples/torch_profile_train.py [--config flagship|cub] [--model NAME]
+        [--batch B] [--compute_dtype float32|bfloat16] [--iters 10] [--out FILE]
 
 Builds the flagship resnest26d + xSlot (default, batch 70, f32) or the
 CUB-200 recipe (resnest50d, 200 x 5 slots, 260 px; batch 16, bf16) with
-seeded random weights, the configs of ``chip_smoke.py``, and runs
+seeded random weights, the configs of ``chip_smoke.py`` (``--model`` swaps
+in another registered backbone), and runs
 ``train.make_train_step`` on one repeated batch of the synthetic stand-in.
 It reports, as one JSON line:
 
@@ -131,6 +132,7 @@ def bn_route_ms(step, state, batch, iters):
 def main(argv=None) -> int:
     p = argparse.ArgumentParser(description=__doc__.split("\n")[0])
     p.add_argument("--config", choices=("flagship", "cub"), default="flagship")
+    p.add_argument("--model", default=None, help="backbone (default: the config's)")
     p.add_argument("--batch", type=int, default=None, help="default: the config's")
     p.add_argument("--compute_dtype", choices=("float32", "bfloat16"), default=None,
                    help="default: the config's")
@@ -158,7 +160,7 @@ def main(argv=None) -> int:
         ["nvidia-smi", "--query-gpu=name,power.limit", "--format=csv,noheader"],
         capture_output=True, text=True, check=True).stdout.strip().splitlines()[0]
     cfg = ScouterConfig(**(CUB if args.config == "cub" else FLAGSHIP))
-    cfg = cfg.replace(batch_size=args.batch or cfg.batch_size,
+    cfg = cfg.replace(model=args.model or cfg.model, batch_size=args.batch or cfg.batch_size,
                       compute_dtype=args.compute_dtype or cfg.compute_dtype)
     args.batch = cfg.batch_size
     ds = _synthetic_folder(cfg.dataset, cfg.num_classes, cfg.img_size, train=True)
@@ -174,7 +176,7 @@ def main(argv=None) -> int:
     torch.cuda.synchronize()
     fused = slot_kernel.xslot_iterations_fused
     fused.launches = fused.hist_launches = 0
-    record = {"card": card, "config": args.config, "batch": args.batch,
+    record = {"card": card, "config": args.config, "model": cfg.model, "batch": args.batch,
               "dtype": cfg.compute_dtype,
               "stages_ms": stage_times(step, state, batch, args.iters)}
     record.update(profile_kernels(lambda b: step(state, b), batch, args.iters))

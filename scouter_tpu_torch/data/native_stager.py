@@ -24,7 +24,7 @@ import numpy as np
 
 from ..ops.cuda_build import BUILD_DIR, CSRC
 
-__all__ = ["gather_items", "png_unfilter", "resize_batch"]
+__all__ = ["gather_items", "native_available", "png_unfilter", "resize_batch"]
 
 GXX_FLAGS = ("-O3", "-march=native", "-shared", "-fPIC")
 _lock = threading.Lock()
@@ -66,6 +66,17 @@ def _load() -> ctypes.CDLL:
         lib.png_unfilter.restype = i
         _lib = lib
         return lib
+
+
+def native_available() -> bool:
+    """Whether the library builds and loads here (the JAX package's name).
+    The port has no numpy fallback: where this is False, the stager's
+    functions raise."""
+    try:
+        _load()
+    except (RuntimeError, OSError):
+        return False
+    return True
 
 
 def resize_batch(images: np.ndarray, size: Tuple[int, int], nthreads: int = 0) -> np.ndarray:

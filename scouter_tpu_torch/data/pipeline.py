@@ -17,12 +17,22 @@ BatchSampler(drop_last=True), DataLoaderX thread prefetch):
 - host batches are uint8, pinned on the card's host side and copied
   asynchronously; a batch already on the Loader's device is taken as it is.
   ``preprocess_batch`` resizes, augments and normalises them on the device.
-  The next batch's copy and preprocessing are enqueued before the current
-  batch is handed out, one batch ahead, as the JAX thread does.
+- a producer thread makes the batches (the dataset's decode, the copy and
+  the preprocessing) into a queue of ``prefetch`` batches, as the JAX
+  package's Loader does (``scouter_tpu/data/pipeline.py:202-229``); an
+  early break or an exception on either side stops it. On the card it
+  enqueues its work on a stream of its own and records an event after
+  each batch, which the consumer's stream waits on before the batch is
+  used; each batch tensor is marked as used on the consumer's stream, so
+  the allocator does not hand its memory back to the producer's too soon.
+  Which batches an epoch holds, and in which order, does not depend on the
+  thread: every batch is a function of (epoch, index) alone.
 """
 
 from __future__ import annotations
 
+import queue
+import threading
 from typing import Dict, Iterator, Optional
 
 import numpy as np
@@ -55,8 +65,12 @@ class Loader:
     ``label`` (B,) int64 and ``mask`` (B,) float32 on ``device``."""
 
     def __init__(self, dataset: ArrayDataset, batch_size: int, *, img_size: int,
-                 train: bool, aug: bool = False, seed: int = 0, device="cuda"):
+                 train: bool, aug: bool = False, seed: int = 0, prefetch: int = 2,
+                 device="cuda"):
+        if prefetch < 1:
+            raise ValueError(f"prefetch must be at least 1, got {prefetch}")
         self.ds = dataset
+        self.prefetch = prefetch
         self.batch_size = batch_size
         self.img_size = img_size
         self.train = train
@@ -64,6 +78,7 @@ class Loader:
         self.seed = seed
         self.device = resolve_device(device)
         self._indices = np.arange(len(dataset))
+        self._stream = None  # the producer's CUDA stream, made at the first epoch
 
     def steps_per_epoch(self) -> int:
         n = len(self._indices)
@@ -121,13 +136,72 @@ class Loader:
         return out
 
     def epoch(self, epoch: int) -> Iterator[Dict[str, torch.Tensor]]:
-        """Yield the device batches of one epoch, one batch ahead."""
-        host = self._host_batches(epoch)
-        first = next(host, None)
-        if first is None:
-            return
-        ahead = self._to_device(first, 0, epoch)
-        for bi, hb in enumerate(host, start=1):
-            current, ahead = ahead, self._to_device(hb, bi, epoch)
-            yield current
-        yield ahead
+        """Yield the device batches of one epoch, made ``prefetch`` ahead on
+        the producer thread."""
+        cuda = self.device.type == "cuda"
+        if cuda and self._stream is None:
+            # one producer stream for the Loader's life: its allocator pool
+            # stays warm from epoch to epoch
+            self._stream = torch.cuda.Stream(self.device)
+        stream = self._stream
+        q: "queue.Queue" = queue.Queue(maxsize=self.prefetch)
+        stop = object()
+        cancel = threading.Event()
+
+        def qput(item) -> bool:
+            # a bounded put that gives up once the consumer has left the
+            # epoch (an early break or an exception), so the thread ends and
+            # releases its batches
+            while not cancel.is_set():
+                try:
+                    q.put(item, timeout=0.1)
+                    return True
+                except queue.Full:
+                    continue
+            return False
+
+        def produce():
+            for bi, hb in enumerate(self._host_batches(epoch)):
+                batch = self._to_device(hb, bi, epoch)
+                ready = None
+                if cuda:
+                    ready = torch.cuda.Event()
+                    ready.record(stream)
+                if not qput((batch, ready)):
+                    return
+            qput(stop)
+
+        def worker():
+            try:
+                if cuda:
+                    with torch.cuda.device(self.device), torch.cuda.stream(stream):
+                        produce()
+                else:
+                    produce()
+            except BaseException as exc:  # hand it over, never leave q.get waiting
+                qput(exc)
+
+        thread = threading.Thread(target=worker, name="loader-producer", daemon=True)
+        thread.start()
+        try:
+            while True:
+                item = q.get()
+                if item is stop:
+                    return
+                if isinstance(item, BaseException):
+                    raise item
+                batch, ready = item
+                if ready is not None:
+                    consumer = torch.cuda.current_stream(self.device)
+                    consumer.wait_event(ready)
+                    for t in batch.values():
+                        t.record_stream(consumer)
+                yield batch
+        finally:
+            cancel.set()
+            while True:  # release the queued batches
+                try:
+                    q.get_nowait()
+                except queue.Empty:
+                    break
+            thread.join()

@@ -97,20 +97,33 @@ class FolderDataset:
 
     def gather(self, indices) -> torch.Tensor:
         """Decode (or take from the cache) ``indices``: (B, s, s, 3) uint8 on
-        the dataset's device."""
+        the dataset's device. On the card the pool's decodes run on the
+        caller's current stream (the Loader's producer stream), in order
+        with the copies here, and a cached image read on another stream than
+        the one that made it is marked as used there."""
         indices = np.asarray(indices)
         s = self.staging_size
+        stream = torch.cuda.current_stream(self.device) if self.device.type == "cuda" else None
         out = torch.empty((len(indices), s, s, 3), dtype=torch.uint8, device=self.device)
         pending = []
         with self._cache_lock:
             for pos, idx in enumerate(indices):
                 hit = self._cache.get(int(idx))
                 if hit is not None:
+                    if stream is not None:
+                        hit.record_stream(stream)
                     out[pos] = hit
                 else:
                     pending.append((pos, int(idx)))
+
+        def decode(p):
+            if stream is None:
+                return p[0], p[1], self._decode(p[1])
+            with torch.cuda.stream(stream):
+                return p[0], p[1], self._decode(p[1])
+
         if pending:
-            decoded = list(self._pool.map(lambda p: (p[0], p[1], self._decode(p[1])), pending))
+            decoded = list(self._pool.map(decode, pending))
             with self._cache_lock:
                 for pos, idx, img in decoded:
                     out[pos] = img

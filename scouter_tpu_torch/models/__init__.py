@@ -10,22 +10,33 @@ from torch import nn
 
 from . import zoo  # noqa: F401  (registers the entrypoints)
 from ..core.device import resolve_device
-from .convert import variables_to_state_dict
+from ..ops.slot_attention import init_xslot_params
+from .convert import (
+    merge_variables,
+    prepare_pretrained_state_dict,
+    strip_prefix,
+    variables_to_state_dict,
+)
 from .registry import create_model, is_model, list_models, model_entrypoint, register_model
 from .resnet import ResNet
-from .slot_model import SlotModel, XSlot
+from .slot_model import SlotModel, SlotModelOutput, XSlot
 
 __all__ = [
     "ResNet",
     "SlotModel",
+    "SlotModelOutput",
     "XSlot",
+    "auto_fused_slot",
     "build_slot_model",
     "create_model",
     "init_weights",
     "is_model",
     "list_models",
+    "merge_variables",
     "model_entrypoint",
+    "prepare_pretrained_state_dict",
     "register_model",
+    "strip_prefix",
     "variables_to_state_dict",
 ]
 
@@ -45,36 +56,49 @@ def _variance_scaling_(w: torch.Tensor, scale: float, fan: int, g: torch.Generat
     _trunc_normal_(w, math.sqrt(scale / fan) / _TRUNC_STD, g)
 
 
+def auto_fused_slot(cfg, train: bool, batch_size=None) -> bool:
+    """The JAX package's slot-kernel selection hook, which returns False for
+    every config there: its Pallas kernel stays opt-in. The port's entry
+    points always build ``fused_slot=True`` (K1 is the CUDA kernel on the
+    card and its plain version on the CPU), so the hook answers as JAX's
+    does and nothing here reads it."""
+    del cfg, train, batch_size
+    return False
+
+
 def init_weights(model: nn.Module, generator: torch.Generator) -> None:
     """Initialise ``model`` in place from ``generator`` with the JAX package's
     distributions: fan-out truncated normal (scale 2) for the backbone convs
-    built by ``layers.conv2d``, LeCun truncated normal for the other convs and
-    the classifier, unit/zero BatchNorm, torch-default uniform for the xSlot
-    Linear and GRU weights, and initial slots drawn as N(mu, |sigma|) with
-    standard-normal mu and sigma per feature."""
+    built by ``layers.conv2d`` and the space-to-depth stem conv, LeCun
+    truncated normal with zero bias for the other convs (SE's fc1/fc2, ECA's
+    Conv1d, SK's fc_reduce/fc_select, split attention's, the slot head's
+    1x1) and the classifier, unit/zero BatchNorm, torch-default uniform for
+    the xSlot Linear and GRU weights, and initial slots drawn as N(mu,
+    |sigma|) with standard-normal mu and sigma per feature."""
     g = generator
     in_slot = {sub for m in model.modules() if isinstance(m, XSlot) for sub in m.modules()}
     with torch.no_grad():
         for m in model.modules():
-            if isinstance(m, nn.Conv2d):
-                o, i_g, kh, kw = m.weight.shape
+            if isinstance(m, (nn.Conv1d, nn.Conv2d)):
+                o, i_g, *taps = m.weight.shape
                 if getattr(m, "fan_out_init", False):
-                    _variance_scaling_(m.weight, 2.0, o * kh * kw, g)
+                    _variance_scaling_(m.weight, 2.0, o * math.prod(taps), g)
                 else:
-                    _variance_scaling_(m.weight, 1.0, i_g * kh * kw, g)
+                    _variance_scaling_(m.weight, 1.0, i_g * math.prod(taps), g)
                 if m.bias is not None:
                     m.bias.zero_()
             elif isinstance(m, nn.BatchNorm2d):
                 m.reset_parameters()
             elif isinstance(m, XSlot):
-                d = m.cfg.dim
-                bound = 1.0 / math.sqrt(d)
-                mu = torch.empty(1, 1, d).normal_(generator=g)
-                sigma = torch.empty(1, 1, d).normal_(generator=g)
-                draw = torch.empty_like(m.initial_slots).normal_(generator=g)
-                m.initial_slots.copy_(mu + sigma.abs() * draw)
-                for p in list(m.to_k.parameters()) + list(m.gru.parameters()):
-                    p.uniform_(-bound, bound, generator=g)
+                p = init_xslot_params(g, m.cfg)
+                m.initial_slots.copy_(p["initial_slots"])
+                for layer, src in zip((x for x in m.to_k if isinstance(x, nn.Linear)),
+                                      p["to_k"]):
+                    layer.weight.copy_(src["weight"])
+                    layer.bias.copy_(src["bias"])
+                for name, key in (("weight_ih_l0", "w_ih"), ("weight_hh_l0", "w_hh"),
+                                  ("bias_ih_l0", "b_ih"), ("bias_hh_l0", "b_hh")):
+                    getattr(m.gru, name).copy_(p["gru"][key])
             elif isinstance(m, nn.Linear) and m not in in_slot:
                 _variance_scaling_(m.weight, 1.0, m.in_features, g)
                 m.bias.zero_()
@@ -82,7 +106,8 @@ def init_weights(model: nn.Module, generator: torch.Generator) -> None:
 
 def build_slot_model(cfg, fused_slot: bool = False, device="cuda",
                      generator: Optional[torch.Generator] = None,
-                     compute_dtype: Optional[torch.dtype] = None) -> SlotModel:
+                     compute_dtype: Optional[torch.dtype] = None,
+                     backbone_kwargs: Optional[dict] = None) -> SlotModel:
     """Build the SlotModel of a ScouterConfig in eval mode on ``device``.
 
     - MNIST swaps the stem conv for Conv(1->64, 3x3, s2, p1)
@@ -97,12 +122,14 @@ def build_slot_model(cfg, fused_slot: bool = False, device="cuda",
       parameters f32 and cast at use (so every state dict is f32)
     - ``fused_slot`` runs the xSlot loop through the CUDA kernel
       (``ops.slot_kernel``); ``generator`` seeds the init (default: cfg.seed)
+    - ``backbone_kwargs`` go to the backbone's factory as they are (e.g.
+      ``output_stride``, ``s2d_stem``, ``drop_rate``)
     """
     dev = resolve_device(device)
     mnist = cfg.dataset == "MNIST"
     backbone = create_model(cfg.model, num_classes=0 if cfg.use_slot else cfg.num_classes,
                             in_chans=1 if mnist else 3, mnist_stem=mnist,
-                            compute_dtype=compute_dtype)
+                            compute_dtype=compute_dtype, **(backbone_kwargs or {}))
     head_compute = (compute_dtype is not None and cfg.use_slot
                     and cfg.slot_head_dtype == "compute")
     model = SlotModel(

@@ -6,24 +6,36 @@
 anything ``np.asarray`` takes) and returns the torch state dict under the
 reference's names, which ``SlotModel.load_state_dict`` accepts:
 
-- conv kernels HWIO -> OIHW, Dense kernels (in, out) -> (out, in)
+- conv kernels HWIO -> OIHW, Conv1d kernels (k, in, out) -> (out, in, k)
+  (ECA's), Dense kernels (in, out) -> (out, in)
 - ``layer1_0`` -> ``layer1.0``, ``conv1_0`` -> ``conv1.0``, and the nested
   ``downsample/downsample_1`` -> ``downsample.1``
 - BatchNorm ``scale`` -> ``weight``, ``mean``/``var`` -> ``running_mean``/
   ``running_var``, plus a zero ``num_batches_tracked``
 - xSlot leaves keep torch layout: ``to_k_{i}_weight`` -> ``to_k.{i}.weight``,
   ``gru_w_ih`` -> ``gru.weight_ih_l0``, ...
+
+``strip_prefix``, ``prepare_pretrained_state_dict`` and ``merge_variables``
+are the JAX package's pretrained-weight helpers (``convert.py:36-84``) on
+torch state dicts: the prefix handoff, timm's in_chans and classifier
+adjustments, and the overlay that keeps the init where a checkpoint has
+nothing.
 """
 
 from __future__ import annotations
 
 import re
-from typing import Any, Dict, Iterator, Mapping, Tuple
+from typing import Any, Dict, Iterator, Mapping, Optional, Tuple
 
 import numpy as np
 import torch
 
-__all__ = ["variables_to_state_dict"]
+__all__ = [
+    "merge_variables",
+    "prepare_pretrained_state_dict",
+    "strip_prefix",
+    "variables_to_state_dict",
+]
 
 _GRU_NAMES = {
     "gru_w_ih": "gru.weight_ih_l0",
@@ -83,6 +95,8 @@ def variables_to_state_dict(variables: Mapping[str, Mapping]) -> Dict[str, torch
         mod = _torch_module_path(path[:-1])
         if name == "kernel" and arr.ndim == 4:  # HWIO -> OIHW
             sd[f"{mod}.weight"] = _tensor(arr.transpose(3, 2, 0, 1))
+        elif name == "kernel" and arr.ndim == 3:  # Conv1d (k, in, out) -> (out, in, k)
+            sd[f"{mod}.weight"] = _tensor(arr.transpose(2, 1, 0))
         elif name == "kernel" and arr.ndim == 2:  # (in, out) -> (out, in)
             sd[f"{mod}.weight"] = _tensor(arr.T)
         elif name == "scale":
@@ -101,3 +115,57 @@ def variables_to_state_dict(variables: Mapping[str, Mapping]) -> Dict[str, torch
         else:
             raise KeyError(f"unrecognized batch_stats leaf {'/'.join(path)!r}")
     return sd
+
+
+def strip_prefix(state_dict: Mapping[str, Any], prefix: str = "backbone.") -> Dict[str, Any]:
+    """The entries under ``prefix``, the prefix removed: the ``k[9:]``
+    handoff of ``sloter/slot_model.py:27-33``."""
+    return {k[len(prefix):]: v for k, v in state_dict.items() if k.startswith(prefix)}
+
+
+def prepare_pretrained_state_dict(
+    state_dict: Mapping[str, Any],
+    *,
+    in_chans: int = 3,
+    num_classes: Optional[int] = None,
+    pretrained_classes: int = 1000,
+    first_conv: str = "conv1",
+    classifier: str = "fc",
+) -> Dict[str, Any]:
+    """timm's ``load_pretrained`` weight adjustments (``timm/models/helpers.py:68-101``):
+
+    - ``in_chans == 1``: the first conv's RGB kernel collapses by a sum over
+      its input channels (:75-80);
+    - a head with an extra background class (1001 -> 1000) loses row 0 of
+      the classifier's weight and bias (:85-91);
+    - any other class-count mismatch drops the classifier (:92-96), so the
+      model keeps its own.
+    """
+    sd = dict(state_dict)
+    if in_chans == 1:
+        sd[first_conv + ".weight"] = torch.as_tensor(sd[first_conv + ".weight"]).sum(
+            dim=1, keepdim=True)
+    elif in_chans != 3:
+        raise ValueError("pretrained weights support in_chans of 1 or 3 only")
+    if num_classes is not None and num_classes != pretrained_classes:
+        if num_classes == 1000 and pretrained_classes == 1001:
+            for leaf in ("weight", "bias"):
+                sd[f"{classifier}.{leaf}"] = torch.as_tensor(sd[f"{classifier}.{leaf}"])[1:]
+        else:
+            sd.pop(classifier + ".weight", None)
+            sd.pop(classifier + ".bias", None)
+    return sd
+
+
+def merge_variables(init: Mapping[str, Any], loaded: Mapping[str, Any]) -> Dict[str, Any]:
+    """``loaded`` overlaid on ``init``, the ``strict=False`` load
+    (helpers.py:96-101): what ``loaded`` lacks keeps its init, and what
+    ``init`` lacks is dropped. Nested mappings (variable trees) merge
+    recursively; a flat state dict merges key by key."""
+    out: Dict[str, Any] = {}
+    for k, v in init.items():
+        if k in loaded and isinstance(v, Mapping) and isinstance(loaded[k], Mapping):
+            out[k] = merge_variables(v, loaded[k])
+        else:
+            out[k] = loaded.get(k, v)
+    return out

@@ -1,10 +1,11 @@
-"""NCHW layers for the backbones the port carries
+"""NCHW layers for the ResNet-family backbones
 (counterpart of ``scouter_tpu/models/layers.py``).
 
 Torch conv padding, BatchNorm with eps 1e-5 (and flax's running-variance
-update in train mode), and the pooling variants the
-ResNet/ResNeSt skips use. Module names follow timm's, so state dicts carry the
-reference's names.
+update in train mode), the pooling variants the ResNet/ResNeSt skips use,
+the SE and ECA gates, the anti-aliasing blur, stochastic depth, head dropout
+and the space-to-depth stem conv. Module names follow timm's, so state dicts
+carry the reference's names.
 
 A ``compute_dtype`` (e.g. bf16) is flax's ``dtype`` with f32 ``param_dtype``:
 ``Conv2d`` and ``Linear`` cast their input and their f32 parameters to it at
@@ -24,20 +25,31 @@ runs the substituted convs.
 
 from __future__ import annotations
 
+import math
+from typing import Optional
+
 import torch
 import torch.nn.functional as F
 from torch import nn
 
 __all__ = [
     "BatchNorm2d",
+    "Conv1d",
     "Conv2d",
+    "Eca",
     "Linear",
+    "SpaceToDepthStemConv",
     "SplitAttnConv",
+    "SqueezeExcite",
     "avg_pool_ceil_exclude_pad",
     "avg_pool_include_pad",
+    "avg_pool_same_zero_pad",
     "batch_norm",
+    "blur_pool",
     "conv2d",
+    "drop_path",
     "global_avg_pool",
+    "head_dropout",
     "max_pool_3x3_s2_p1",
     "set_conv_policy",
     "torch_conv_padding",
@@ -65,6 +77,22 @@ class Conv2d(nn.Conv2d):
         dt = self.compute_dtype
         if self.substitute is not None:
             return self.substitute(x if dt is None else x.to(dt))
+        if dt is None:
+            return super().forward(x)
+        bias = None if self.bias is None else self.bias.to(dt)
+        return self._conv_forward(x.to(dt), self.weight.to(dt), bias)
+
+
+class Conv1d(nn.Conv1d):
+    """``nn.Conv1d`` computing in ``compute_dtype`` where one is given, as
+    ``Conv2d`` (ECA's channel conv)."""
+
+    def __init__(self, *args, compute_dtype=None, **kw):
+        super().__init__(*args, **kw)
+        self.compute_dtype = compute_dtype
+
+    def forward(self, x: torch.Tensor) -> torch.Tensor:
+        dt = self.compute_dtype
         if dt is None:
             return super().forward(x)
         bias = None if self.bias is None else self.bias.to(dt)
@@ -106,7 +134,9 @@ def set_conv_policy(model: nn.Module, policy) -> int:
     ``policy=None`` puts every conv back. Returns the number substituted."""
     count = 0
     for m in model.modules():
-        if isinstance(m, Conv2d) and getattr(m, "fan_out_init", False):
+        # the space-to-depth stem conv is not built by JAX's conv2d
+        if (isinstance(m, Conv2d) and getattr(m, "fan_out_init", False)
+                and not isinstance(m, SpaceToDepthStemConv)):
             make = policy(m.kernel_size[0], m.groups) if policy is not None else None
             m.substitute = make(m) if make is not None else None
             count += m.substitute is not None
@@ -145,6 +175,8 @@ class BatchNorm2d(nn.BatchNorm2d):
             return super().forward(x)
         c = x.shape[1]
         n = x.numel() // c
+        if n == 1:
+            return self._single_value(x)
         mean = torch.zeros(c, dtype=self.running_mean.dtype, device=x.device)
         var = torch.ones(c, dtype=self.running_var.dtype, device=x.device)
         y = F.batch_norm(x, mean, var, self.weight, self.bias, True, 1.0, self.eps)
@@ -154,6 +186,21 @@ class BatchNorm2d(nn.BatchNorm2d):
             self.running_var.mul_(1.0 - m).add_(var, alpha=m * (n - 1) / n)
             self.num_batches_tracked.add_(1)
         return y
+
+    def _single_value(self, x: torch.Tensor) -> torch.Tensor:
+        """Train mode over one value a channel (a (1, C, 1, 1) gate at batch
+        1), where ``F.batch_norm`` refuses: flax takes the value as the mean
+        and a variance of 0, so the output is the bias and the running
+        variance decays towards 0."""
+        mean = x.float().reshape(1, -1)[0]
+        y = ((x.float() - mean[None, :, None, None]) * self.eps ** -0.5
+             * self.weight[None, :, None, None] + self.bias[None, :, None, None])
+        with torch.no_grad():
+            m = self.momentum
+            self.running_mean.mul_(1.0 - m).add_(mean, alpha=m)
+            self.running_var.mul_(1.0 - m)
+            self.num_batches_tracked.add_(1)
+        return y.to(x.dtype)
 
 
 def batch_norm(num_features: int, *, eps: float = 1e-5, compute_dtype=None) -> BatchNorm2d:
@@ -228,3 +275,166 @@ class SplitAttnConv(nn.Module):
             attn = torch.softmax(attn, dim=1).reshape(b, self.radix, chs, 1, 1)
             return (x_r * attn).sum(dim=1)
         return x_r * torch.sigmoid(attn)
+
+
+def avg_pool_same_zero_pad(x: torch.Tensor, window: int = 2, stride: int = 1) -> torch.Tensor:
+    """timm's ``AvgPool2dSame(window, stride, ceil_mode=True,
+    count_include_pad=False)``: TF SAME zero padding, then a plain average,
+    so the padded zeros count and edge windows divide by the full window.
+    ``downsample_avg`` uses it on dilated stride-1 skips (output stride 8
+    and 16)."""
+    h, w = x.shape[-2:]
+    pad_h = max((-(-h // stride) - 1) * stride + window - h, 0)
+    pad_w = max((-(-w // stride) - 1) * stride + window - w, 0)
+    x = F.pad(x, (pad_w // 2, pad_w - pad_w // 2, pad_h // 2, pad_h - pad_h // 2))
+    return F.avg_pool2d(x, window, stride)
+
+
+def head_dropout(x: torch.Tensor, rate: float, train: bool,
+                 generator: Optional[torch.Generator] = None) -> torch.Tensor:
+    """timm's head dropout before the classifier, as flax's ``nn.Dropout``:
+    each element kept with probability 1 - rate and scaled by 1/(1 - rate).
+    The identity unless training with rate > 0; ``generator`` draws the
+    mask (None: torch's default generator)."""
+    if rate <= 0.0 or not train:
+        return x
+    keep = 1.0 - rate
+    dev = generator.device if generator is not None else x.device
+    mask = torch.rand(x.shape, generator=generator, device=dev).to(x.device) < keep
+    return torch.where(mask, x / keep, torch.zeros((), dtype=x.dtype, device=x.device))
+
+
+def _reflect_index(n: int, pad: int, device) -> torch.Tensor:
+    """numpy's ``mode="reflect"`` as indices: the edge is not repeated, and a
+    length-1 axis repeats its one value."""
+    i = torch.arange(-pad, n + pad, device=device)
+    if n == 1:
+        return torch.zeros_like(i)
+    period = 2 * (n - 1)
+    i = i.remainder(period)
+    return torch.where(i >= n, period - i, i)
+
+
+def blur_pool(x: torch.Tensor, stride: int = 2, filt_size: int = 3) -> torch.Tensor:
+    """BlurPool2d (``timm/models/layers/blur_pool.py:19-60``): reflect padding,
+    then a binomial depthwise filter at ``stride``. The filter is a
+    constant, made here, not a parameter or a buffer: the state dict has no
+    ``filt``, as the JAX package's tree has none."""
+    coeffs = [1.0]
+    for _ in range(filt_size - 1):
+        coeffs = [0.5 * a + 0.5 * b for a, b in zip(coeffs + [0.0], [0.0] + coeffs)]
+    c = torch.tensor(coeffs, dtype=x.dtype, device=x.device)
+    chs = x.shape[1]
+    kernel = (c[:, None] * c[None, :]).expand(chs, 1, filt_size, filt_size)
+    pad = ((stride - 1) + (filt_size - 1)) // 2
+    h, w = x.shape[-2:]
+    x = x.index_select(2, _reflect_index(h, pad, x.device))
+    x = x.index_select(3, _reflect_index(w, pad, x.device))
+    return F.conv2d(x, kernel, stride=stride, groups=chs)
+
+
+def drop_path(x: torch.Tensor, rate: float, generator: Optional[torch.Generator],
+              train: bool) -> torch.Tensor:
+    """Stochastic depth (timm's ``DropPath``): each sample kept with
+    probability 1 - rate and scaled by 1/(1 - rate). The identity unless
+    training with rate > 0 and a ``generator``, as the JAX package's
+    ``drop_path`` is without an rng."""
+    if not train or rate == 0.0 or generator is None:
+        return x
+    keep = 1.0 - rate
+    shape = (x.shape[0],) + (1,) * (x.dim() - 1)
+    mask = torch.rand(shape, generator=generator, device=generator.device).to(x.device) < keep
+    return torch.where(mask, x / keep, torch.zeros((), dtype=x.dtype, device=x.device))
+
+
+class SqueezeExcite(nn.Module):
+    """SE gate (timm's ``SEModule``): global average -> fc1 (bias) -> ReLU ->
+    fc2 (bias) -> sigmoid scale, reduced to max(channels // 16, 8).
+
+    fc1 and fc2 are flax ``nn.Conv`` in the JAX package, not its
+    ``conv2d``: built as plain ``Conv2d``, they take the LeCun init and no
+    conv policy replaces them. ``in_channels`` is the gated input's width
+    where it is not ``channels`` (a pruned bottleneck keeps the unpruned
+    count here, as JAX does)."""
+
+    def __init__(self, channels: int, reduction: int = 16, min_channels: int = 8,
+                 in_channels: Optional[int] = None, compute_dtype=None):
+        super().__init__()
+        reduced = max(channels // reduction, min_channels)
+        self.fc1 = Conv2d(in_channels or channels, reduced, 1, bias=True,
+                          compute_dtype=compute_dtype)
+        self.fc2 = Conv2d(reduced, channels, 1, bias=True, compute_dtype=compute_dtype)
+
+    def forward(self, x: torch.Tensor) -> torch.Tensor:
+        s = self.fc2(torch.relu(self.fc1(x.mean(dim=(2, 3), keepdim=True))))
+        return x * torch.sigmoid(s)
+
+
+def eca_kernel_size(channels: int, gamma: float = 2.0, beta: float = 1.0) -> int:
+    """ECA's adaptive odd kernel size (``timm/models/layers/eca.py:41-73``)."""
+    t = int(abs(math.log(channels, 2) + beta) / gamma)
+    return max(t if t % 2 else t + 1, 3)
+
+
+class Eca(nn.Module):
+    """ECA gate: global average -> a bias-free ``Conv1d`` over the channel
+    descriptor with the adaptive kernel -> sigmoid scale."""
+
+    def __init__(self, channels: int, gamma: float = 2.0, beta: float = 1.0,
+                 compute_dtype=None):
+        super().__init__()
+        k = eca_kernel_size(channels, gamma, beta)
+        self.conv = Conv1d(1, 1, k, padding=(k - 1) // 2, bias=False,
+                           compute_dtype=compute_dtype)
+
+    def forward(self, x: torch.Tensor) -> torch.Tensor:
+        s = self.conv(x.mean(dim=(2, 3))[:, None, :])[:, 0]  # (B, C)
+        return x * torch.sigmoid(s)[:, :, None, None]
+
+
+class SpaceToDepthStemConv(Conv2d):
+    """A stride-2 odd-kernel conv computed through space-to-depth, exactly.
+
+    The input's 2x2 blocks become channels, (B, C, H, W) -> (B, 4C, H/2,
+    W/2), and the k x k taps are scattered into the equivalent block-space
+    kernel, so the conv runs at stride 1 on a quarter of the positions with
+    the same products. The parameter is the plain conv's ``weight`` (out,
+    in, k, k), so checkpoints load unchanged. Odd input sizes take the
+    strided conv itself, as the JAX package's does."""
+
+    def __init__(self, in_channels: int, out_channels: int, kernel_size: int,
+                 bias: bool = False, compute_dtype=None):
+        if kernel_size % 2 != 1:
+            raise ValueError("SpaceToDepthStemConv takes odd kernels only")
+        super().__init__(in_channels, out_channels, kernel_size, stride=2,
+                         padding=(kernel_size - 1) // 2, bias=bias,
+                         compute_dtype=compute_dtype)
+        self.fan_out_init = True
+
+    def forward(self, x: torch.Tensor) -> torch.Tensor:
+        dt = self.compute_dtype or self.weight.dtype
+        x, w = x.to(dt), self.weight.to(dt)
+        bias = None if self.bias is None else self.bias.to(dt)
+        b, cin, h, wd = x.shape
+        k = self.kernel_size[0]
+        p = (k - 1) // 2
+        if h % 2 or wd % 2:
+            return F.conv2d(x, w, bias, stride=2, padding=p)
+        dp_min, dp_max = -((p + 1) // 2), p // 2
+        bk = dp_max - dp_min + 1
+        # w2[o, (a*2 + b)*C + c, kp, kq] = w[o, c, 2(kp + dp_min) + a + p, ...]
+        w2 = w.new_zeros((w.shape[0], 4 * cin, bk, bk))
+        for kp in range(bk):
+            for a in range(2):
+                di = 2 * (kp + dp_min) + a
+                if not -p <= di <= p:
+                    continue
+                for kq in range(bk):
+                    for bb in range(2):
+                        dj = 2 * (kq + dp_min) + bb
+                        if -p <= dj <= p:
+                            ch = (a * 2 + bb) * cin
+                            w2[:, ch:ch + cin, kp, kq] = w[:, :, di + p, dj + p]
+        y = x.reshape(b, cin, h // 2, 2, wd // 2, 2).permute(0, 3, 5, 1, 2, 4)
+        y = F.pad(y.reshape(b, 4 * cin, h // 2, wd // 2), (-dp_min, dp_max, -dp_min, dp_max))
+        return F.conv2d(y, w2, bias)

@@ -27,7 +27,10 @@ from ..ops.position import sine_position_embedding
 from ..ops.slot_attention import XSlotConfig, xslot_attention
 from .layers import Conv2d
 
-__all__ = ["SlotModel", "XSlot"]
+__all__ = ["SlotModel", "SlotModelOutput", "XSlot"]
+
+# what SlotModel.forward returns: logits, and in slot mode area_loss and attn
+SlotModelOutput = Dict[str, torch.Tensor]
 
 
 class _GRUWeights(nn.Module):
@@ -108,7 +111,7 @@ class SlotModel(nn.Module):
                               power=power, to_k_layer=to_k_layer, fused=fused_slot,
                               compute_dtype=head_dtype)
 
-    def forward(self, x: torch.Tensor) -> Dict[str, torch.Tensor]:
+    def forward(self, x: torch.Tensor) -> SlotModelOutput:
         if not self.use_slot:
             return {"logits": self.backbone(x)}
         feats = self.backbone(x, features_only=True)  # (B, C, h, w)

@@ -18,7 +18,7 @@ from typing import TypedDict
 
 import torch
 
-__all__ = ["GRUParams", "gru_cell"]
+__all__ = ["GRUParams", "gru_cell", "init_gru_params"]
 
 
 class GRUParams(TypedDict):
@@ -26,6 +26,19 @@ class GRUParams(TypedDict):
     w_hh: torch.Tensor  # (3d, d)
     b_ih: torch.Tensor  # (3d,)
     b_hh: torch.Tensor  # (3d,)
+
+
+def init_gru_params(generator: torch.Generator, dim: int,
+                    dtype: torch.dtype = torch.float32) -> GRUParams:
+    """U(-1/sqrt(d), 1/sqrt(d)), torch's ``nn.GRU`` default, drawn from
+    ``generator`` in the order w_ih, w_hh, b_ih, b_hh."""
+    bound = 1.0 / dim ** 0.5
+
+    def u(*shape):
+        return torch.empty(shape, dtype=dtype).uniform_(-bound, bound, generator=generator)
+
+    return GRUParams(w_ih=u(3 * dim, dim), w_hh=u(3 * dim, dim), b_ih=u(3 * dim),
+                     b_hh=u(3 * dim))
 
 
 def gru_cell(params: GRUParams, x: torch.Tensor, h: torch.Tensor) -> torch.Tensor:

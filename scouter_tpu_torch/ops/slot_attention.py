@@ -21,13 +21,14 @@ Numeric contract (reference ``sloter/utils/slot_attention.py:44-96``):
 from __future__ import annotations
 
 import dataclasses
-from typing import Dict, List, Sequence, Tuple
+from typing import Any, Dict, List, Sequence, Tuple
 
 import torch
 
-from .gru import GRUParams, gru_cell
+from .gru import GRUParams, gru_cell, init_gru_params
 
-__all__ = ["XSlotConfig", "class_attention_maps", "xslot_attention", "xslot_iteration"]
+__all__ = ["XSlotConfig", "class_attention_maps", "init_xslot_params", "xslot_attention",
+           "xslot_iteration"]
 
 
 @dataclasses.dataclass(frozen=True)
@@ -45,6 +46,28 @@ class XSlotConfig:
     @property
     def num_slots(self) -> int:
         return self.num_classes * self.slots_per_class
+
+
+def init_xslot_params(generator: torch.Generator, cfg: XSlotConfig,
+                      dtype: torch.dtype = torch.float32) -> Dict[str, Any]:
+    """xSlot parameters with the reference's init distributions
+    (``sloter/utils/slot_attention.py:20-38``): initial slots ~ N(mu,
+    |sigma|) with mu and sigma standard-normal per feature (shared by the
+    slots), the to_k Linear layers and the GRU at torch's default
+    U(-1/sqrt(d), 1/sqrt(d)). Drawn from ``generator`` in the order mu,
+    sigma, the slots, each to_k layer's weight and bias, the GRU."""
+    g, d = generator, cfg.dim
+    mu = torch.empty(1, 1, d, dtype=dtype).normal_(generator=g)
+    sigma = torch.empty(1, 1, d, dtype=dtype).normal_(generator=g)
+    draw = torch.empty(1, cfg.num_slots, d, dtype=dtype).normal_(generator=g)
+    bound = 1.0 / d ** 0.5
+    to_k: List[Dict[str, torch.Tensor]] = []
+    for _ in range(cfg.to_k_layer):
+        # torch Linear layout (out, in)
+        to_k.append({"weight": torch.empty(d, d, dtype=dtype).uniform_(-bound, bound, generator=g),
+                     "bias": torch.empty(d, dtype=dtype).uniform_(-bound, bound, generator=g)})
+    return {"initial_slots": mu + sigma.abs() * draw, "to_k": to_k,
+            "gru": init_gru_params(g, d, dtype)}
 
 
 def _apply_to_k(to_k: Sequence[Dict[str, torch.Tensor]], x: torch.Tensor) -> torch.Tensor:

@@ -31,8 +31,8 @@ from typing import Optional, Tuple
 import torch
 from torch import nn
 
-__all__ = ["Int8PointwiseConv", "QUANT_POLICIES", "int8_conv2d", "quantize_weight",
-           "quantized_convs"]
+__all__ = ["Int8PointwiseConv", "QUANT_POLICIES", "int8_conv2d", "int8_conv_general_dilated",
+           "quantize_weight", "quantized_convs"]
 
 
 def _pointwise_only(weight: torch.Tensor, stride, padding, dilation, groups) -> int:
@@ -101,6 +101,25 @@ def int8_conv2d(x: torch.Tensor, weight: torch.Tensor, bias: Optional[torch.Tens
     s = _pointwise_only(weight, stride, padding, dilation, groups)
     qw, w_scale = quantize_weight(weight.to(x.dtype))
     return _int8_pointwise(x, qw, w_scale, bias, s)
+
+
+def int8_conv_general_dilated(lhs: torch.Tensor, rhs: torch.Tensor, window_strides=(1, 1),
+                              padding="VALID", lhs_dilation=None, rhs_dilation=None,
+                              feature_group_count: int = 1,
+                              batch_group_count: int = 1) -> torch.Tensor:
+    """The JAX package's name for ``int8_conv2d``, with the arguments of
+    its that have a meaning here: ``lhs`` (N, C, H, W) and ``rhs`` (O, I, 1,
+    1) in torch's layout, ``padding`` 'VALID' or zero pairs. As
+    ``int8_conv2d``, it covers pointwise convs only and raises
+    ``ValueError`` for any other. JAX's ``dimension_numbers``, ``precision``
+    and ``preferred_element_type`` are not taken: the layout is fixed and
+    the product s8 x s8 -> s32."""
+    dilated = any(d != 1 for d in (lhs_dilation or (1,)) + (rhs_dilation or (1,)))
+    pads = (0,) if padding == "VALID" else tuple(p for pair in padding for p in pair)
+    if dilated or batch_group_count != 1 or any(pads):
+        raise ValueError("int8_conv_general_dilated covers pointwise convs only: no "
+                         "dilation, padding or batch groups")
+    return int8_conv2d(lhs, rhs, stride=tuple(window_strides), groups=feature_group_count)
 
 
 class Int8PointwiseConv:

@@ -37,7 +37,7 @@ from __future__ import annotations
 
 import os
 import time
-from typing import Dict, List
+from typing import Dict, List, Tuple
 
 import torch
 
@@ -46,7 +46,8 @@ from ..core.checkpoint import (AsyncCheckpointWriter, checkpoint_path, restore_c
 from ..core.config import ScouterConfig, check_training_supported, compute_dtype
 from ..core.device import resolve_device
 from ..data import Loader, select_dataset
-from ..models import build_slot_model
+from ..models import (build_slot_model, merge_variables, prepare_pretrained_state_dict,
+                      strip_prefix)
 from .preempt import PreemptionGuard
 from .state import create_train_state, step_lr
 from .steps import make_eval_step, make_train_step, set_learning_rate
@@ -118,9 +119,8 @@ class Trainer:
     def _load_backbone(self, sd: Dict[str, torch.Tensor]) -> None:
         """Overlay backbone weights (reference names, no ``backbone.`` prefix);
         entries the backbone lacks or that are absent keep their init."""
-        own = self.model.backbone.state_dict()
-        own.update({k: v for k, v in sd.items() if k in own})
-        self.model.backbone.load_state_dict(own)
+        self.model.backbone.load_state_dict(
+            merge_variables(self.model.backbone.state_dict(), sd))
         self._reset_optimizer()
 
     def maybe_use_pre(self) -> None:
@@ -132,18 +132,27 @@ class Trainer:
         no_slot_cfg = self.cfg.replace(use_slot=False, loss_status=1, cal_area_size=False)
         path = checkpoint_path(self.cfg.output_dir, no_slot_cfg)
         sd = torch.load(path, map_location=self.device, weights_only=True)["model"]
-        prefix = "backbone."
-        self._load_backbone({k[len(prefix):]: v for k, v in sd.items()
-                             if k.startswith(prefix) and not k.startswith(prefix + "fc.")})
+        self._load_backbone({k: v for k, v in strip_prefix(sd, "backbone.").items()
+                             if not k.startswith("fc.")})
         print("load pre dataset parameter over")
+
+    # timm default_cfg (first_conv, classifier) names for the local
+    # pretrained-weight path, per family (the JAX package's train/loop.py:195)
+    # (first conv, classifier) of a family whose names are not conv1 / fc.
+    # JAX's lists efficientnet, mobilenet and densenet, which join it as
+    # they are ported (ROADMAP Queue A item 3); the ResNet family needs none.
+    _PRETRAINED_LAYOUT: Dict[str, Tuple[str, str]] = {}
 
     def maybe_load_pretrained(self) -> None:
         """``pretrained=True`` without a download (timm helpers.py:68-101): read
         a torch state dict from ``$SCOUTER_TPU_PRETRAINED_DIR/{model}.pth``
         (default ``pretrained/``) into the backbone; a missing file keeps the
-        random init. A classifier of another class count is dropped (and the
-        slot model has none), and for MNIST so is the stem conv, which the
-        1-channel surgery replaces."""
+        random init. The weights go through ``prepare_pretrained_state_dict``
+        with the checkpoint's own class count, so a 1001-class head (an
+        extra background class) loses row 0 for a 1000-class model and a
+        head of another count is dropped (the slot model has none); for
+        MNIST the stem conv is dropped too, which the 1-channel surgery
+        replaces."""
         if not self.cfg.pre_trained:
             return
         d = os.environ.get("SCOUTER_TPU_PRETRAINED_DIR", "pretrained")
@@ -153,10 +162,17 @@ class Trainer:
         sd = torch.load(path, map_location=self.device, weights_only=True)
         if isinstance(sd, dict) and "model" in sd:
             sd = sd["model"]
-        drop = ("conv1.",) if self.cfg.dataset == "MNIST" else ()
-        if "fc.weight" in sd and sd["fc.weight"].shape[0] != self.cfg.num_classes:
-            drop += ("fc.",)
-        self._load_backbone({k: v for k, v in sd.items() if not k.startswith(drop)})
+        first_conv, classifier = ("conv1", "fc")
+        for key, layout in self._PRETRAINED_LAYOUT.items():
+            if key in self.cfg.model:
+                first_conv, classifier = layout
+        head = sd.get(classifier + ".weight")
+        sd = prepare_pretrained_state_dict(
+            sd, num_classes=self.cfg.num_classes, first_conv=first_conv, classifier=classifier,
+            pretrained_classes=self.cfg.num_classes if head is None else head.shape[0])
+        if self.cfg.dataset == "MNIST":
+            sd = {k: v for k, v in sd.items() if not k.startswith(first_conv + ".")}
+        self._load_backbone(sd)
         print(f"loaded pretrained backbone from {path}")
 
     def maybe_resume(self) -> None:

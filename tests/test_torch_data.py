@@ -206,6 +206,49 @@ def test_loader_augments_train_batches_deterministically():
     assert any(not torch.equal(x["image"], z["image"]) for x, z in zip(a1, p))
 
 
+@pytest.mark.parametrize("prefetch", [1, 3])
+def test_loader_prefetch_keeps_the_epoch_bit_for_bit(prefetch):
+    """The producer thread's batches, their order and the augmentation are
+    those of a synchronous pass over ``_host_batches`` and ``_to_device``."""
+    images, labels = small_dataset(n=19, size=24)
+    loader = Loader(ArrayDataset(images, labels, "ImageNet"), 4, img_size=20, train=True,
+                    aug=True, seed=2, prefetch=prefetch, device="cpu")
+    assert loader.prefetch == prefetch
+    for epoch in (0, 1):
+        got = list(loader.epoch(epoch))
+        want = [loader._to_device(hb, bi, epoch)
+                for bi, hb in enumerate(loader._host_batches(epoch))]
+        assert len(got) == len(want) == 4
+        for g, w in zip(got, want):
+            for key in ("image", "label", "mask"):
+                assert torch.equal(g[key], w[key]), key
+
+
+def test_loader_producer_stops_on_an_early_break_and_raises_its_errors():
+    import threading
+
+    images, labels = small_dataset(n=40, size=16)
+    loader = Loader(ArrayDataset(images, labels, "ImageNet"), 2, img_size=16, train=True,
+                    prefetch=2, device="cpu")
+    for batch in loader.epoch(0):
+        break
+    assert batch["image"].shape == (2, 3, 16, 16)
+    assert not [t for t in threading.enumerate() if t.name == "loader-producer"]
+
+    class Broken(ArrayDataset):
+        def gather(self, chunk):
+            raise OSError("unreadable file")
+
+    broken = Loader(Broken(images, labels, "ImageNet"), 2, img_size=16, train=False,
+                    device="cpu")
+    with pytest.raises(OSError, match="unreadable"):
+        list(broken.epoch(0))
+    assert not [t for t in threading.enumerate() if t.name == "loader-producer"]
+    with pytest.raises(ValueError):
+        Loader(ArrayDataset(images, labels, "ImageNet"), 2, img_size=16, train=True,
+               prefetch=0, device="cpu")
+
+
 def test_loader_raises_without_cuda_by_default():
     if torch.cuda.is_available():
         pytest.skip("this host has a CUDA device; the check is for hosts without one")

@@ -50,6 +50,34 @@ def test_port_imports_no_jax_and_no_jax_package():
     assert bad.strip() == "[]", bad
 
 
+_PRUNED_PROBE = r"""
+import sys
+opened = []
+sys.addaudithook(lambda event, args: opened.append(str(args[0]))
+                 if event == "open" and isinstance(args[0], str) else None)
+import torch
+from scouter_tpu_torch.models import create_model
+with torch.device("meta"):
+    for name in ("ecaresnet50d_pruned", "ecaresnet101d_pruned"):
+        create_model(name)
+tables = sorted({p.split("/")[-1] for p in opened if p.endswith("_pruned.json")})
+print(tables, sorted(p for p in opened if "/scouter_tpu/" in p))
+"""
+
+
+def test_pruned_models_read_the_ports_own_tables():
+    env = dict(os.environ, PYTHONPATH=str(ROOT))
+    out = subprocess.run([sys.executable, "-c", _PRUNED_PROBE], cwd=ROOT, env=env,
+                         capture_output=True, text=True, timeout=300)
+    assert out.returncode == 0, out.stderr
+    assert out.stdout.strip() == (
+        "['ecaresnet101d_pruned.json', 'ecaresnet50d_pruned.json'] []"), out.stdout
+    for name in ("ecaresnet50d_pruned", "ecaresnet101d_pruned"):
+        ours = ROOT / "scouter_tpu_torch" / "models" / "pruned_data" / f"{name}.json"
+        assert ours.read_bytes() == (ROOT / "scouter_tpu" / "models" / "pruned_data" /
+                                     f"{name}.json").read_bytes()
+
+
 @pytest.fixture
 def no_cuda():
     if torch.cuda.is_available():

@@ -250,8 +250,8 @@ def test_backward_cluster_reach(b, n, s, d, cluster):
 
 @pytest.mark.parametrize("kind,launches", [("fwd", 1), ("bwd", 2)])
 def test_cluster_plan_counts_its_launches(kind, launches):
-    # chip_smoke.py holds the launches torch.profiler counts in one call to
-    # this: the forward's kernel; the backward's gradient kernel and its sum
+    # chip_smoke.py holds the launches of one call (its CUDA graph's nodes)
+    # to this: the forward's kernel; the backward's gradient kernel and its sum
     assert h100_plan(16, 49, 30, kind).launches(kind) == launches
     with pytest.raises(ValueError, match="TiledPlan"):
         h100_plan(16, 81, 1000, "bwd").launches("bwd")

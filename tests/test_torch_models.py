@@ -88,8 +88,12 @@ def test_torch_conv_padding(k, s):
 
 
 def test_registry():
-    assert set(list_models()) == {"resnet10", "resnet18", "resnest14d", "resnest26d",
-                                  "resnest50d"}
+    """The port registers the JAX zoo's ResNet family, name for name (the
+    other families of the JAX registry are not ported yet)."""
+    from scouter_tpu.models.registry import _REGISTRY as jax_registry
+
+    zoo = {n for n, fn in jax_registry.items() if fn.__module__ == "scouter_tpu.models.zoo"}
+    assert set(list_models()) == zoo and len(zoo) == 92
     with pytest.raises(ValueError):
         create_model("resnet10", pretrained=True)
     with pytest.raises(KeyError):
