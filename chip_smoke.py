@@ -134,6 +134,26 @@ Phases (any failure exits non-zero; nothing is caught and passed over):
    at output stride 8 (N=784) the slot model's K1 forward raises
    ValueError (its documented reach, ROADMAP Queue C); the phase's
    seconds.
+16. the XAI baseline suite at the width README.md:96-97 documents
+   (resnest26d, backbone only, 260 px, 10 classes): a no-slot model trained
+   one epoch through the train CLI; ``scouter_tpu_torch.explain.compare_cli``
+   from that checkpoint with the torchcam_vis method set and ``--fast`` over
+   all 10 classes, then with ``--methods deeplift`` (captum_vis), every PNG
+   read back and every map finite; SS-CAM and IS-CAM (at reduced samples,
+   printed), deconvnet, linear approximation, EBP and IBA through
+   ``compare_methods`` and contrastive EBP on one class; card against CPU
+   on the same weights, image and draws for every single-shot method
+   (contrastive EBP stage by stage: its map cancels two relevances), RISE
+   at 400 masks (1e-4 of the map's scale) and extremal, IGOS and IBA at 2
+   iterations (1e-3), a map past its bar held to the CPU's float64 run or
+   else in norm (XAI_F64_FACTOR, XAI_NORM_BAR); the pointing game on a
+   16-image VOC-like tree (fixture JPEGs and blob PNGs with XML boxes):
+   ``voc_dataset`` -> the caffe VGG16 and ResNet50 (random init, 20
+   classes) -> ``run_pointing_benchmark`` with gradient (both) and EBP
+   (ResNet50) saliency into a sqlite store, each map held to the CPU's as
+   above (a map held in norm giving the CPU's hit or miss); K1 and K2
+   launched 0 times over the phase; neither Pillow nor matplotlib imported;
+   each method's seconds with the card's name and power limit.
 
 The line before the last is the kernels' JSON; the last line is
 ``{"ok": true, "device": {...}}``. Without a CUDA device, or without the
@@ -2692,6 +2712,488 @@ def phase_zoo(card: str):
                 os16_launches_per_call=os16_per_call)
 
 
+# phase 16: the XAI baseline suite at the width README.md:96-97 documents
+XAI_FLAGS = ["--dataset", "ImageNet", "--model", "resnest26d", "--num_classes", "10",
+             "--img_size", "260", "--use_slot", "false", "--pre_trained", "false"]
+XAI_CLASSES = 10
+XAI_DEFAULT_METHODS = ("cam", "gradcam", "gradcampp", "smooth_gradcampp", "scorecam",
+                       "gradient", "guided_backprop", "rise", "extremal", "igos")
+# SS-CAM's and IS-CAM's samples on the card here (their defaults: 35 and 10)
+XAI_REDUCED_SAMPLES = {"sscam": 4, "isscam": 3}
+# card against CPU, as the CPU tests hold the port to JAX: single-shot and
+# masked-rescoring maps within 1e-4 of the map's scale, iterative 1e-3. At
+# random weights a deep net's ReLU gates and max-pool choices near a tie
+# flip between any two f32 summation orders, and a gradient map moves with
+# them at the pixels they feed (a VGG16 input gradient by 4.6e-2 of its
+# scale for an input moved by 1e-5, on the CPU). A map past its bar is held
+# to the CPU's float64 run instead (the card no further from it than
+# XAI_F64_FACTOR x the CPU's own f32), or else, where the CPU's f32 happens
+# to sit on the float64 map, in norm: ||card - CPU|| within XAI_NORM_BAR of
+# ||CPU||, the pixels a flipped gate moves being few
+XAI_SINGLE_SHOT_BAR = 1e-4
+XAI_ITERATIVE_BAR = 1e-3
+XAI_F64_FACTOR = 2.0
+XAI_NORM_BAR = 1e-2
+POINTING_IMAGES = 16
+
+
+def xai_flags(tmp: str):
+    import os
+
+    return ["--device", "cuda"] + XAI_FLAGS + [
+        "--batch_size", "70", "--dataset_dir", os.path.join(tmp, "no_dataset"),
+        "--output_dir", tmp]
+
+
+def kernel_launches(reset: bool = False):
+    """K1's counters and K2's launches, zeroed first with ``reset``."""
+    from scouter_tpu_torch.ops import render_kernel
+
+    if reset:
+        render_kernel.render_heatmaps_fused.launches = 0
+    return dict(k1_counts(reset), k2_launches=render_kernel.render_heatmaps_fused.launches)
+
+
+def phase_xai_train(tmp: str):
+    """(a) A no-slot resnest26d trained one epoch through the train CLI on
+    the stand-in at 260 px, so that the comparison CLI restores a real
+    checkpoint."""
+    import math
+    import os
+
+    from scouter_tpu_torch.train import cli
+
+    t0 = time.monotonic()
+    _, lines = run_cli(cli.main, xai_flags(tmp) + ["--epochs", "1", "--lr_drop", "1"])
+    metrics = logged_metrics(lines)
+    if not all(math.isfinite(v) for vs in metrics.values() for v in vs):
+        fail(f"no-slot training: metrics {metrics}")
+    path = os.path.join(tmp, "ImageNet_no_slot_checkpoint.pth")
+    if not os.path.isfile(path):
+        fail(f"no-slot training wrote no {os.path.basename(path)} ({sorted(os.listdir(tmp))})")
+    print(f"phase 16: no-slot resnest26d trained one epoch at 260 px in "
+          f"{time.monotonic() - t0:.1f} s", flush=True)
+
+
+def check_pngs(out_dir: str, names):
+    import os
+
+    import numpy as np
+
+    from scouter_tpu_torch.core.png import read_png
+
+    have = sorted(f for f in os.listdir(out_dir) if f.endswith(".png"))
+    if have != sorted(names):
+        fail(f"{out_dir}: PNGs {have}, expected {sorted(names)}")
+    for name in names:
+        img = read_png(os.path.join(out_dir, name))
+        if img.shape != (260, 260, 4) or img.dtype != np.uint8:
+            fail(f"{name}: {img.shape} {img.dtype}")
+
+
+def phase_xai_cli(tmp: str, timings):
+    """(b) The comparison CLI on the card from that checkpoint: the
+    torchcam_vis method set with --fast over all 10 classes, then the
+    captum_vis set (--methods deeplift); every PNG written, every map
+    finite."""
+    import os
+
+    import numpy as np
+
+    from scouter_tpu_torch.explain import compare_cli
+
+    runs = {"torchcam_vis": (["--fast"], XAI_DEFAULT_METHODS),
+            "captum_vis": (["--methods", "deeplift"], ("deeplift",))}
+    for what, (extra, methods) in runs.items():
+        out = os.path.join(tmp, what)
+        seconds = {}
+        t0 = time.monotonic()
+        maps = compare_cli.main(xai_flags(tmp) + extra, out_dir=out, timings=seconds)
+        wall = time.monotonic() - t0
+        for m in methods:
+            if sorted(maps.get(m, {})) != list(range(XAI_CLASSES)):
+                fail(f"{what}: {m} mapped classes {sorted(maps.get(m, {}))}")
+            bad = [c for c, s in maps[m].items() if not np.isfinite(s).all()]
+            if bad:
+                fail(f"{what}: {m} maps not finite for classes {bad}")
+        check_pngs(out, [f"{m}_{c}.png" for m in methods for c in range(XAI_CLASSES)])
+        timings.update({f"{m} (cli, {XAI_CLASSES} classes)": s for m, s in seconds.items()})
+        print(f"phase 16 {what}: {len(methods)} methods x {XAI_CLASSES} classes, "
+              f"{len(methods) * XAI_CLASSES} PNGs read back, {wall:.1f} s", flush=True)
+
+
+def phase_xai_remaining(model, image, tmp: str, timings):
+    """(c) The methods the two CLI runs leave out, on class 0: SS-CAM and
+    IS-CAM (at XAI_REDUCED_SAMPLES), deconvnet, linear approximation, EBP
+    and IBA through ``compare_methods``, contrastive EBP directly (the
+    driver has no such method, as JAX's has none)."""
+    import os
+
+    import numpy as np
+    import torch
+
+    from scouter_tpu_torch.data import preprocess_batch
+    from scouter_tpu_torch.explain import compare_cli
+    from scouter_tpu_torch.explain.excitation import contrastive_excitation_backprop
+
+    methods = ["sscam", "isscam", "deconvnet", "linear_approx", "excitation", "iba"]
+    seconds = {}
+    out = os.path.join(tmp, "remaining")
+    maps = compare_cli.compare_methods(model, image, [0], out, img_size=260, methods=methods,
+                                       num_samples=XAI_REDUCED_SAMPLES, timings=seconds)
+    x = preprocess_batch(torch.as_tensor(image).cuda()[None], dataset="ImageNet",
+                         img_size=260).permute(0, 3, 1, 2).contiguous()
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    cebp = contrastive_excitation_backprop(model, x, 0)
+    torch.cuda.synchronize()
+    seconds["contrastive_excitation"] = time.perf_counter() - t0
+    if not torch.isfinite(cebp).all() or float(cebp.min()) < 0:
+        fail("contrastive EBP: a map not finite or below 0")
+    for m in methods:
+        if not np.isfinite(maps[m][0]).all():
+            fail(f"{m}: the map is not finite")
+    check_pngs(out, [f"{m}_0.png" for m in methods])
+    timings.update({f"{m} (1 class)": s for m, s in seconds.items()})
+    print(f"phase 16 remaining methods on class 0: {', '.join(methods)}, contrastive EBP; "
+          f"SS-CAM and IS-CAM at {XAI_REDUCED_SAMPLES} samples (defaults 35 and 10)",
+          flush=True)
+
+
+def max_rel(got, want) -> float:
+    """max |got - want| over the reference map's scale (max |want|)."""
+    got, want = got.detach().double().cpu(), want.detach().double().cpu()
+    return float((got - want).abs().max()) / max(float(want.abs().max()), 1e-30)
+
+
+def held_to_cpu(name: str, fn, models, inputs, bar: float):
+    """``fn(model, x)`` on the card against the CPU (``models``/``inputs``:
+    card, CPU and a callable giving the CPU float64 model; card, CPU and
+    float64 inputs). Within ``bar`` of the CPU map's scale, or else held to
+    the float64 map (XAI_F64_FACTOR), or else in norm (XAI_NORM_BAR).
+    Returns the distances, the card's map and the CPU's."""
+    import torch
+
+    got, want = fn(models[0], inputs[0]), fn(models[1], inputs[1])
+    if tuple(got.shape) != tuple(want.shape) or not torch.isfinite(got).all():
+        fail(f"{name}: card map {tuple(got.shape)} against the CPU's {tuple(want.shape)}, "
+             "or not finite")
+    err = {"card_vs_cpu": max_rel(got, want)}
+    if err["card_vs_cpu"] <= bar:
+        return err, got, want
+    f64 = fn(models[2](), inputs[2])
+    err.update(card_vs_f64=max_rel(got, f64), cpu_vs_f64=max_rel(want, f64))
+    if err["card_vs_f64"] <= XAI_F64_FACTOR * err["cpu_vs_f64"]:
+        return err, got, want
+    a, b = got.detach().double().cpu(), want.detach().double()
+    err["norm"] = float((a - b).norm() / b.norm().clamp_min(1e-300))
+    if err["norm"] > XAI_NORM_BAR:
+        fail(f"{name}: card vs CPU {err['card_vs_cpu']:.3e} of the map's scale (bar {bar}); "
+             f"from float64 the card {err['card_vs_f64']:.3e}, the CPU's f32 "
+             f"{err['cpu_vs_f64']:.3e} (factor {XAI_F64_FACTOR}); in norm {err['norm']:.3e} "
+             f"(bar {XAI_NORM_BAR})")
+    return err, got, want
+
+
+def f64_copy(model):
+    """A lazily made float64 CPU copy of ``model``."""
+    import copy
+
+    made = []
+
+    def get():
+        if not made:
+            made.append(copy.deepcopy(model).cpu().double())
+        return made[0]
+
+    return get
+
+
+def phase_xai_gpu_vs_cpu(model, image):
+    """(d) Card against CPU on the same weights, image and draws: every
+    single-shot method, RISE at 400 masks, extremal, IGOS and IBA at 2
+    iterations."""
+    import copy
+
+    import torch
+
+    from scouter_tpu_torch.data import preprocess_batch
+    from scouter_tpu_torch.explain import backprop, cam, deeplift, excitation, extremal, iba
+    from scouter_tpu_torch.explain.igos import gaussian_blur_baseline, integrated_mask
+    from scouter_tpu_torch.explain.rise import rise
+
+    cpu_model = copy.deepcopy(model).cpu()
+    x_cpu = preprocess_batch(torch.as_tensor(image)[None], dataset="ImageNet",
+                             img_size=260).permute(0, 3, 1, 2).contiguous()
+    x_gpu = x_cpu.cuda()
+    c = 3
+    single = {
+        "cam": lambda m, x: cam.cam(m, x, c, normalized=False),
+        "gradcam": lambda m, x: cam.gradcam(m, x, c, normalized=False),
+        "gradcampp": lambda m, x: cam.gradcampp(m, x, c, normalized=False),
+        "smooth_gradcampp": lambda m, x: cam.smooth_gradcampp(m, x, c, normalized=False),
+        "gradient": lambda m, x: backprop.gradient_saliency(m, x, c),
+        "deconvnet": lambda m, x: backprop.deconvnet(m, x, c),
+        "guided_backprop": lambda m, x: backprop.guided_backprop(m, x, c),
+        "linear_approx": lambda m, x: backprop.linear_approx(m, x, c),
+        "deeplift": lambda m, x: deeplift.layer_deeplift(m, x, c),
+        "excitation": lambda m, x: excitation.excitation_backprop(m, x.abs(), c),
+        "rise_400": lambda m, x: rise(m, x, 0, num_masks=400),
+    }
+    # contrastive EBP stage by stage: its map is the difference of two
+    # nearly equal relevances at layer4 (the w and -w classifier), which the
+    # CPU's own f32 holds to no better than ~1e-1 of the map's scale against
+    # float64 at random weights (smoke-final, PR 12); each stage is held to
+    # the CPU apart, the second fed the CPU's contrast, and the whole map's
+    # distances are printed
+    contrast = contrastive_relevances(cpu_model, x_cpu.abs(), c)
+    contrast = contrast[0] - contrast[1]
+    single["contrastive_excitation relevances"] = (
+        lambda m, x: contrastive_relevances(m, x.abs(), c))
+    single["contrastive_excitation propagation"] = (
+        lambda m, x: contrastive_propagation(m, x.abs(), contrast))
+
+    def iba_map(m, x):
+        features, head, _ = cam.backbone_split(m)
+        g = torch.Generator().manual_seed(1)
+        batches = [x + 0.1 * torch.randn(x.shape, generator=g).to(x.device) for _ in range(4)]
+        stats = iba.estimate_stats(features, batches)
+        return iba.iba_analyze(
+            features, lambda z: -torch.log_softmax(head(z), dim=1)[:, c].mean(), x, stats, 0,
+            optimization_steps=2, out_shape=(260, 260))
+
+    iterative = {
+        "extremal_2": lambda m, x: extremal.extremal_perturbation(m, x, c, max_iter=2)[0],
+        "igos_2": lambda m, x: integrated_mask(m, x, gaussian_blur_baseline(x), c, 0,
+                                               max_iterations=2).upsampled,
+        "iba_2": iba_map,
+    }
+    models = (model, cpu_model, f64_copy(cpu_model))
+    inputs = (x_gpu, x_cpu, x_cpu.double())
+    errors = {}
+    for bar, table in ((XAI_SINGLE_SHOT_BAR, single), (XAI_ITERATIVE_BAR, iterative)):
+        for name, fn in table.items():
+            errors[name] = held_to_cpu(name, fn, models, inputs, bar)[0]
+    maps = [excitation.contrastive_excitation_backprop(m(), v.abs(), c) for m, v in
+            ((lambda: model, x_gpu), (lambda: cpu_model, x_cpu), (models[2], inputs[2]))]
+    errors["contrastive_excitation (printed, not held)"] = dict(
+        card_vs_cpu=max_rel(maps[0], maps[1]), card_vs_f64=max_rel(maps[0], maps[2]),
+        cpu_vs_f64=max_rel(maps[1], maps[2]))
+    print(json.dumps({"xai_card_vs_cpu": errors}), flush=True)
+    return errors
+
+
+def contrastive_relevances(model, x, c, saliency_layer="layer2", contrast_layer="layer4"):
+    """Contrastive EBP's first stage: the relevances at ``contrast_layer``
+    from the w and the -w classifier, stacked (``excitation.py``'s)."""
+    import torch
+
+    from scouter_tpu_torch.explain import excitation
+
+    with torch.no_grad():
+        feats_c = model(model(x, stop_after=saliency_layer), start_from=saliency_layer,
+                        stop_after=contrast_layer)
+    with excitation.ebp_rules():
+        return torch.stack([excitation._grad(
+            lambda f, s=sign: excitation._head_from(model, contrast_layer, s)(f)[0, c], feats_c)
+            for sign in (1.0, -1.0)])
+
+
+def contrastive_propagation(model, x, contrast, saliency_layer="layer2",
+                            contrast_layer="layer4"):
+    """Contrastive EBP's second stage: ``contrast`` propagated from
+    ``contrast_layer`` to ``saliency_layer`` under the EBP rules, channel
+    sum clamped at zero."""
+    import torch
+
+    from scouter_tpu_torch.explain import excitation
+
+    with torch.no_grad():
+        feats_s = model(x, stop_after=saliency_layer)
+    weight = contrast.detach().to(feats_s.device, feats_s.dtype)
+    with excitation.ebp_rules():
+        g = excitation._grad(lambda f: (model(f, start_from=saliency_layer,
+                                              stop_after=contrast_layer) * weight).sum(),
+                             feats_s)
+    return g[0].sum(dim=0).clamp_min(0.0)
+
+
+def write_voc_tree(root: str):
+    """A VOC-2007-like tree (Annotations, JPEGImages, ImageSets/Main/test.txt)
+    of POINTING_IMAGES images: the JPEG fixtures and PNGs of one coloured
+    blob on noise (examples/pointing_game_report.py's images), each with an
+    XML box of its class, a few with a second (difficult) box. The PNGs keep
+    the ``.jpg`` name of the layout: the readers go by content."""
+    import os
+    import shutil
+
+    import numpy as np
+
+    from scouter_tpu_torch.core.png import write_png
+    from scouter_tpu_torch.explain.datasets import VOC_CLASSES
+
+    for d in ("Annotations", "JPEGImages", os.path.join("ImageSets", "Main")):
+        os.makedirs(os.path.join(root, d), exist_ok=True)
+    rng = np.random.RandomState(0)
+    palette = np.stack([0.5 + 0.5 * np.cos(2 * np.pi * (np.arange(20) / 20 + sh))
+                        for sh in (0.0, 1 / 3, 2 / 3)], axis=1)
+    ids = []
+    for k in range(POINTING_IMAGES):
+        image_id = f"{k:06d}"
+        ids.append(image_id)
+        path = os.path.join(root, "JPEGImages", image_id + ".jpg")
+        label = int(rng.randint(0, 20))
+        if k % 2 == 0:
+            src = FIXTURES / FIXTURE_JPEGS[(k // 2) % len(FIXTURE_JPEGS)]
+            shutil.copyfile(src, path)
+            w, h = (int(v) for v in src.stem.split("_")[-1].split("x"))
+            x0, y0 = int(rng.randint(0, w - 80)), int(rng.randint(0, h - 80))
+            box = (x0 + 1, y0 + 1, x0 + 80, y0 + 80)
+        else:
+            h = w = 224
+            cy, cx = rng.randint(30, 194, 2)
+            yy, xx = np.mgrid[0:h, 0:w].astype(np.float32)
+            blob = np.exp(-((yy - cy) ** 2 + (xx - cx) ** 2) / (2 * 15.0 ** 2))
+            img = rng.rand(h, w, 3) * 0.35 + blob[..., None] * palette[label]
+            write_png(path, (np.clip(img, 0, 1) * 255).astype(np.uint8))
+            box = (cx - 29, cy - 29, cx + 30, cy + 30)
+        objs = [(VOC_CLASSES[label], 0, box)]
+        if k % 5 == 0:
+            objs.append((VOC_CLASSES[(label + 7) % 20], 1, (2, 3, w // 3, h // 2)))
+        xml = "".join(
+            f"<object><name>{name}</name><difficult>{d}</difficult><bndbox>"
+            f"<xmin>{b[0]}</xmin><ymin>{b[1]}</ymin><xmax>{b[2]}</xmax><ymax>{b[3]}</ymax>"
+            "</bndbox></object>" for name, d, b in objs)
+        with open(os.path.join(root, "Annotations", image_id + ".xml"), "w") as f:
+            f.write(f"<annotation><size><width>{w}</width><height>{h}</height></size>"
+                    f"{xml}</annotation>")
+    with open(os.path.join(root, "ImageSets", "Main", "test.txt"), "w") as f:
+        f.write("\n".join(ids) + "\n")
+
+
+def phase_xai_pointing(tmp: str, timings):
+    """(e) The pointing game on the synthetic VOC tree: ``voc_dataset`` ->
+    CaffeVGG16 and CaffeResNet50 (random init, 20 classes) ->
+    ``run_pointing_benchmark`` with gradient saliency (both models) and EBP
+    (ResNet50; JAX's VGG16 has no stage split to start EBP from) into one
+    sqlite store; each map held to the CPU's from the same decoded pixels
+    and weights."""
+    import copy
+    import os
+
+    import torch
+
+    from scouter_tpu_torch.explain import backprop, excitation
+    from scouter_tpu_torch.explain.benchmark import ExperimentStore, run_pointing_benchmark
+    from scouter_tpu_torch.explain.benchmark_models import get_model, get_transform
+    from scouter_tpu_torch.explain._resize import resize_bilinear
+    from scouter_tpu_torch.explain.datasets import voc_dataset
+    from scouter_tpu_torch.explain.image_utils import imread
+    from scouter_tpu_torch.explain.pointing_game import PointingGame, saliency_point
+
+    root = os.path.join(tmp, "voc")
+    write_voc_tree(root)
+    store = ExperimentStore(os.path.join(tmp, "pointing.db"))
+    transform = get_transform("voc", size=(224, 224))
+
+    def gradient(model, x, c):
+        return backprop._to_saliency(backprop._input_grad(model, x, c))
+
+    def ebp(model, x, c):
+        return excitation.excitation_backprop(model, x, c)
+
+    summary, errors = {}, {}
+    for arch, methods in (("vgg16", {"gradient": gradient}),
+                          ("resnet50", {"gradient": gradient, "excitation_backprop": ebp})):
+        cpu_model, _ = get_model(arch, "voc", device="cpu", seed=0)
+        models = (copy.deepcopy(cpu_model).cuda(), cpu_model, f64_copy(cpu_model))
+        for name, fn in methods.items():
+            worst = []
+
+            def saliency(path, c, fn=fn, name=name):
+                pixels = imread(path, device="cuda")
+                x = transform(pixels).permute(2, 0, 1)[None].contiguous()
+                x_cpu = transform(pixels.cpu()).permute(2, 0, 1)[None].contiguous()
+                inputs = (x, x_cpu, x_cpu.double())
+                what = f"pointing {arch} {name} {path} class {c}"
+                err, got, want = held_to_cpu(what, lambda m, v: fn(m, v, c), models, inputs,
+                                             XAI_SINGLE_SHOT_BAR)
+                if "norm" in err:
+                    # the benchmark's outcome from the CPU's map, as it
+                    # resizes and points the card's
+                    mask = next(m for p, k, m in voc_dataset(root) if p == path and k == c)
+                    game = PointingGame(20)
+                    hits = [game.evaluate(mask.astype(bool), saliency_point(
+                        resize_bilinear(s.detach().float().cpu(), mask.shape).numpy()))
+                        for s in (got, want)]
+                    err["hits"] = hits
+                    if hits[0] != hits[1]:
+                        fail(f"{what}: the card's map {'hits' if hits[0] > 0 else 'misses'}, "
+                             f"the CPU's does not ({err})")
+                worst.append(err)
+                return got
+
+            t0 = time.perf_counter()
+            game = run_pointing_benchmark(saliency, voc_dataset(root), 20, store=store,
+                                          series=arch, experiment=name)
+            seconds = time.perf_counter() - t0
+            rows = len(store.keys(arch, name))
+            if rows != len(worst) or rows < POINTING_IMAGES:
+                fail(f"pointing {arch} {name}: {rows} stored rows, {len(worst)} items")
+            errors[f"{arch} {name}"] = {
+                "card_vs_cpu": max(e["card_vs_cpu"] for e in worst),
+                "held_to_f64": sum("card_vs_f64" in e and "norm" not in e for e in worst),
+                "held_in_norm": [e for e in worst if "norm" in e]}
+            summary[f"{arch} {name}"] = dict(items=rows, hits=int(game.hits.sum()),
+                                             misses=int(game.misses.sum()),
+                                             accuracy=game.accuracy)
+            timings[f"pointing {arch} {name} ({rows} items, card and CPU)"] = seconds
+    store.close()
+    print(json.dumps({"pointing_game_random_init": summary,
+                      "pointing_card_vs_cpu": errors}), flush=True)
+
+
+def phase_xai(card: str):
+    """Phase 16: the XAI baseline suite (``scouter_tpu_torch.explain``'s
+    comparison CLI and pointing-game stack) on the card, at resnest26d, 260
+    px, 10 classes, backbone only. Neither kernel runs on this path: their
+    counts are zeroed before it and must read 0 after."""
+    import os
+    import tempfile
+
+    from scouter_tpu_torch.core import ScouterConfig
+    from scouter_tpu_torch.explain.compare_cli import build_backbone
+
+    t0 = time.monotonic()
+    timings = {}
+    kernel_launches(reset=True)
+    with tempfile.TemporaryDirectory() as tmp:
+        phase_xai_train(tmp)
+        phase_xai_cli(tmp, timings)
+        cfg = ScouterConfig(model="resnest26d", dataset="ImageNet", num_classes=10,
+                            img_size=260, use_slot=False, output_dir=tmp, device="cuda")
+        model, path = build_backbone(cfg)
+        if path is None:
+            fail("phase 16: the comparison CLI's checkpoint is gone")
+        from scouter_tpu_torch.data import select_dataset
+
+        image = select_dataset(cfg, train=False).images[0]
+        phase_xai_remaining(model, image, tmp, timings)
+        phase_xai_gpu_vs_cpu(model, image)
+        phase_xai_pointing(tmp, timings)
+    counts = kernel_launches()
+    if any(counts.values()):
+        fail(f"phase 16 launched a kernel: {counts}")
+    for mod in ("PIL", "matplotlib"):
+        if mod in sys.modules:
+            fail(f"phase 16 imported {mod}")
+    print(json.dumps({"xai_seconds": {k: round(v, 4) for k, v in timings.items()},
+                      "card": card}), flush=True)
+    print(f"phase 16 (XAI suite) took {time.monotonic() - t0:.1f} s; K1 and K2 launched "
+          f"0 times; neither Pillow nor matplotlib imported", flush=True)
+    return 0
+
+
 def main() -> int:
     if not (ROOT / "scouter_tpu_torch" / "__init__.py").exists():
         fail(f"the scouter_tpu_torch package is not beside {Path(__file__).name}")
@@ -2762,6 +3264,7 @@ def main() -> int:
     bwd_entry["resnet50_launches"] = zoo["bwd_launches"]
     tiled_entry["os16_launches"] = zoo["os16_tiled_launches"]
     tiled_entry["os16_launches_per_call"] = zoo["os16_launches_per_call"]
+    entry["xai_launches"] = render_entry["xai_launches"] = phase_xai(card)
     if "PIL" in sys.modules:
         fail("Pillow was imported")
     print(f"chip_smoke finished in {time.monotonic() - t0:.1f} s after the build started",

@@ -33,6 +33,7 @@ import torch
 __all__ = [
     "merge_variables",
     "prepare_pretrained_state_dict",
+    "readout_params_to_state_dict",
     "strip_prefix",
     "variables_to_state_dict",
 ]
@@ -114,6 +115,17 @@ def variables_to_state_dict(variables: Mapping[str, Mapping]) -> Dict[str, torch
             sd[f"{mod}.running_var"] = _tensor(leaf)
         else:
             raise KeyError(f"unrecognized batch_stats leaf {'/'.join(path)!r}")
+    return sd
+
+
+def readout_params_to_state_dict(variables: Mapping[str, Mapping]) -> Dict[str, torch.Tensor]:
+    """A flax ``ReadoutNet``'s ``{'params': {conv1, conv2, conv3}}`` (the JAX
+    package's ``explain/iba_readout.py``) as the state dict of the port's
+    ``explain.iba_readout.ReadoutNet``: HWIO kernels to OIHW."""
+    sd = variables_to_state_dict({"params": variables["params"]})
+    expected = {f"conv{i}.{p}" for i in (1, 2, 3) for p in ("weight", "bias")}
+    if set(sd) != expected:
+        raise KeyError(f"not a ReadoutNet's parameters: {sorted(sd)}")
     return sd
 
 

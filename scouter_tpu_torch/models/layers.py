@@ -13,6 +13,13 @@ use, and ``BatchNorm2d`` takes its statistics in f32 from an input in it and
 returns it, with f32 scale, bias and running stats. ``None`` computes in the
 parameters' own dtype.
 
+Every conv and dense product (``Conv2d``, ``Conv1d``, ``Linear``, the blur
+and space-to-depth stem convs) goes through ``act.linear`` and every
+BatchNorm's output through ``act.norm_output``: the plain op unless
+excitation backprop installs its rules there (``models/act.py``), where
+the JAX package patches ``conv_general_dilated``/``dot_general`` and
+flax's BatchNorm.
+
 The conv-substitution hook (the JAX package's ``_conv_policy``,
 ``scouter_tpu/models/layers.py:20-30, 74-78``) lives on the built model:
 :func:`set_conv_policy` asks a policy, for each conv built by :func:`conv2d`
@@ -31,6 +38,8 @@ from typing import Optional
 import torch
 import torch.nn.functional as F
 from torch import nn
+
+from . import act
 
 __all__ = [
     "BatchNorm2d",
@@ -78,9 +87,9 @@ class Conv2d(nn.Conv2d):
         if self.substitute is not None:
             return self.substitute(x if dt is None else x.to(dt))
         if dt is None:
-            return super().forward(x)
+            return act.linear(self._conv_forward, x, self.weight, self.bias)
         bias = None if self.bias is None else self.bias.to(dt)
-        return self._conv_forward(x.to(dt), self.weight.to(dt), bias)
+        return act.linear(self._conv_forward, x.to(dt), self.weight.to(dt), bias)
 
 
 class Conv1d(nn.Conv1d):
@@ -94,9 +103,9 @@ class Conv1d(nn.Conv1d):
     def forward(self, x: torch.Tensor) -> torch.Tensor:
         dt = self.compute_dtype
         if dt is None:
-            return super().forward(x)
+            return act.linear(self._conv_forward, x, self.weight, self.bias)
         bias = None if self.bias is None else self.bias.to(dt)
-        return self._conv_forward(x.to(dt), self.weight.to(dt), bias)
+        return act.linear(self._conv_forward, x.to(dt), self.weight.to(dt), bias)
 
 
 class Linear(nn.Linear):
@@ -110,8 +119,8 @@ class Linear(nn.Linear):
     def forward(self, x: torch.Tensor) -> torch.Tensor:
         dt = self.compute_dtype
         if dt is None:
-            return super().forward(x)
-        return F.linear(x.to(dt), self.weight.to(dt), self.bias.to(dt))
+            return act.linear(F.linear, x, self.weight, self.bias)
+        return act.linear(F.linear, x.to(dt), self.weight.to(dt), self.bias.to(dt))
 
 
 def conv2d(in_channels: int, out_channels: int, kernel_size: int, *, stride: int = 1,
@@ -169,6 +178,9 @@ class BatchNorm2d(nn.BatchNorm2d):
         self.compute_dtype = compute_dtype
 
     def forward(self, x: torch.Tensor) -> torch.Tensor:
+        return act.norm_output(x, self._normalise(x))
+
+    def _normalise(self, x: torch.Tensor) -> torch.Tensor:
         if self.compute_dtype is not None:
             x = x.to(self.compute_dtype)
         if not self.training:
@@ -255,7 +267,7 @@ class SplitAttnConv(nn.Module):
         self.fc2 = Conv2d(attn_chs, mid_chs, 1, groups=groups, compute_dtype=dt)
 
     def forward(self, x: torch.Tensor) -> torch.Tensor:
-        x = torch.relu(self.bn0(self.conv(x)))
+        x = act.relu(self.bn0(self.conv(x)))
         b, rc, h, w = x.shape
         chs = rc // self.radix
         if self.radix > 1:
@@ -265,7 +277,7 @@ class SplitAttnConv(nn.Module):
         else:
             x_r = x
             gap = x.mean(dim=(2, 3), keepdim=True)
-        gap = torch.relu(self.bn1(self.fc1(gap)))
+        gap = act.relu(self.bn1(self.fc1(gap)))
         attn = self.fc2(gap)  # (B, mid, 1, 1)
         if self.radix > 1:
             # RadixSoftmax (split_attn.py:14-28): view as (groups, radix, chs),
@@ -330,7 +342,7 @@ def blur_pool(x: torch.Tensor, stride: int = 2, filt_size: int = 3) -> torch.Ten
     h, w = x.shape[-2:]
     x = x.index_select(2, _reflect_index(h, pad, x.device))
     x = x.index_select(3, _reflect_index(w, pad, x.device))
-    return F.conv2d(x, kernel, stride=stride, groups=chs)
+    return act.linear(lambda a, k, b: F.conv2d(a, k, b, stride=stride, groups=chs), x, kernel)
 
 
 def drop_path(x: torch.Tensor, rate: float, generator: Optional[torch.Generator],
@@ -366,7 +378,7 @@ class SqueezeExcite(nn.Module):
         self.fc2 = Conv2d(reduced, channels, 1, bias=True, compute_dtype=compute_dtype)
 
     def forward(self, x: torch.Tensor) -> torch.Tensor:
-        s = self.fc2(torch.relu(self.fc1(x.mean(dim=(2, 3), keepdim=True))))
+        s = self.fc2(act.relu(self.fc1(x.mean(dim=(2, 3), keepdim=True))))
         return x * torch.sigmoid(s)
 
 
@@ -419,7 +431,8 @@ class SpaceToDepthStemConv(Conv2d):
         k = self.kernel_size[0]
         p = (k - 1) // 2
         if h % 2 or wd % 2:
-            return F.conv2d(x, w, bias, stride=2, padding=p)
+            return act.linear(lambda a, k, b: F.conv2d(a, k, b, stride=2, padding=p),
+                              x, w, bias)
         dp_min, dp_max = -((p + 1) // 2), p // 2
         bk = dp_max - dp_min + 1
         # w2[o, (a*2 + b)*C + c, kp, kq] = w[o, c, 2(kp + dp_min) + a + p, ...]
@@ -437,4 +450,4 @@ class SpaceToDepthStemConv(Conv2d):
                             w2[:, ch:ch + cin, kp, kq] = w[:, :, di + p, dj + p]
         y = x.reshape(b, cin, h // 2, 2, wd // 2, 2).permute(0, 3, 5, 1, 2, 4)
         y = F.pad(y.reshape(b, 4 * cin, h // 2, wd // 2), (-dp_min, dp_max, -dp_min, dp_max))
-        return F.conv2d(y, w2, bias)
+        return act.linear(F.conv2d, y, w2, bias)

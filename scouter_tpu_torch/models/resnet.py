@@ -12,6 +12,10 @@ Module names are timm's (conv1, bn1, layer2.0, downsample.1, layer3.1.se.fc1,
 conv2.paths.0.conv, convs.2, ...), so ``state_dict()`` carries the
 reference's keys.
 
+The blocks' ReLUs and residual adds go through ``act.relu`` and
+``act.residual_add`` where the JAX package's call its ``act``'s, so the
+attribution methods can swap their rules in (``models/act.py``).
+
 PyTorch modules are built with their input widths, which flax infers from
 the data: each block takes the width of the tensor before it, which a
 pruned table may make differ from the unpruned count that decides the skip
@@ -28,6 +32,7 @@ import torch
 import torch.nn.functional as F
 from torch import nn
 
+from . import act
 from .layers import (
     Conv2d,
     Eca,
@@ -53,6 +58,14 @@ BlockKind = str  # 'basic' | 'bottleneck' | 'resnest' | 'res2net' | 'sk_basic' |
 
 _EXPANSION = {"basic": 1, "bottleneck": 4, "resnest": 4, "res2net": 4,
               "sk_basic": 1, "sk_bottleneck": 4}
+
+
+class _Relu(nn.Module):
+    """The deep stem's ReLU module (timm's ``conv1.2``/``conv1.5``) through
+    ``act.relu``, as the JAX package's stem calls it."""
+
+    def forward(self, x):
+        return act.relu(x)
 
 
 class _SkipPool(nn.Module):
@@ -144,13 +157,13 @@ class _BasicBlock(_Block):
         self.out_channels = planes
 
     def forward(self, x):
-        out = torch.relu(self.bn1(self.conv1(x)))
+        out = act.relu(self.bn1(self.conv1(x)))
         if self.blur:
             out = blur_pool(out, stride=2)
         out = self.bn2(self.conv2(out))
         if self.se is not None:
             out = self.se(out)
-        return torch.relu(out + self.residual(x))
+        return act.relu(act.residual_add(out, self.residual(x)))
 
 
 class _Bottleneck(_Block):
@@ -185,14 +198,14 @@ class _Bottleneck(_Block):
         self.out_channels = c3
 
     def forward(self, x):
-        out = torch.relu(self.bn1(self.conv1(x)))
-        out = torch.relu(self.bn2(self.conv2(out)))
+        out = act.relu(self.bn1(self.conv1(x)))
+        out = act.relu(self.bn2(self.conv2(out)))
         if self.blur:
             out = blur_pool(out, stride=2)
         out = self.bn3(self.conv3(out))
         if self.se is not None:
             out = self.se(out)
-        return torch.relu(out + self.residual(x))
+        return act.relu(act.residual_add(out, self.residual(x)))
 
 
 class _ResNestBottleneck(_Block):
@@ -226,14 +239,14 @@ class _ResNestBottleneck(_Block):
         self.out_channels = outplanes
 
     def forward(self, x):
-        out = torch.relu(self.bn1(self.conv1(x)))
+        out = act.relu(self.bn1(self.conv1(x)))
         if self.avd_stride and self.avd_first:
             out = avg_pool_include_pad(out, 3, self.avd_stride, 1)
         out = self.conv2(out)
         if self.avd_stride and not self.avd_first:
             out = avg_pool_include_pad(out, 3, self.avd_stride, 1)
         out = self.bn3(self.conv3(out))
-        return torch.relu(out + self.residual(x))
+        return act.relu(act.residual_add(out, self.residual(x)))
 
 
 class _Res2NetBottleneck(_Block):
@@ -269,12 +282,12 @@ class _Res2NetBottleneck(_Block):
         self.out_channels = outplanes
 
     def forward(self, x):
-        out = torch.relu(self.bn1(self.conv1(x)))
+        out = act.relu(self.bn1(self.conv1(x)))
         splits = out.split(self.width, dim=1)
         outs, sp = [], None
         for i, (conv, bn) in enumerate(zip(self.convs, self.bns)):
             sp = splits[i] if (i == 0 or self.is_first) else sp + splits[i]
-            sp = torch.relu(bn(conv(sp)))
+            sp = act.relu(bn(conv(sp)))
             outs.append(sp)
         if self.scale > 1:
             last = splits[-1]
@@ -282,7 +295,7 @@ class _Res2NetBottleneck(_Block):
                 last = avg_pool_include_pad(last, 3, self.stride, 1)
             outs.append(last)
         out = self.bn3(self.conv3(torch.cat(outs, dim=1)))
-        return torch.relu(out + self.residual(x))
+        return act.relu(act.residual_add(out, self.residual(x)))
 
 
 class _ConvBn(nn.Module):
@@ -300,7 +313,7 @@ class _ConvBn(nn.Module):
 
     def forward(self, x):
         x = self.bn(self.conv(x))
-        return torch.relu(x) if self.act else x
+        return act.relu(x) if self.act else x
 
 
 class _SKAttn(nn.Module):
@@ -321,7 +334,7 @@ class _SKAttn(nn.Module):
     def forward(self, stacked):
         """stacked: (B, P, C, H, W) -> (B, P, C, 1, 1)."""
         s = stacked.sum(dim=1).mean(dim=(2, 3), keepdim=True)
-        s = self.fc_select(torch.relu(self.bn(self.fc_reduce(s))))
+        s = self.fc_select(act.relu(self.bn(self.fc_reduce(s))))
         s = s.view(s.shape[0], self.num_paths, self.channels, 1, 1)
         return torch.softmax(s, dim=1)
 
@@ -374,7 +387,7 @@ class _SKBasicBlock(_Block):
         self.out_channels = planes
 
     def forward(self, x):
-        return torch.relu(self.conv2(self.conv1(x)) + self.residual(x))
+        return act.relu(act.residual_add(self.conv2(self.conv1(x)), self.residual(x)))
 
 
 class _SKBottleneck(_Block):
@@ -402,7 +415,8 @@ class _SKBottleneck(_Block):
         self.out_channels = outplanes
 
     def forward(self, x):
-        return torch.relu(self.conv3(self.conv2(self.conv1(x))) + self.residual(x))
+        return act.relu(act.residual_add(self.conv3(self.conv2(self.conv1(x))),
+                                          self.residual(x)))
 
 
 _BLOCKS = {
@@ -503,9 +517,9 @@ class ResNet(nn.Module):
             stem_out = width_of(widths, "conv1.6", inplanes)
             self.conv1 = nn.Sequential(
                 stem_conv(in_chans, w0, 3),
-                batch_norm(w0, compute_dtype=dt), nn.ReLU(),
+                batch_norm(w0, compute_dtype=dt), _Relu(),
                 conv2d(w0, w3, 3, padding=1, compute_dtype=dt),
-                batch_norm(w3, compute_dtype=dt), nn.ReLU(),
+                batch_norm(w3, compute_dtype=dt), _Relu(),
                 conv2d(w3, stem_out, 3, padding=1, compute_dtype=dt),
             )
         else:
@@ -562,7 +576,7 @@ class ResNet(nn.Module):
         ``start_from='layer2'`` takes such a tensor and goes on at layer3."""
         resume_after = int(start_from[-1]) if start_from is not None else 0
         if start_from is None:
-            x = torch.relu(self.bn1(self.conv1(x)))
+            x = act.relu(self.bn1(self.conv1(x)))
             if self.aa:
                 # the stem pool becomes max-pool at stride 1 and a blurred
                 # stride-2 downsample (resnet.py:414-418)

@@ -288,3 +288,103 @@ def test_stager_raises_without_a_compiler(tmp_path, monkeypatch):
     with pytest.raises(RuntimeError, match="g\\+\\+ not found"):
         native_stager.resize_batch(np.zeros((1, 4, 4, 3), np.uint8), (2, 2))
     assert not list(tmp_path.iterdir())
+
+
+_XAI_MODULES = ("models.act", "explain.cam", "explain.backprop", "explain.rise",
+                "explain.igos", "explain.extremal", "explain.iba", "explain.deeplift",
+                "explain.excitation", "explain.image_utils", "explain.compare_cli",
+                "explain.pointing_game", "explain.benchmark", "explain.datasets",
+                "explain.benchmark_models", "explain.iba_readout", "explain.parity")
+# the modules of the paths the card runs: no Pillow, no matplotlib either
+_XAI_NO_IMAGING = ("explain.compare_cli", "explain.benchmark", "explain.datasets",
+                   "explain.benchmark_models")
+
+
+@pytest.mark.parametrize("module", _XAI_MODULES)
+def test_xai_modules_import_no_jax_optax_nor_jax_package(module):
+    """Each module of the XAI suite, alone in a fresh interpreter, loads
+    neither JAX, flax, optax nor the JAX package; the comparison CLI and
+    the pointing-game stack load neither Pillow nor matplotlib."""
+    banned = ["jax", "jaxlib", "flax", "optax", "scouter_tpu"]
+    if module in _XAI_NO_IMAGING:
+        banned += ["PIL", "matplotlib"]
+    probe = (f"import importlib, sys; importlib.import_module('scouter_tpu_torch.{module}'); "
+             f"print(sorted(m for m in sys.modules if m.split('.')[0] in {tuple(banned)!r}))")
+    env = dict(os.environ, PYTHONPATH=str(ROOT))
+    out = subprocess.run([sys.executable, "-c", probe], cwd=ROOT, env=env,
+                         capture_output=True, text=True, timeout=300)
+    assert out.returncode == 0, out.stderr
+    assert out.stdout.strip() == "[]"
+
+
+_XAI_NO_PIL_PROBE = r"""
+import os, sys
+sys.modules["PIL"] = None
+sys.modules["matplotlib"] = None
+import numpy as np, torch
+from scouter_tpu_torch.core.png import read_png, write_png
+from scouter_tpu_torch.explain.benchmark import ExperimentStore, run_pointing_benchmark
+from scouter_tpu_torch.explain.benchmark_models import get_model, get_transform
+from scouter_tpu_torch.explain.compare_cli import compare_methods
+from scouter_tpu_torch.explain.datasets import voc_dataset
+from scouter_tpu_torch.explain.excitation import excitation_backprop
+from scouter_tpu_torch.explain.image_utils import imread
+from scouter_tpu_torch.models import create_model, init_weights
+
+out = sys.argv[1]
+model = create_model("resnet10", num_classes=3)
+init_weights(model, torch.Generator().manual_seed(0))
+image = np.random.RandomState(0).randint(0, 256, (40, 40, 3)).astype(np.uint8)
+maps = compare_methods(model.eval(), image, [1], out, img_size=32,
+                       methods=["gradcam", "gradient", "rise", "deeplift"], fast=True)
+root = os.path.join(out, "voc")
+for d in ("Annotations", "JPEGImages", "ImageSets/Main"):
+    os.makedirs(os.path.join(root, d))
+with open(os.path.join(root, "ImageSets/Main/test.txt"), "w") as f:
+    f.write("000001\n")
+with open(os.path.join(root, "Annotations/000001.xml"), "w") as f:
+    f.write("<annotation><size><width>40</width><height>40</height></size><object>"
+            "<name>cat</name><bndbox><xmin>5</xmin><ymin>6</ymin><xmax>20</xmax>"
+            "<ymax>30</ymax></bndbox></object></annotation>")
+# a PNG under the .jpg name the VOC layout uses: imread reads by content
+write_png(os.path.join(root, "JPEGImages/000001.jpg"), image)
+net, _ = get_model("resnet50", "voc", device="cpu")
+transform = get_transform("voc", size=64)
+
+def saliency(path, c):
+    x = transform(imread(path, device="cpu")).permute(2, 0, 1)[None]
+    return excitation_backprop(net, x, c)
+
+game = run_pointing_benchmark(saliency, voc_dataset(root), 20,
+                              store=ExperimentStore(os.path.join(out, "s.db")))
+print(read_png(os.path.join(out, "gradcam_1.png")).shape, sorted(maps), int(game.hits.sum() +
+      game.misses.sum()), sorted(m for m in sys.modules if m.split(".")[0] in
+                                 ("PIL", "matplotlib") and sys.modules[m] is not None))
+"""
+
+
+def test_xai_paths_need_neither_pil_nor_matplotlib(tmp_path):
+    """The comparison driver, the PNG reader and the pointing-game stack
+    (VOC tree, caffe ResNet50, EBP, sqlite store) run with Pillow and
+    matplotlib blocked, as on the card's machine."""
+    env = dict(os.environ, PYTHONPATH=str(ROOT))
+    out = subprocess.run([sys.executable, "-c", _XAI_NO_PIL_PROBE, str(tmp_path)], cwd=ROOT,
+                         env=env, capture_output=True, text=True, timeout=300)
+    assert out.returncode == 0, out.stderr
+    assert out.stdout.strip().splitlines()[-1] == (
+        "(40, 40, 4) ['deeplift', 'gradcam', 'gradient', 'rise'] 1 []")
+
+
+def test_xai_entry_points_raise_without_cuda(no_cuda, tmp_path):
+    from scouter_tpu_torch.explain.benchmark_models import get_model
+    from scouter_tpu_torch.explain.compare_cli import main
+    from scouter_tpu_torch.explain.image_utils import imread
+
+    with pytest.raises(RuntimeError, match="CUDA"):
+        main(["--model", "resnet10", "--num_classes", "2", "--img_size", "32",
+              "--dataset_dir", str(tmp_path / "none"), "--output_dir", str(tmp_path)],
+             out_dir=str(tmp_path / "vis"))
+    with pytest.raises(RuntimeError, match="CUDA"):
+        get_model("resnet50", "voc")
+    with pytest.raises(RuntimeError, match="CUDA"):
+        imread(str(tmp_path / "missing.png"))
