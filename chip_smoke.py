@@ -155,6 +155,23 @@ Phases (any failure exits non-zero; nothing is caught and passed over):
    launched 0 times over the phase; neither Pillow nor matplotlib imported;
    each method's seconds with the card's name and power limit.
 
+17. the second backbone slice: one full-depth representative per mechanism
+   (efficientnet_b0, tf_efficientnet_b0, efficientnet_es,
+   efficientnet_cc_b0_4e, mixnet_m, mobilenetv3_large_100,
+   efficientnet_b2_pruned, regnety_032, dla60_res2next, ese_vovnet39b_evos,
+   ese_vovnet99b_iabn, densenetblur121d, hrnet_w18_small, senet154, resnet50
+   with CBAM) card against CPU at 224 px, batch 2, logits from each
+   model's own head (``forward_head``); the flagship's config on
+   efficientnet_b2 at 260 px (N=81, ``--channel 1408``) through phase 15's
+   entry points: the engine and HTTP, card vs CPU logits, serving img/s in
+   f32 and bf16, the train CLI for two epochs and a resumed third, the
+   explain CLI, a train step card vs CPU and train img/s; K1's forward and
+   backward calls in a train step at (70, 81, 30), counted (1 / 1 / 1 on a
+   cluster / 0 tiled) and each held to its plain version; densenet121 +
+   xSlot (N=64) served through the engine and HTTP, card vs CPU logits,
+   serving and train img/s and a train step card vs CPU; the phase's
+   seconds.
+
 The line before the last is the kernels' JSON; the last line is
 ``{"ok": true, "device": {...}}``. Without a CUDA device, or without the
 package beside this file, it exits non-zero and prints no result.
@@ -922,8 +939,9 @@ def post(url: str, body: bytes) -> dict:
         return json.loads(resp.read())
 
 
-def phase_serve(cfg, state_dict):
-    """Engine + HTTP on the card; returns the kernel launches of this phase."""
+def phase_serve(cfg, state_dict, map_side: int = 7):
+    """Engine + HTTP on the card, the slot maps ``map_side`` square; returns
+    the kernel launches of this phase."""
     import io
     import urllib.request
 
@@ -956,7 +974,7 @@ def phase_serve(cfg, state_dict):
         for r in results:
             if r["logits"].shape != (cfg.num_classes,) or not np.isfinite(r["logits"]).all():
                 fail(f"engine result malformed: logits {r['logits']}")
-            if r["slot_maps"].shape != (cfg.num_classes, 7, 7):
+            if r["slot_maps"].shape != (cfg.num_classes, map_side, map_side):
                 fail(f"engine slot_maps shape {r['slot_maps'].shape}")
 
         server = make_server(eng, cfg.img_size, 3, ("127.0.0.1", 0))
@@ -999,7 +1017,11 @@ def phase_serve(cfg, state_dict):
     return launches
 
 
-def phase_gpu_vs_cpu(cfg, state_dict):
+def phase_gpu_vs_cpu(cfg, state_dict, relative: bool = False):
+    """Serving logits and maps of the same weights and images on the card and
+    on the CPU: logits within rtol/atol 1e-3, and with ``relative`` also
+    within 1e-3 of the CPU's largest logit (phase 17's EfficientNet at init
+    serves logits ~1e-18, where atol 1e-3 holds nothing)."""
     import numpy as np
 
     from scouter_tpu_torch.serve import make_serving_fn
@@ -1015,6 +1037,13 @@ def phase_gpu_vs_cpu(cfg, state_dict):
           f"max|d slot_maps| {maps}", flush=True)
     if not np.allclose(lg, lc, rtol=1e-3, atol=1e-3):
         fail(f"{cfg.model} logits on the card differ from the CPU's:\n{lg}\n{lc}")
+    if relative:
+        rel = np.abs(lg - lc).max() / np.abs(lc).max()
+        print(f"gpu vs cpu {cfg.model}: max|d logits| / max|CPU logits| {rel:.3e} (bar 1e-3; "
+              f"max|CPU logits| {np.abs(lc).max():.3e})", flush=True)
+        if not rel <= 1e-3:
+            fail(f"{cfg.model} logits on the card differ from the CPU's by {rel:.3e} of "
+                 "their scale")
 
 
 def phase_throughput(cfg, state_dict, card: str):
@@ -1076,16 +1105,18 @@ def run_cli(main, flags):
     return result, buf.getvalue().splitlines()
 
 
-def flagship_flags(tmp: str, model: str = "resnest26d"):
-    """The CLIs' flags for the flagship (or its config on another backbone)
-    on the card, the synthetic stand-in (nothing at ``--dataset_dir``) and
-    ``tmp`` as the output directory."""
+def flagship_flags(tmp: str, model: str = "resnest26d", channel: int = 2048,
+                   img_size: int = 224):
+    """The CLIs' flags for the flagship (or its config on another backbone,
+    of ``channel`` features, at ``img_size``) on the card, the synthetic
+    stand-in (nothing at ``--dataset_dir``) and ``tmp`` as the output
+    directory."""
     import os
 
     return ["--device", "cuda", "--dataset", "ImageNet", "--model", model,
-            "--num_classes", "10", "--channel", "2048", "--hidden_dim", "64",
+            "--num_classes", "10", "--channel", str(channel), "--hidden_dim", "64",
             "--slots_per_class", "3", "--to_k_layer", "3", "--power", "2",
-            "--loss_status", "1", "--lambda_value", "1", "--img_size", "224",
+            "--loss_status", "1", "--lambda_value", "1", "--img_size", str(img_size),
             "--batch_size", "70", "--pre_trained", "false",
             "--dataset_dir", os.path.join(tmp, "no_dataset"), "--output_dir", tmp]
 
@@ -1106,10 +1137,12 @@ def logged_metrics(lines):
     return found
 
 
-def phase_train(tmp: str, model: str = "resnest26d"):
-    """Flagship training (on ``model``) through the train CLI on the card: two
-    epochs, then a resume for a third; returns K1's forward and backward
-    launches over both runs."""
+def phase_train(tmp: str, model: str = "resnest26d", channel: int = 2048,
+                img_size: int = 224):
+    """Flagship training (on ``model``, ``flagship_flags``' ``channel`` and
+    ``img_size``) through the train CLI on the card: two epochs, then a
+    resume for a third; returns K1's forward and backward launches over
+    both runs."""
     import math
     import os
 
@@ -1117,7 +1150,7 @@ def phase_train(tmp: str, model: str = "resnest26d"):
     from scouter_tpu_torch.train import cli
 
     fused = slot_kernel.xslot_iterations_fused
-    flags = flagship_flags(tmp, model) + ["--lr_drop", "1"]
+    flags = flagship_flags(tmp, model, channel, img_size) + ["--lr_drop", "1"]
     train_steps, val_batches = 256 // 70, -(-128 // 70)  # the synthetic stand-in
     launches = bwd_launches = 0
     # the backward's plain version, watched for CUDA tensors: the train path
@@ -2366,8 +2399,12 @@ def phase_train_gpu_vs_cpu(cfg):
     rng = np.random.RandomState(4)
     images = torch.from_numpy(rng.randn(4, 3, cfg.img_size, cfg.img_size).astype(np.float32))
     labels = torch.from_numpy(rng.randint(0, cfg.num_classes, 4))
-    names = ("slot.gru.weight_ih_l0", "conv1x1.weight", "backbone.layer4.1.bn3.running_mean",
-             "backbone.layer4.1.bn3.running_var")
+    # the backbone's last BatchNorm in the state dict's order (the flagship's
+    # layer4.1.bn3)
+    last_bn = [k[:-len(".running_mean")] for k in init if k.startswith("backbone.")
+               and k.endswith(".running_mean")][-1]
+    names = ("slot.gru.weight_ih_l0", "conv1x1.weight", f"{last_bn}.running_mean",
+             f"{last_bn}.running_var")
     results = {}
     torch.backends.cudnn.deterministic = True
     try:
@@ -2383,7 +2420,8 @@ def phase_train_gpu_vs_cpu(cfg):
         torch.backends.cudnn.deterministic = False
     (lg, pg), (lc, pc) = results["cuda"], results["cpu"]
     errs = {k: (pg[k] - pc[k]).abs().max().item() for k in names}
-    print(f"train step gpu vs cpu (batch 4): loss {lg:.6f} vs {lc:.6f}; max|d| after the "
+    print(f"train step gpu vs cpu {cfg.model} (batch 4): loss {lg:.6f} vs {lc:.6f}; max|d| "
+          f"after the "
           f"step: {json.dumps(errs)} (bar rtol/atol 1e-3)", flush=True)
     if not np.isclose(lg, lc, rtol=1e-3, atol=1e-3):
         fail(f"train-step loss on the card {lg} differs from the CPU's {lc}")
@@ -2441,31 +2479,36 @@ ZOO = (("resnet50", {}), ("resnext50_32x4d", {}), ("seresnext26d_32x4d", {}),
 ZOO_BAR = 1e-3  # max|d| over max(1, max|CPU|), logits and features
 
 
-def phase_zoo_gpu_vs_cpu():
-    """Each representative with the same seeded weights (``init_weights``)
-    on the card and on the CPU, eval mode, one seeded batch of 2 at 224 px:
-    features and logits within ZOO_BAR of the CPU's scale. On the CPU the
-    logits are the model's head on its features (the forward's own head
-    code), to run each deep net once there."""
+def phase_zoo_gpu_vs_cpu(zoo=ZOO, seed: int = 100, relative: bool = False):
+    """Each representative of ``zoo`` with the same seeded weights
+    (``init_weights``) on the card and on the CPU, eval mode, one seeded
+    batch of 2 at 224 px: features and logits within ZOO_BAR of the CPU's
+    scale, max(1, max|CPU|), or with ``relative`` max|CPU| itself (at init
+    an eval forward of the EfficientNet family, whose blocks end without an
+    act and whose BatchNorms hold mean 0 and variance 1, shrinks its map
+    block by block, to ~1e-18 at the head, where a floor of 1 would hold
+    nothing). On the CPU the logits are the model's own head on its
+    features (``forward_head``, the forward's head code), to run each deep
+    net once there."""
     import numpy as np
     import torch
 
-    from scouter_tpu_torch.models import create_model, init_weights, layers
+    from scouter_tpu_torch.models import create_model, init_weights
 
     x = torch.from_numpy(np.random.RandomState(21).randn(2, 3, 224, 224).astype(np.float32))
     results = {}
-    for i, (name, kw) in enumerate(ZOO):
+    for i, (name, kw) in enumerate(zoo):
         label = name + "".join(f" {k}={v}" for k, v in kw.items())
         t0 = time.monotonic()
         cpu = create_model(name, **kw)
-        init_weights(cpu, torch.Generator().manual_seed(100 + i))
+        init_weights(cpu, torch.Generator().manual_seed(seed + i))
         cpu.eval()
         gpu = create_model(name, **kw)
         gpu.load_state_dict(cpu.state_dict())
         gpu = gpu.cuda().eval()
         with torch.no_grad():
             f_cpu = cpu(x, features_only=True)
-            l_cpu = cpu.fc(layers.global_avg_pool(f_cpu))
+            l_cpu = cpu.forward_head(f_cpu)
             f_gpu = gpu(x.cuda(), features_only=True).cpu()
             l_gpu = gpu(x.cuda()).cpu()
         errs = {}
@@ -2473,11 +2516,14 @@ def phase_zoo_gpu_vs_cpu():
             if got.shape != want.shape or not torch.isfinite(got).all():
                 fail(f"zoo {label}: {what} of shape {tuple(got.shape)} on the card, "
                      f"{tuple(want.shape)} on the CPU, or not finite")
-            scale = max(1.0, want.abs().max().item())
+            scale = want.abs().max().item()
+            scale = max(scale, 1e-30) if relative else max(1.0, scale)
             errs[what] = (got - want).abs().max().item() / scale
-        print(f"zoo {label}: features {tuple(f_gpu.shape)}, card vs CPU max|d| / max(1, "
-              f"max|CPU|): features {errs['features']:.3e}, logits {errs['logits']:.3e} (bar "
-              f"{ZOO_BAR}); {time.monotonic() - t0:.1f} s", flush=True)
+        print(f"zoo {label}: features {tuple(f_gpu.shape)} (max|CPU| "
+              f"{f_cpu.abs().max().item():.3e}), card vs CPU max|d| / "
+              f"{'max|CPU|' if relative else 'max(1, max|CPU|)'}: features "
+              f"{errs['features']:.3e}, logits {errs['logits']:.3e} (bar {ZOO_BAR}); "
+              f"{time.monotonic() - t0:.1f} s", flush=True)
         if max(errs.values()) > ZOO_BAR:
             fail(f"zoo {label}: the card differs from the CPU by {errs}")
         results[label] = errs
@@ -2502,7 +2548,8 @@ def phase_zoo_explain(tmp: str, cfg):
     cwd = os.getcwd()
     os.chdir(run_dir)
     try:
-        path, lines = run_cli(cli.main, flagship_flags(tmp, cfg.model))
+        path, lines = run_cli(cli.main, flagship_flags(tmp, cfg.model, cfg.channel,
+                                                       cfg.img_size))
     finally:
         os.chdir(cwd)
     torch.cuda.synchronize()
@@ -3194,6 +3241,169 @@ def phase_xai(card: str):
     return 0
 
 
+# phase 17: the second backbone slice, one full-depth representative per
+# mechanism (name, backbone kwargs), card against CPU at 224 px, batch 2
+ZOO2 = (("efficientnet_b0", {}), ("tf_efficientnet_b0", {}), ("efficientnet_es", {}),
+        ("efficientnet_cc_b0_4e", {}), ("mixnet_m", {}), ("mobilenetv3_large_100", {}),
+        ("efficientnet_b2_pruned", {}), ("regnety_032", {}), ("dla60_res2next", {}),
+        ("ese_vovnet39b_evos", {}), ("ese_vovnet99b_iabn", {}), ("densenetblur121d", {}),
+        ("hrnet_w18_small", {}), ("senet154", {}), ("resnet50", {"attn": "cbam"}))
+# the flagship's config (10 classes x 3 slots, d=64, batch 70) on
+# efficientnet_b2 at the reference CLI's 260 px (9 x 9: N=81) and on
+# densenet121 there (8 x 8: N=64)
+EFFNET_B2 = dict(FLAGSHIP, model="efficientnet_b2", channel=1408, img_size=260)
+DENSENET121 = dict(FLAGSHIP, model="densenet121", channel=1024, img_size=260)
+
+
+def phase_zoo2_k1_in_step(cfg):
+    """One f32 train step of ``cfg``'s slot model on the card at its batch
+    (70: K1 at (70, 81, 30)), K1's counts zeroed just before and read just
+    after (forward with hist 1, backward on a cluster 1, tiled 0), with its
+    forward and backward calls recorded: each held to its plain version on
+    the same inputs to ``check_grads``' bar (PERF.md section 2: 1e-4 x
+    max(1, max|ref|), else at most 2x the plain f32 version's distance from
+    float64). Then each kernel timed at that shape against its plain
+    version and bound. Returns the figures for the kernels line."""
+    import torch
+
+    from scouter_tpu_torch.data import _synthetic_folder, preprocess_batch
+    from scouter_tpu_torch.models import build_slot_model
+    from scouter_tpu_torch.ops import slot_kernel
+    from scouter_tpu_torch.train import create_train_state, make_train_step
+
+    b, s, d = cfg.batch_size, cfg.slots_per_class * cfg.num_classes, cfg.hidden_dim
+    ds = _synthetic_folder(cfg.dataset, cfg.num_classes, cfg.img_size, train=True)
+    images = preprocess_batch(torch.from_numpy(ds.images[:b]).cuda(), dataset=cfg.dataset,
+                              img_size=cfg.img_size).permute(0, 3, 1, 2).contiguous()
+    batch = {"image": images, "label": torch.from_numpy(ds.labels[:b]).long().cuda()}
+    state = create_train_state(build_slot_model(cfg, fused_slot=True, device="cuda"), cfg.lr)
+    launch, launch_bwd = slot_kernel._launch, slot_kernel._launch_bwd
+    fwd_calls, bwd_calls = [], []
+
+    def recorded_launch(*args, **kw):
+        out = launch(*args, **kw)
+        fwd_calls.append(([a.clone() if torch.is_tensor(a) else a for a in args],
+                          [o.clone() for o in out]))
+        return out
+
+    def recorded_launch_bwd(*args):
+        out = launch_bwd(*args)
+        bwd_calls.append(([a.clone() for a in args], [g.clone() for g in out]))
+        return out
+
+    k1_counts(reset=True)
+    slot_kernel._launch, slot_kernel._launch_bwd = recorded_launch, recorded_launch_bwd
+    try:
+        _, m = make_train_step(cfg.lambda_value)(state, batch)
+        torch.cuda.synchronize()
+    finally:
+        slot_kernel._launch, slot_kernel._launch_bwd = launch, launch_bwd
+    counts = k1_counts()
+    if not torch.isfinite(m["loss"]):
+        fail(f"{cfg.model} train step at batch {b}: loss {m['loss']}")
+    if (counts["launches"], counts["hist_launches"], counts["bwd_launches"],
+            counts["bwd_tiled_launches"]) != (1, 1, 1, 0) or len(fwd_calls) != 1:
+        fail(f"{cfg.model} train step at batch {b}: K1 counts {counts}, expected the "
+             "forward with hist once and the backward on a cluster once")
+    ((fargs, fout),), ((bargs, bout),) = fwd_calls, bwd_calls
+    n = fargs[0].shape[1]
+    if tuple(fargs[0].shape) != (b, n, d) or (b, n, s) != (70, 81, 30):
+        fail(f"{cfg.model} at {cfg.img_size} px gave K1 (B, N, S) = {(b, n, s)}, not "
+             "(70, 81, 30)")
+    fwd_plan = check_plan("fwd", b, n, s, d, fargs[0].device)
+    bwd_plan = check_plan("bwd", b, n, s, d, fargs[0].device)
+    if bwd_plan.tiled:
+        fail(f"K1's backward at ({b}, {n}, {s}) planned its tiled route")
+    tensors, iters = fargs[:7], fargs[7]
+    if len(fout) != 3:
+        fail(f"K1's forward in the {cfg.model} train step emitted no hist")
+    with torch.no_grad():
+        want = slot_kernel.xslot_fwd_ref(*tensors, iters=iters, emit_hist=True)
+        exact = slot_kernel.xslot_fwd_ref(*(t.double() for t in tensors), iters=iters,
+                                          emit_hist=True)
+    fwd_err = check_grads(f"xslot_fwd in the {cfg.model} train step vs xslot_fwd_ref,", b, n,
+                          s, ("upd", "attn", "hist"), fout, want, exact)
+    with torch.no_grad():
+        want = slot_kernel.xslot_bwd_ref(*bargs)
+        exact = slot_kernel.xslot_bwd_ref(*(t.double() for t in bargs))
+    bwd_err = check_grads(f"xslot_bwd in the {cfg.model} train step vs xslot_bwd_ref,", b, n,
+                          s, ("k", "v", "initial_slots", "w_ih", "w_hh", "b_ih", "b_hh"),
+                          bout, want, exact)
+    with torch.no_grad():
+        fwd_ms = cuda_ms(lambda: launch(*tensors, iters, True), 50)
+        fwd_plain_ms = cuda_ms(lambda: slot_kernel.xslot_fwd_ref(
+            *tensors, iters=iters, emit_hist=True), 50)
+        bwd_ms = cuda_ms(lambda: launch_bwd(*bargs), 50)
+        bwd_plain_ms = cuda_ms(lambda: slot_kernel.xslot_bwd_ref(*bargs), 50)
+    fwd_bound, fwd_by = xslot_bound(b, n, s, d, hist_iters=iters)
+    bwd_bound, bwd_by = xslot_bwd_bound(b, n, s, d)
+    print(f"K1 at ({b}, {n}, {s}) in the {cfg.model} train step: forward with hist "
+          f"{fwd_ms:.5f} ms (plain {fwd_plain_ms:.4f} ms, bound {fwd_bound:.6f} ms, {fwd_by}; "
+          f"cluster {fwd_plan.cluster}), backward {bwd_ms:.5f} ms (plain {bwd_plain_ms:.4f} "
+          f"ms, bound {bwd_bound:.6f} ms, {bwd_by}; cluster {bwd_plan.cluster})", flush=True)
+    return {"fwd": {"shape": [b, n, s, d], "max_abs_err": fwd_err, "ms": fwd_ms,
+                    "plain_ms": fwd_plain_ms, "bound_ms": fwd_bound, "bound_by": fwd_by,
+                    "cluster": fwd_plan.cluster},
+            "bwd": {"shape": [b, n, s, d], "max_abs_err": bwd_err, "ms": bwd_ms,
+                    "plain_ms": bwd_plain_ms, "bound_ms": bwd_bound, "bound_by": bwd_by,
+                    "cluster": bwd_plan.cluster}}
+
+
+def phase_zoo2(card: str):
+    """Phase 17: the second backbone slice. Its full-depth representatives
+    card against CPU; the flagship's config on efficientnet_b2 at 260 px
+    through the normal entry points (the engine and HTTP, card vs CPU
+    logits, serving img/s in f32 and bf16, the train CLI for two epochs and
+    a resumed third, the explain CLI, a train step card vs CPU, train
+    img/s, K1's calls in a train step at (70, 81, 30) against their plain
+    versions); densenet121 + xSlot (N=64) served, card vs CPU logits,
+    serving and train img/s and a train step card vs CPU. Returns what the
+    kernels line carries."""
+    import tempfile
+
+    from scouter_tpu_torch.core import ScouterConfig
+    from scouter_tpu_torch.models import build_slot_model
+
+    t0 = time.monotonic()
+    zoo = phase_zoo_gpu_vs_cpu(ZOO2, seed=200, relative=True)
+    cfg = ScouterConfig(**EFFNET_B2)
+    state_dict = build_slot_model(cfg, device="cpu").state_dict()
+    serve_launches = phase_serve(cfg, state_dict, map_side=9)
+    phase_gpu_vs_cpu(cfg, state_dict, relative=True)
+    serve_rates = phase_throughput(cfg, state_dict, card)
+    with tempfile.TemporaryDirectory() as tmp:
+        k1_counts(reset=True)
+        launches, bwd_launches = phase_train(tmp, cfg.model, cfg.channel, cfg.img_size)
+        tiled = k1_counts()["bwd_tiled_launches"]
+        if tiled:
+            fail(f"{cfg.model} training took K1's tiled backward {tiled} times; (70, 81, 30) "
+                 "runs on a cluster")
+        explain_launches = phase_zoo_explain(tmp, cfg)
+    phase_train_gpu_vs_cpu(cfg)
+    train_rate = phase_train_throughput(cfg, card)
+    k1 = phase_zoo2_k1_in_step(cfg)
+
+    dcfg = ScouterConfig(**DENSENET121)
+    dense_sd = build_slot_model(dcfg, device="cpu").state_dict()
+    dense_serve_launches = phase_serve(dcfg, dense_sd, map_side=8)
+    phase_gpu_vs_cpu(dcfg, dense_sd, relative=True)
+    dense_serve_rates = phase_throughput(dcfg, dense_sd, card)
+    phase_train_gpu_vs_cpu(dcfg)
+    dense_train_rate = phase_train_throughput(dcfg, card)
+    seconds = time.monotonic() - t0
+    print(json.dumps({"efficientnet_b2_xslot": dict(
+        zoo_max_rel_err=max(max(e.values()) for e in zoo.values()),
+        serve_img_per_s=serve_rates, train_img_per_s=train_rate),
+        "densenet121_xslot": dict(serve_img_per_s=dense_serve_rates,
+                                  train_img_per_s=dense_train_rate), "card": card}),
+          flush=True)
+    print(f"phase 17 (second backbone slice, efficientnet_b2 + xSlot) took {seconds:.1f} s",
+          flush=True)
+    return dict(serve_launches=serve_launches, train_launches=launches,
+                bwd_launches=bwd_launches, explain_launches=explain_launches,
+                dense_serve_launches=dense_serve_launches, k1=k1)
+
+
 def main() -> int:
     if not (ROOT / "scouter_tpu_torch" / "__init__.py").exists():
         fail(f"the scouter_tpu_torch package is not beside {Path(__file__).name}")
@@ -3265,6 +3475,13 @@ def main() -> int:
     tiled_entry["os16_launches"] = zoo["os16_tiled_launches"]
     tiled_entry["os16_launches_per_call"] = zoo["os16_launches_per_call"]
     entry["xai_launches"] = render_entry["xai_launches"] = phase_xai(card)
+    zoo2 = phase_zoo2(card)
+    entry["effnet_b2_launches"] = zoo2["train_launches"]
+    entry["effnet_b2_serve_launches"] = zoo2["serve_launches"]
+    entry["effnet_b2_explain_launches"] = zoo2["explain_launches"]
+    entry["densenet121_serve_launches"] = zoo2["dense_serve_launches"]
+    bwd_entry["effnet_b2_launches"] = zoo2["bwd_launches"]
+    entry["at_70_81_30"], bwd_entry["at_70_81_30"] = zoo2["k1"]["fwd"], zoo2["k1"]["bwd"]
     if "PIL" in sys.modules:
         fail("Pillow was imported")
     print(f"chip_smoke finished in {time.monotonic() - t0:.1f} s after the build started",

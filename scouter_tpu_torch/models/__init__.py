@@ -8,7 +8,8 @@ from typing import Optional
 import torch
 from torch import nn
 
-from . import zoo  # noqa: F401  (registers the entrypoints)
+# importing the family modules registers their entrypoints
+from . import densenet, dla, efficientnet, hrnet, regnet, senet, vovnet, zoo  # noqa: F401
 from ..core.device import resolve_device
 from ..ops.slot_attention import init_xslot_params
 from .convert import (
@@ -20,6 +21,8 @@ from .convert import (
 from .registry import create_model, is_model, list_models, model_entrypoint, register_model
 from .resnet import ResNet
 from .slot_model import SlotModel, SlotModelOutput, XSlot
+from .efficientnet import CondConv2d
+from .vovnet import EvoNormSample2d
 
 __all__ = [
     "ResNet",
@@ -69,12 +72,16 @@ def auto_fused_slot(cfg, train: bool, batch_size=None) -> bool:
 def init_weights(model: nn.Module, generator: torch.Generator) -> None:
     """Initialise ``model`` in place from ``generator`` with the JAX package's
     distributions: fan-out truncated normal (scale 2) for the backbone convs
-    built by ``layers.conv2d`` and the space-to-depth stem conv, LeCun
-    truncated normal with zero bias for the other convs (SE's fc1/fc2, ECA's
-    Conv1d, SK's fc_reduce/fc_select, split attention's, the slot head's
-    1x1) and the classifier, unit/zero BatchNorm, torch-default uniform for
-    the xSlot Linear and GRU weights, and initial slots drawn as N(mu,
-    |sigma|) with standard-normal mu and sigma per feature."""
+    built by ``layers.conv2d`` (depthwise and grouped ones too, their fan
+    the kernel's output count times its taps) and the space-to-depth stem
+    conv, LeCun truncated normal with zero bias for the other convs (the
+    gates' flax ``nn.Conv``s, ECA's Conv1d, the 1x1 heads, the slot head's
+    1x1) and the Linears (classifiers, CondConv routing), unit/zero
+    BatchNorm, each CondConv expert kaiming-uniform over its own fan
+    (``scouter_tpu/models/efficientnet.py:285-292``), EvoNorm's weight,
+    bias and v at ones, zeros and ones, torch-default uniform for the xSlot
+    Linear and GRU weights, and initial slots drawn as N(mu, |sigma|) with
+    standard-normal mu and sigma per feature."""
     g = generator
     in_slot = {sub for m in model.modules() if isinstance(m, XSlot) for sub in m.modules()}
     with torch.no_grad():
@@ -89,6 +96,13 @@ def init_weights(model: nn.Module, generator: torch.Generator) -> None:
                     m.bias.zero_()
             elif isinstance(m, nn.BatchNorm2d):
                 m.reset_parameters()
+            elif isinstance(m, CondConv2d):
+                bound = 1.0 / math.sqrt(m.in_chs // m.groups * m.kernel_size ** 2)
+                m.weight.uniform_(-bound, bound, generator=g)
+            elif isinstance(m, EvoNormSample2d):
+                m.weight.fill_(1.0)
+                m.bias.zero_()
+                m.v.fill_(1.0)
             elif isinstance(m, XSlot):
                 p = init_xslot_params(g, m.cfg)
                 m.initial_slots.copy_(p["initial_slots"])

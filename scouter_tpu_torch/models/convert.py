@@ -8,8 +8,12 @@ reference's names, which ``SlotModel.load_state_dict`` accepts:
 
 - conv kernels HWIO -> OIHW, Conv1d kernels (k, in, out) -> (out, in, k)
   (ECA's), Dense kernels (in, out) -> (out, in)
-- ``layer1_0`` -> ``layer1.0``, ``conv1_0`` -> ``conv1.0``, and the nested
+- ``layer1_0`` -> ``layer1.0``, ``conv1_0`` -> ``conv1.0``, every index of
+  a name with several (``blocks_2_1`` -> ``blocks.2.1``,
+  ``fuse_layers_1_0_0_0`` -> ``fuse_layers.1.0.0.0``), and the nested
   ``downsample/downsample_1`` -> ``downsample.1``
+- an EvoNorm's ``scale``, ``bias`` and ``v`` (C,) -> timm's (1, C, 1, 1);
+  a CondConv ``kernel`` (params, experts) -> ``weight`` (experts, params)
 - BatchNorm ``scale`` -> ``weight``, ``mean``/``var`` -> ``running_mean``/
   ``running_var``, plus a zero ``num_batches_tracked``
 - xSlot leaves keep torch layout: ``to_k_{i}_weight`` -> ``to_k.{i}.weight``,
@@ -45,7 +49,7 @@ _GRU_NAMES = {
     "gru_b_hh": "gru.bias_hh_l0",
 }
 _TO_K = re.compile(r"to_k_(\d+)_(weight|bias)")
-_INDEXED = re.compile(r"(.+)_(\d+)")
+_INDEXED = re.compile(r"(.+?)((?:_\d+)+)")
 
 
 def _leaves(tree: Mapping, prefix: Tuple[str, ...] = ()) -> Iterator[Tuple[Tuple[str, ...], Any]]:
@@ -57,15 +61,15 @@ def _leaves(tree: Mapping, prefix: Tuple[str, ...] = ()) -> Iterator[Tuple[Tuple
 
 
 def _torch_module_path(segments: Tuple[str, ...]) -> str:
-    """Split flax names back into torch Sequential indices: layer1_0 ->
-    layer1.0; a child ``downsample_1`` of ``downsample`` -> downsample.1."""
+    """Split flax names back into torch container indices: layer1_0 ->
+    layer1.0, blocks_2_1 -> blocks.2.1; a child ``downsample_1`` of
+    ``downsample`` -> downsample.1."""
     out = []
     for seg in segments:
         m = _INDEXED.fullmatch(seg)
-        if m and out and out[-1] == m.group(1):
-            out.append(m.group(2))
-        elif m:
-            out.extend(m.groups())
+        if m:
+            base, indices = m.group(1), m.group(2)[1:].split("_")
+            out.extend(indices if out and out[-1] == base else [base] + indices)
         else:
             out.append(seg)
     return ".".join(out)
@@ -78,6 +82,9 @@ def _tensor(arr) -> torch.Tensor:
 def variables_to_state_dict(variables: Mapping[str, Mapping]) -> Dict[str, torch.Tensor]:
     """Convert flax ``{'params', 'batch_stats'}`` variables into a torch state dict."""
     sd: Dict[str, torch.Tensor] = {}
+    # EvoNorm layers are the modules with a ``v`` gate; their leaves take
+    # timm's (1, C, 1, 1)
+    evo = {path[:-1] for path, _ in _leaves(variables.get("params", {})) if path[-1] == "v"}
     for path, leaf in _leaves(variables.get("params", {})):
         arr = np.asarray(leaf)
         name = path[-1]
@@ -94,11 +101,17 @@ def variables_to_state_dict(variables: Mapping[str, Mapping]) -> Dict[str, torch
                 raise KeyError(f"unrecognized slot leaf {'/'.join(path)!r}")
             continue
         mod = _torch_module_path(path[:-1])
-        if name == "kernel" and arr.ndim == 4:  # HWIO -> OIHW
+        if path[:-1] in evo:
+            if name not in ("scale", "bias", "v"):
+                raise KeyError(f"unrecognized EvoNorm leaf {'/'.join(path)!r}")
+            sd[f"{mod}.{'weight' if name == 'scale' else name}"] = _tensor(
+                arr.reshape(1, -1, 1, 1))
+        elif name == "kernel" and arr.ndim == 4:  # HWIO -> OIHW
             sd[f"{mod}.weight"] = _tensor(arr.transpose(3, 2, 0, 1))
         elif name == "kernel" and arr.ndim == 3:  # Conv1d (k, in, out) -> (out, in, k)
             sd[f"{mod}.weight"] = _tensor(arr.transpose(2, 1, 0))
-        elif name == "kernel" and arr.ndim == 2:  # (in, out) -> (out, in)
+        elif name == "kernel" and arr.ndim == 2:
+            # Dense (in, out) -> (out, in); CondConv (params, experts) -> (experts, params)
             sd[f"{mod}.weight"] = _tensor(arr.T)
         elif name == "scale":
             sd[f"{mod}.weight"] = _tensor(arr)

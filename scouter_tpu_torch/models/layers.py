@@ -1,10 +1,11 @@
-"""NCHW layers for the ResNet-family backbones
+"""NCHW layers for the backbone zoo
 (counterpart of ``scouter_tpu/models/layers.py``).
 
-Torch conv padding, BatchNorm with eps 1e-5 (and flax's running-variance
-update in train mode), the pooling variants the ResNet/ResNeSt skips use,
-the SE and ECA gates, the anti-aliasing blur, stochastic depth, head dropout
-and the space-to-depth stem conv. Module names follow timm's, so state dicts
+Torch conv padding (or TF's SAME, for the tf_ EfficientNets), BatchNorm
+with eps 1e-5 (and flax's running-variance update in train mode), the
+pooling variants the ResNet/ResNeSt skips use, the SE and ECA gates, the
+anti-aliasing blur, stochastic depth, head dropout and the space-to-depth
+stem conv. Module names follow timm's, so state dicts
 carry the reference's names.
 
 A ``compute_dtype`` (e.g. bf16) is flax's ``dtype`` with f32 ``param_dtype``:
@@ -59,7 +60,10 @@ __all__ = [
     "drop_path",
     "global_avg_pool",
     "head_dropout",
+    "head_dtype",
     "max_pool_3x3_s2_p1",
+    "norm_act",
+    "pad_same",
     "set_conv_policy",
     "torch_conv_padding",
 ]
@@ -70,20 +74,36 @@ def torch_conv_padding(kernel_size: int, stride: int, dilation: int = 1) -> int:
     return ((stride - 1) + dilation * (kernel_size - 1)) // 2
 
 
+def pad_same(x: torch.Tensor, kernel_size: int, stride: int, dilation: int = 1) -> torch.Tensor:
+    """TF's SAME zero padding (XLA's ``'SAME'``, timm's ``pad_same``): the
+    output is ceil(size / stride), and an odd total pad puts the extra row
+    and column at the bottom and right."""
+    pads = []
+    for size in (x.shape[-1], x.shape[-2]):
+        total = max((-(-size // stride) - 1) * stride + (kernel_size - 1) * dilation + 1 - size,
+                    0)
+        pads += [total // 2, total - total // 2]
+    return F.pad(x, pads) if any(pads) else x
+
+
 class Conv2d(nn.Conv2d):
     """``nn.Conv2d`` computing in ``compute_dtype`` where one is given: the
     input, weight and bias are cast to it at use (the ``dtype`` of
     ``scouter_tpu/models/layers.py:88``), the parameters keep their dtype.
     ``substitute`` (set by :func:`set_conv_policy`) replaces the conv: it
-    gets the input cast to the compute dtype."""
+    gets the input cast to the compute dtype. ``same`` pads the input to
+    TF's SAME (:func:`pad_same`) before a conv built with padding 0."""
 
-    def __init__(self, *args, compute_dtype=None, **kw):
+    def __init__(self, *args, compute_dtype=None, same: bool = False, **kw):
         super().__init__(*args, **kw)
         self.compute_dtype = compute_dtype
         self.substitute = None
+        self.same = same
 
     def forward(self, x: torch.Tensor) -> torch.Tensor:
         dt = self.compute_dtype
+        if self.same:
+            x = pad_same(x, self.kernel_size[0], self.stride[0], self.dilation[0])
         if self.substitute is not None:
             return self.substitute(x if dt is None else x.to(dt))
         if dt is None:
@@ -126,11 +146,18 @@ class Linear(nn.Linear):
 def conv2d(in_channels: int, out_channels: int, kernel_size: int, *, stride: int = 1,
            padding=None, dilation: int = 1, groups: int = 1, bias: bool = False,
            compute_dtype=None) -> Conv2d:
-    """``Conv2d`` with timm's symmetric padding. Marked for the fan-out
-    truncated-normal init of the JAX package's ``conv2d`` (models/__init__.py)."""
-    p = torch_conv_padding(kernel_size, stride, dilation) if padding is None else padding
+    """``Conv2d`` with timm's symmetric padding, or TF's SAME where
+    ``padding='same'`` (timm's ``Conv2dSame``; the tf_ and pruned
+    EfficientNets). Marked for the fan-out truncated-normal init of the JAX
+    package's ``conv2d`` (models/__init__.py)."""
+    same = padding == "same"
+    if same:
+        p = 0
+    else:
+        p = torch_conv_padding(kernel_size, stride, dilation) if padding is None else padding
     conv = Conv2d(in_channels, out_channels, kernel_size, stride=stride, padding=p,
-                  dilation=dilation, groups=groups, bias=bias, compute_dtype=compute_dtype)
+                  dilation=dilation, groups=groups, bias=bias, compute_dtype=compute_dtype,
+                  same=same)
     conv.fan_out_init = True
     return conv
 
@@ -219,6 +246,20 @@ def batch_norm(num_features: int, *, eps: float = 1e-5, compute_dtype=None) -> B
     """BatchNorm with torch defaults (momentum 0.1, eps 1e-5), flax's
     running-variance update in train mode (``BatchNorm2d``)."""
     return BatchNorm2d(num_features, eps=eps, momentum=0.1, compute_dtype=compute_dtype)
+
+
+def head_dtype(compute_dtype):
+    """The dtype of a flax ``nn.Dense`` built without ``dtype`` over an input
+    in ``compute_dtype`` (the classifiers of the families other than
+    ResNet): the promotion of it and the f32 kernel, f32."""
+    return None if compute_dtype is None else torch.float32
+
+
+def norm_act(kind: str, x: torch.Tensor) -> torch.Tensor:
+    """The act after a BatchNorm in DenseNet's and VoVNet's norm+act:
+    ``act.relu``, or InplaceABN's leaky ReLU 0.01 for 'iabn'
+    (``layers/inplace_abn.py:40-41``), which no hook reaches in JAX."""
+    return F.leaky_relu(x, 0.01) if kind == "iabn" else act.relu(x)
 
 
 def max_pool_3x3_s2_p1(x: torch.Tensor) -> torch.Tensor:

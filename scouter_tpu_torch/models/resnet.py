@@ -5,8 +5,8 @@ One configurable ``ResNet`` after timm's universal ResNet
 'deep_tiered' and 'deep_tiered_narrow', the MNIST stem, avg_down skips,
 output strides 32, 16 and 8 (dilated stages), anti-aliasing, a
 space-to-depth stem conv and pruned widths, over six block kinds: basic and
-bottleneck (``resnet.py:142-275``, with SE/ECA attention), ResNeSt's
-split-attention bottleneck (``resnest.py:58-143``), Res2Net's
+bottleneck (``resnet.py:142-275``, with ``extra_layers.create_attn``'s
+gates), ResNeSt's split-attention bottleneck (``resnest.py:58-143``), Res2Net's
 (``res2net.py:47-130``) and the selective-kernel blocks (``sknet.py:45-137``).
 Module names are timm's (conv1, bn1, layer2.0, downsample.1, layer3.1.se.fc1,
 conv2.paths.0.conv, convs.2, ...), so ``state_dict()`` carries the
@@ -33,13 +33,12 @@ import torch.nn.functional as F
 from torch import nn
 
 from . import act
+from .extra_layers import create_attn
 from .layers import (
     Conv2d,
-    Eca,
     Linear,
     SpaceToDepthStemConv,
     SplitAttnConv,
-    SqueezeExcite,
     avg_pool_ceil_exclude_pad,
     avg_pool_include_pad,
     avg_pool_same_zero_pad,
@@ -108,18 +107,11 @@ def _downsample(in_channels: int, out_channels: int, stride: int, avg_down: bool
 
 
 def _attn(attn: str, channels: int, in_channels: int, compute_dtype=None) -> Optional[nn.Module]:
-    """timm's ``create_attn`` for '' | 'se' | 'eca', the module a block names
-    ``se`` in both cases. ``channels`` is the unpruned width (ECA's kernel
-    size and SE's reduction follow it), ``in_channels`` the gated tensor's."""
-    if attn == "se":
-        return SqueezeExcite(channels, in_channels=in_channels, compute_dtype=compute_dtype)
-    if attn == "eca":
-        return Eca(channels, compute_dtype=compute_dtype)
-    if attn:
-        raise NotImplementedError(
-            f"attn {attn!r} is not ported yet (it needs extra_layers.create_attn); "
-            "ported: '', 'se', 'eca'")
-    return None
+    """timm's ``create_attn`` ('' | 'se' | 'eca' | 'ceca' | 'cbam' | 'lcbam' |
+    'ese'), the module a block names ``se``; another kind raises ValueError.
+    ``channels`` is the unpruned width (ECA's kernel size and SE's
+    reduction follow it), ``in_channels`` the gated tensor's."""
+    return create_attn(attn, channels, in_channels=in_channels, compute_dtype=compute_dtype)
 
 
 class _Block(nn.Module):
@@ -587,7 +579,10 @@ class ResNet(nn.Module):
             x = getattr(self, f"layer{stage_idx}")(x)
             if stop_after == f"layer{stage_idx}":
                 return x
-        if features_only:
-            return x
+        return x if features_only else self.forward_head(x)
+
+    def forward_head(self, x: torch.Tensor) -> torch.Tensor:
+        """The class scores of a ``features_only`` map (the pooled features
+        where no ``fc`` was built)."""
         x = head_dropout(global_avg_pool(x), self.drop_rate, self.training)
         return x if self.fc is None else self.fc(x)

@@ -137,11 +137,13 @@ class Trainer:
         print("load pre dataset parameter over")
 
     # timm default_cfg (first_conv, classifier) names for the local
-    # pretrained-weight path, per family (the JAX package's train/loop.py:195)
-    # (first conv, classifier) of a family whose names are not conv1 / fc.
-    # JAX's lists efficientnet, mobilenet and densenet, which join it as
-    # they are ported (ROADMAP Queue A item 3); the ResNet family needs none.
-    _PRETRAINED_LAYOUT: Dict[str, Tuple[str, str]] = {}
+    # pretrained-weight path, per family whose names are not conv1 / fc
+    # (the JAX package's train/loop.py:195-199)
+    _PRETRAINED_LAYOUT: Dict[str, Tuple[str, str]] = {
+        "efficientnet": ("conv_stem", "classifier"),
+        "mobilenet": ("conv_stem", "classifier"),
+        "densenet": ("features.conv0", "classifier"),
+    }
 
     def maybe_load_pretrained(self) -> None:
         """``pretrained=True`` without a download (timm helpers.py:68-101): read

@@ -1,5 +1,7 @@
-"""The port's ResNet-family registry against the JAX zoo on the CPU: the 92
-names, each entrypoint built on the meta device, the parameter trees of one
+"""The port's ResNet-family registry against the JAX zoo on the CPU: the
+port's registry against JAX's (the other families' entrypoints are held in
+``test_torch_zoo2_registry.py``), the 92 names, each entrypoint built on
+the meta device, the parameter trees of one
 representative per option against ``jax.eval_shape`` of the JAX model (all
 92 in a ``slow`` test), a pruned model at its real depth, the init of the
 new modules, a slot model on a bottleneck backbone through a train step,
@@ -45,8 +47,26 @@ def _full_f32():
 
 # ------------------------------------------------------------- the registry
 
+# the JAX registry's entrypoints the port has still to come: dpn, tresnet,
+# selecsls, inception_v3, inception_resnet_v2, gluon_xception, inception_v4,
+# nasnet, pnasnet and xception (ROADMAP Queue A item 1)
+STILL_TO_PORT = (
+    "adv_inception_v3", "dpn107", "dpn131", "dpn68", "dpn68b", "dpn92", "dpn98",
+    "ens_adv_inception_resnet_v2", "gluon_inception_v3", "gluon_xception65", "gluon_xception71",
+    "inception_resnet_v2", "inception_v3", "inception_v4", "nasnetalarge", "pnasnet5large",
+    "selecsls42", "selecsls42b", "selecsls60", "selecsls60b", "selecsls84", "tf_inception_v3",
+    "tresnet_l", "tresnet_l_448", "tresnet_m", "tresnet_m_448", "tresnet_xl", "tresnet_xl_448",
+    "xception",
+)
+
+
 def test_the_port_registers_the_jax_zoo():
-    assert list_models() == JAX_ZOO and len(JAX_ZOO) == 92
+    """The JAX registry less the 29 entrypoints still to be ported; the 92 of
+    the ResNet zoo among them."""
+    assert len(STILL_TO_PORT) == 29 and set(STILL_TO_PORT) <= set(JAX_REGISTRY)
+    assert list_models() == sorted(set(JAX_REGISTRY) - set(STILL_TO_PORT))
+    assert len(list_models()) == 268 and set(JAX_ZOO) <= set(list_models())
+    assert len(JAX_ZOO) == 92
 
 
 def meta_model(name, **kw):
