@@ -172,6 +172,24 @@ Phases (any failure exits non-zero; nothing is caught and passed over):
    serving and train img/s and a train step card vs CPU; the phase's
    seconds.
 
+18. the last ten backbone families: one full-depth representative per
+   mechanism (dpn68b, dpn107, tresnet_m, tresnet_xl, selecsls42b,
+   selecsls84, inception_v3, inception_v4, inception_resnet_v2, xception,
+   gluon_xception65, gluon_xception71, nasnetalarge, pnasnet5large) card
+   against CPU at 224 px, batch 2, within 1e-3 of the CPU's scale; the
+   flagship's config on xception at its published 299 px (N=100,
+   ``--channel 2048``) through phase 15's entry points: the engine and
+   HTTP, card vs CPU logits, serving img/s in f32 and bf16, the train CLI
+   for two epochs and a resumed third, the explain CLI, a train step card
+   vs CPU and train img/s; K1's forward and backward calls in a train step
+   at (70, 100, 30), counted (1 / 1 / 1 on a cluster / 0 tiled) and each
+   held to its plain version and timed; nasnetalarge + xSlot at 331 px
+   (N=121, ``--channel 4032``) served through the engine and HTTP, card vs
+   CPU logits, serving img/s at batch 70 in f32 and bf16, one train step at
+   batch 4 card vs CPU (K1 with hist once, its backward on a cluster once)
+   and train img/s at batch 16 with ``torch.cuda.max_memory_allocated``;
+   the phase's seconds.
+
 The line before the last is the kernels' JSON; the last line is
 ``{"ok": true, "device": {...}}``. Without a CUDA device, or without the
 package beside this file, it exits non-zero and prints no result.
@@ -2569,65 +2587,82 @@ def phase_zoo_explain(tmp: str, cfg):
     return counts["launches"]
 
 
-OS16_GRAD_NORM_BAR = 0.1  # ||g_card - g_cpu|| / ||g_cpu|| for each parameter
+STEP_GRAD_NORM_BAR = 0.1  # ||g_card - g_cpu|| / ||g_cpu|| for each parameter
 
 
-def phase_zoo_os16(cfg):
-    """``cfg``'s slot model built with ``backbone_kwargs={"output_stride":
-    16}`` (N = 196): one train step at batch 4 on the card and on the CPU
-    from the same weights and batch (cuDNN deterministic). Held: the loss
-    and the BatchNorm statistics within 1e-3; on the card K1's counts zeroed
-    just before the step and read just after it (hist 1, the backward's
-    tiled route 1, a cluster 0); the tiled route's call inside the card's
-    step, on the residuals and cotangents the step gave it, against
-    ``xslot_bwd_ref`` to chip_smoke's gradient bar; every parameter's
-    gradient, as the step leaves it before the optimizer's update, within
-    ``OS16_GRAD_NORM_BAR`` of the CPU's in norm. At random weights the
-    step is ill-conditioned (the renorm has no epsilon, and the error grows
-    on its way down the backbone): the CPU's f32 gradients lie several
-    percent of a tensor's max|g| from the same step in float64 on the CPU,
-    which is printed beside the card's figures, so no per-element bar of
-    1e-3 holds. Then
-    the tiled route's launches in one call (``profiled_launches``) held to
-    ``TiledPlan.launches``. Returns (the step's K1 counts, launches a
-    call)."""
+def recorded_k1(fwd_calls, bwd_calls):
+    """A context in which every K1 forward and backward launch is recorded,
+    its inputs and outputs cloned, into ``fwd_calls`` and ``bwd_calls``."""
+    import contextlib
+
+    import torch
+
+    from scouter_tpu_torch.ops import slot_kernel
+
+    launch, launch_bwd = slot_kernel._launch, slot_kernel._launch_bwd
+
+    def recorded_launch(*args, **kw):
+        out = launch(*args, **kw)
+        fwd_calls.append(([a.clone() if torch.is_tensor(a) else a for a in args],
+                          [o.clone() for o in out]))
+        return out
+
+    def recorded_launch_bwd(*args):
+        out = launch_bwd(*args)
+        bwd_calls.append(([a.clone() for a in args], [g.clone() for g in out]))
+        return out
+
+    @contextlib.contextmanager
+    def recording():
+        slot_kernel._launch, slot_kernel._launch_bwd = recorded_launch, recorded_launch_bwd
+        try:
+            yield
+        finally:
+            slot_kernel._launch, slot_kernel._launch_bwd = launch, launch_bwd
+
+    return recording()
+
+
+def phase_step_grads(cfg, b, map_side, seed, backbone_kwargs=None):
+    """One train step of ``cfg``'s slot model at batch ``b`` on the card (f32),
+    on the CPU (f32) and on the CPU in float64, from the same weights and
+    batch (cuDNN deterministic); on the card K1's counts zeroed just before
+    the step and read just after it, and its forward and backward calls
+    recorded. Held: the loss and the BatchNorm statistics within 1e-3;
+    every parameter's gradient, as the step leaves it before the
+    optimizer's update, within ``STEP_GRAD_NORM_BAR`` of the CPU's in norm;
+    the slot map ``map_side`` x ``map_side`` on both. At random weights the step is
+    ill-conditioned (the renorm has no epsilon, and the error grows on its
+    way down the backbone): the CPU's f32 gradients lie several percent of
+    a tensor's max|g| from the same step in float64, which is printed
+    beside the card's figures (the witness), so no per-element bar of 1e-3
+    holds. Returns (the card's K1 counts, its recorded forward calls, its
+    recorded backward calls)."""
     import numpy as np
     import torch
 
     from scouter_tpu_torch.models import build_slot_model
-    from scouter_tpu_torch.ops import slot_kernel
     from scouter_tpu_torch.train import create_train_state, make_train_step
 
-    b, kw = 4, {"output_stride": 16}
-    s = cfg.slots_per_class * cfg.num_classes
-    cfg4 = cfg.replace(batch_size=b)
-    init = build_slot_model(cfg4, device="cpu", backbone_kwargs=kw).state_dict()
-    rng = np.random.RandomState(22)
+    cfgb = cfg.replace(batch_size=b)
+    init = build_slot_model(cfgb, device="cpu", backbone_kwargs=backbone_kwargs).state_dict()
+    rng = np.random.RandomState(seed)
     images = torch.from_numpy(rng.randn(b, 3, cfg.img_size, cfg.img_size).astype(np.float32))
     labels = torch.from_numpy(rng.randint(0, cfg.num_classes, b))
-    results, counts, calls = {}, None, []
-    launch_bwd = slot_kernel._launch_bwd
-
-    def recorded_launch_bwd(*args):
-        out = launch_bwd(*args)
-        calls.append(([a.clone() for a in args], [g.clone() for g in out]))
-        return out
-
+    results, counts, fwd_calls, bwd_calls = {}, None, [], []
     torch.backends.cudnn.deterministic = True
     try:
         for dev, dtype in (("cuda", torch.float32), ("cpu", torch.float32),
                            ("cpu", torch.float64)):
-            model = build_slot_model(cfg4, fused_slot=True, device=dev, backbone_kwargs=kw)
+            model = build_slot_model(cfgb, fused_slot=True, device=dev,
+                                     backbone_kwargs=backbone_kwargs)
             model.load_state_dict(init)
             model.to(dtype)
             state = create_train_state(model, cfg.lr)
             step = make_train_step(cfg.lambda_value)
             k1_counts(reset=True)
-            slot_kernel._launch_bwd = recorded_launch_bwd
-            try:
+            with recorded_k1(fwd_calls, bwd_calls):
                 _, m = step(state, {"image": images.to(dev, dtype), "label": labels.to(dev)})
-            finally:
-                slot_kernel._launch_bwd = launch_bwd
             if dtype == torch.float64:
                 exact_grads = {k: p.grad for k, p in model.named_parameters()
                                if p.grad is not None}
@@ -2639,15 +2674,16 @@ def phase_zoo_os16(cfg):
             stats = {k: t.cpu() for k, t in model.state_dict().items()
                      if k.endswith(("running_mean", "running_var"))}
             with torch.no_grad():
-                attn_n = model.eval()(images[:1].to(dev))["attn"].shape[-1]
+                attn_n = model.eval()(images[:1].to(dev, dtype))["attn"].shape[-1]
             results[dev] = (m["loss"].item(), grads, stats, attn_n)
     finally:
         torch.backends.cudnn.deterministic = False
     (lg, gg, sg, n_gpu), (lc, gc, sc, n_cpu) = results["cuda"], results["cpu"]
-    if (n_gpu, n_cpu) != (196, 196):
-        fail(f"output stride 16 gave N={n_gpu} on the card and {n_cpu} on the CPU, not 196")
+    what = f"{cfg.model} {json.dumps(backbone_kwargs or {})} train step (batch {b})"
+    if (n_gpu, n_cpu) != (map_side ** 2, map_side ** 2):
+        fail(f"{what} gave N={n_gpu} on the card and {n_cpu} on the CPU, not {map_side ** 2}")
     if set(gg) != set(gc) or not any(k.startswith("slot.") for k in gc):
-        fail(f"the OS16 step left gradients for {len(gg)} parameters on the card and "
+        fail(f"{what} left gradients for {len(gg)} parameters on the card and "
              f"{len(gc)} on the CPU")
     by_max = {k: ((gg[k] - gc[k]).abs().max() / gc[k].abs().max()).item() for k in gc}
     by_norm = {k: ((gg[k] - gc[k]).norm() / gc[k].norm()).item() for k in gc}
@@ -2655,34 +2691,57 @@ def phase_zoo_os16(cfg):
                      for k, g in exact_grads.items())
     cpu_by_norm = max(((gc[k].double() - g).norm() / g.norm()).item()
                       for k, g in exact_grads.items())
+    card_by_norm = max(((gg[k].double() - g).norm() / g.norm()).item()
+                       for k, g in exact_grads.items())
     head = [k for k in gc if not k.startswith("backbone.")]
     stat_err = max((sg[k] - sc[k]).abs().max().item() for k in sc)
     worst = max(by_norm, key=by_norm.get)
-    print(f"{cfg.model} output_stride 16 train step (batch {b}, N={n_gpu}): loss {lg:.6f} on "
-          f"the card vs {lc:.6f} on the CPU; {len(gc)} gradients card vs CPU, "
-          f"||d|| / ||g|| worst {by_norm[worst]:.3e} ({worst}; bar {OS16_GRAD_NORM_BAR}), "
-          f"max|d| / max|g| worst {max(by_max.values()):.3e}, in the slot head and conv1x1 "
-          f"{max(by_max[k] for k in head):.3e} (the CPU's f32 gradients from its float64 "
-          f"run: worst {cpu_by_norm:.3e} of a norm, {cpu_by_max:.3e} of a max|g|); "
-          f"BatchNorm statistics max|d| {stat_err:.3e} "
-          f"(bar rtol/atol 1e-3); K1 in the card's step {json.dumps(counts)}", flush=True)
+    print(f"{what}, N={n_gpu}: loss {lg:.6f} on the card vs {lc:.6f} on the CPU; {len(gc)} "
+          f"gradients card vs CPU, ||d|| / ||g|| worst {by_norm[worst]:.3e} ({worst}; bar "
+          f"{STEP_GRAD_NORM_BAR}), max|d| / max|g| worst {max(by_max.values()):.3e}, in the "
+          f"slot head and conv1x1 {max(by_max[k] for k in head):.3e} (from the CPU's float64 "
+          f"run, worst of a norm: the card's {card_by_norm:.3e}, the CPU's f32 "
+          f"{cpu_by_norm:.3e}; the CPU's f32 {cpu_by_max:.3e} of a max|g|); BatchNorm "
+          f"statistics max|d| {stat_err:.3e} (bar rtol/atol 1e-3); K1 in the card's step "
+          f"{json.dumps(counts)}", flush=True)
     if not np.isclose(lg, lc, rtol=1e-3, atol=1e-3):
-        fail(f"OS16 train-step loss on the card {lg} differs from the CPU's {lc}")
-    if by_norm[worst] > OS16_GRAD_NORM_BAR:
-        fail(f"{worst}'s gradient in the OS16 train step differs between card and CPU by "
+        fail(f"{what}: loss on the card {lg} differs from the CPU's {lc}")
+    if by_norm[worst] > STEP_GRAD_NORM_BAR:
+        fail(f"{what}: {worst}'s gradient differs between card and CPU by "
              f"{by_norm[worst]:.3e} of its norm")
     for k in sc:
         if not torch.allclose(sg[k], sc[k], rtol=1e-3, atol=1e-3):
-            fail(f"{k} after the OS16 train step differs between card and CPU")
+            fail(f"{what}: {k} after the step differs between card and CPU")
+    if any(a[0].device.type != "cuda" for a, _ in fwd_calls + bwd_calls):
+        fail(f"{what}: K1 was recorded launching on CPU tensors")
+    return counts, fwd_calls, bwd_calls
+
+
+def phase_zoo_os16(cfg):
+    """``cfg``'s slot model built with ``backbone_kwargs={"output_stride":
+    16}`` (N = 196): one train step at batch 4 on the card and on the CPU
+    from the same weights and batch, held by ``phase_step_grads``; the
+    card's K1 counts in that step (hist 1, the backward's tiled route 1, a
+    cluster 0); the tiled route's call inside the card's step, on the
+    residuals and cotangents the step gave it, against ``xslot_bwd_ref`` to
+    chip_smoke's gradient bar. Then the tiled route's launches in one call
+    (``profiled_launches``) held to ``TiledPlan.launches``. Returns (the
+    step's K1 counts, launches a call)."""
+    import torch
+
+    from scouter_tpu_torch.ops import slot_kernel
+
+    b, s = 4, cfg.slots_per_class * cfg.num_classes
+    counts, _, calls = phase_step_grads(cfg, b, 14, seed=22,
+                                        backbone_kwargs={"output_stride": 16})
     if (counts["hist_launches"], counts["bwd_tiled_launches"], counts["bwd_launches"]) != (
             1, 1, 0):
         fail(f"the OS16 train step's K1 counts {counts}: expected hist 1, tiled backward 1, "
              "cluster 0")
     (plan,) = check_tiled_plans(((b, 196, s, cfg.hidden_dim),)).values()
     ((res, got),) = calls  # the card's call: the CPU runs the plain version
-    if res[0].device.type != "cuda" or tuple(res[6].shape) != (b, 3, s, cfg.hidden_dim):
-        fail(f"K1's backward in the OS16 step saw hist {tuple(res[6].shape)} on "
-             f"{res[0].device}")
+    if tuple(res[6].shape) != (b, 3, s, cfg.hidden_dim):
+        fail(f"K1's backward in the OS16 step saw hist {tuple(res[6].shape)}")
     with torch.no_grad():
         want = slot_kernel.xslot_bwd_ref(*res)
         exact = slot_kernel.xslot_bwd_ref(*(t.double() for t in res))
@@ -3255,98 +3314,97 @@ EFFNET_B2 = dict(FLAGSHIP, model="efficientnet_b2", channel=1408, img_size=260)
 DENSENET121 = dict(FLAGSHIP, model="densenet121", channel=1024, img_size=260)
 
 
-def phase_zoo2_k1_in_step(cfg):
-    """One f32 train step of ``cfg``'s slot model on the card at its batch
-    (70: K1 at (70, 81, 30)), K1's counts zeroed just before and read just
-    after (forward with hist 1, backward on a cluster 1, tiled 0), with its
-    forward and backward calls recorded: each held to its plain version on
-    the same inputs to ``check_grads``' bar (PERF.md section 2: 1e-4 x
-    max(1, max|ref|), else at most 2x the plain f32 version's distance from
-    float64). Then each kernel timed at that shape against its plain
-    version and bound. Returns the figures for the kernels line."""
+def hold_k1_calls(what, fwd_calls, bwd_calls, shape, d):
+    """K1's forward (with hist) and cluster-backward calls that one train
+    step recorded (``recorded_k1``), one of each at ``shape`` = (B, N, S):
+    each held to its plain version on the same inputs to ``check_grads``'
+    bar (PERF.md section 2: 1e-4 x max(1, max|ref|), else at most 2x the
+    plain f32 version's distance from float64), then timed at that shape
+    against its plain version and bound. Returns the figures for the
+    kernels line."""
     import torch
 
-    from scouter_tpu_torch.data import _synthetic_folder, preprocess_batch
-    from scouter_tpu_torch.models import build_slot_model
     from scouter_tpu_torch.ops import slot_kernel
-    from scouter_tpu_torch.train import create_train_state, make_train_step
 
-    b, s, d = cfg.batch_size, cfg.slots_per_class * cfg.num_classes, cfg.hidden_dim
-    ds = _synthetic_folder(cfg.dataset, cfg.num_classes, cfg.img_size, train=True)
-    images = preprocess_batch(torch.from_numpy(ds.images[:b]).cuda(), dataset=cfg.dataset,
-                              img_size=cfg.img_size).permute(0, 3, 1, 2).contiguous()
-    batch = {"image": images, "label": torch.from_numpy(ds.labels[:b]).long().cuda()}
-    state = create_train_state(build_slot_model(cfg, fused_slot=True, device="cuda"), cfg.lr)
-    launch, launch_bwd = slot_kernel._launch, slot_kernel._launch_bwd
-    fwd_calls, bwd_calls = [], []
-
-    def recorded_launch(*args, **kw):
-        out = launch(*args, **kw)
-        fwd_calls.append(([a.clone() if torch.is_tensor(a) else a for a in args],
-                          [o.clone() for o in out]))
-        return out
-
-    def recorded_launch_bwd(*args):
-        out = launch_bwd(*args)
-        bwd_calls.append(([a.clone() for a in args], [g.clone() for g in out]))
-        return out
-
-    k1_counts(reset=True)
-    slot_kernel._launch, slot_kernel._launch_bwd = recorded_launch, recorded_launch_bwd
-    try:
-        _, m = make_train_step(cfg.lambda_value)(state, batch)
-        torch.cuda.synchronize()
-    finally:
-        slot_kernel._launch, slot_kernel._launch_bwd = launch, launch_bwd
-    counts = k1_counts()
-    if not torch.isfinite(m["loss"]):
-        fail(f"{cfg.model} train step at batch {b}: loss {m['loss']}")
-    if (counts["launches"], counts["hist_launches"], counts["bwd_launches"],
-            counts["bwd_tiled_launches"]) != (1, 1, 1, 0) or len(fwd_calls) != 1:
-        fail(f"{cfg.model} train step at batch {b}: K1 counts {counts}, expected the "
-             "forward with hist once and the backward on a cluster once")
+    if len(fwd_calls) != 1 or len(bwd_calls) != 1:
+        fail(f"{what}: {len(fwd_calls)} forward and {len(bwd_calls)} backward K1 calls "
+             "recorded, expected one of each")
     ((fargs, fout),), ((bargs, bout),) = fwd_calls, bwd_calls
-    n = fargs[0].shape[1]
-    if tuple(fargs[0].shape) != (b, n, d) or (b, n, s) != (70, 81, 30):
-        fail(f"{cfg.model} at {cfg.img_size} px gave K1 (B, N, S) = {(b, n, s)}, not "
-             "(70, 81, 30)")
+    b, n, s = shape
+    if tuple(fargs[0].shape) != (b, n, d) or fargs[2].shape[-2] != s:
+        fail(f"{what} gave K1 k {tuple(fargs[0].shape)} and slots "
+             f"{tuple(fargs[2].shape)}, not (B, N, S) = {shape} at d={d}")
     fwd_plan = check_plan("fwd", b, n, s, d, fargs[0].device)
     bwd_plan = check_plan("bwd", b, n, s, d, fargs[0].device)
     if bwd_plan.tiled:
         fail(f"K1's backward at ({b}, {n}, {s}) planned its tiled route")
     tensors, iters = fargs[:7], fargs[7]
     if len(fout) != 3:
-        fail(f"K1's forward in the {cfg.model} train step emitted no hist")
+        fail(f"K1's forward in {what} emitted no hist")
     with torch.no_grad():
         want = slot_kernel.xslot_fwd_ref(*tensors, iters=iters, emit_hist=True)
         exact = slot_kernel.xslot_fwd_ref(*(t.double() for t in tensors), iters=iters,
                                           emit_hist=True)
-    fwd_err = check_grads(f"xslot_fwd in the {cfg.model} train step vs xslot_fwd_ref,", b, n,
-                          s, ("upd", "attn", "hist"), fout, want, exact)
+    fwd_err = check_grads(f"xslot_fwd in {what} vs xslot_fwd_ref,", b, n, s,
+                          ("upd", "attn", "hist"), fout, want, exact)
     with torch.no_grad():
         want = slot_kernel.xslot_bwd_ref(*bargs)
         exact = slot_kernel.xslot_bwd_ref(*(t.double() for t in bargs))
-    bwd_err = check_grads(f"xslot_bwd in the {cfg.model} train step vs xslot_bwd_ref,", b, n,
-                          s, ("k", "v", "initial_slots", "w_ih", "w_hh", "b_ih", "b_hh"),
+    bwd_err = check_grads(f"xslot_bwd in {what} vs xslot_bwd_ref,", b, n, s,
+                          ("k", "v", "initial_slots", "w_ih", "w_hh", "b_ih", "b_hh"),
                           bout, want, exact)
     with torch.no_grad():
-        fwd_ms = cuda_ms(lambda: launch(*tensors, iters, True), 50)
+        fwd_ms = cuda_ms(lambda: slot_kernel._launch(*tensors, iters, True), 50)
         fwd_plain_ms = cuda_ms(lambda: slot_kernel.xslot_fwd_ref(
             *tensors, iters=iters, emit_hist=True), 50)
-        bwd_ms = cuda_ms(lambda: launch_bwd(*bargs), 50)
+        bwd_ms = cuda_ms(lambda: slot_kernel._launch_bwd(*bargs), 50)
         bwd_plain_ms = cuda_ms(lambda: slot_kernel.xslot_bwd_ref(*bargs), 50)
     fwd_bound, fwd_by = xslot_bound(b, n, s, d, hist_iters=iters)
     bwd_bound, bwd_by = xslot_bwd_bound(b, n, s, d)
-    print(f"K1 at ({b}, {n}, {s}) in the {cfg.model} train step: forward with hist "
-          f"{fwd_ms:.5f} ms (plain {fwd_plain_ms:.4f} ms, bound {fwd_bound:.6f} ms, {fwd_by}; "
-          f"cluster {fwd_plan.cluster}), backward {bwd_ms:.5f} ms (plain {bwd_plain_ms:.4f} "
-          f"ms, bound {bwd_bound:.6f} ms, {bwd_by}; cluster {bwd_plan.cluster})", flush=True)
+    print(f"K1 at ({b}, {n}, {s}) in {what}: forward with hist {fwd_ms:.5f} ms (plain "
+          f"{fwd_plain_ms:.4f} ms, bound {fwd_bound:.6f} ms, {fwd_by}; cluster "
+          f"{fwd_plan.cluster}), backward {bwd_ms:.5f} ms (plain {bwd_plain_ms:.4f} ms, "
+          f"bound {bwd_bound:.6f} ms, {bwd_by}; cluster {bwd_plan.cluster})", flush=True)
     return {"fwd": {"shape": [b, n, s, d], "max_abs_err": fwd_err, "ms": fwd_ms,
                     "plain_ms": fwd_plain_ms, "bound_ms": fwd_bound, "bound_by": fwd_by,
                     "cluster": fwd_plan.cluster},
             "bwd": {"shape": [b, n, s, d], "max_abs_err": bwd_err, "ms": bwd_ms,
                     "plain_ms": bwd_plain_ms, "bound_ms": bwd_bound, "bound_by": bwd_by,
                     "cluster": bwd_plan.cluster}}
+
+
+def phase_zoo2_k1_in_step(cfg, map_side: int):
+    """One f32 train step of ``cfg``'s slot model on the card at its batch
+    (70: K1 at (70, ``map_side``**2, 30)), K1's counts zeroed just before
+    and read just after (forward with hist 1, backward on a cluster 1,
+    tiled 0), its calls held and timed by ``hold_k1_calls``. Returns the
+    figures for the kernels line."""
+    import torch
+
+    from scouter_tpu_torch.data import _synthetic_folder, preprocess_batch
+    from scouter_tpu_torch.models import build_slot_model
+    from scouter_tpu_torch.train import create_train_state, make_train_step
+
+    b, s = cfg.batch_size, cfg.slots_per_class * cfg.num_classes
+    ds = _synthetic_folder(cfg.dataset, cfg.num_classes, cfg.img_size, train=True)
+    images = preprocess_batch(torch.from_numpy(ds.images[:b]).cuda(), dataset=cfg.dataset,
+                              img_size=cfg.img_size).permute(0, 3, 1, 2).contiguous()
+    batch = {"image": images, "label": torch.from_numpy(ds.labels[:b]).long().cuda()}
+    state = create_train_state(build_slot_model(cfg, fused_slot=True, device="cuda"), cfg.lr)
+    fwd_calls, bwd_calls = [], []
+    k1_counts(reset=True)
+    with recorded_k1(fwd_calls, bwd_calls):
+        _, m = make_train_step(cfg.lambda_value)(state, batch)
+        torch.cuda.synchronize()
+    counts = k1_counts()
+    if not torch.isfinite(m["loss"]):
+        fail(f"{cfg.model} train step at batch {b}: loss {m['loss']}")
+    if (counts["launches"], counts["hist_launches"], counts["bwd_launches"],
+            counts["bwd_tiled_launches"]) != (1, 1, 1, 0):
+        fail(f"{cfg.model} train step at batch {b}: K1 counts {counts}, expected the "
+             "forward with hist once and the backward on a cluster once")
+    return hold_k1_calls(f"the {cfg.model} train step", fwd_calls, bwd_calls,
+                         (b, map_side ** 2, s), cfg.hidden_dim)
 
 
 def phase_zoo2(card: str):
@@ -3368,7 +3426,8 @@ def phase_zoo2(card: str):
     zoo = phase_zoo_gpu_vs_cpu(ZOO2, seed=200, relative=True)
     cfg = ScouterConfig(**EFFNET_B2)
     state_dict = build_slot_model(cfg, device="cpu").state_dict()
-    serve_launches = phase_serve(cfg, state_dict, map_side=9)
+    side = 9  # efficientnet_b2 at 260 px: N=81
+    serve_launches = phase_serve(cfg, state_dict, map_side=side)
     phase_gpu_vs_cpu(cfg, state_dict, relative=True)
     serve_rates = phase_throughput(cfg, state_dict, card)
     with tempfile.TemporaryDirectory() as tmp:
@@ -3381,7 +3440,7 @@ def phase_zoo2(card: str):
         explain_launches = phase_zoo_explain(tmp, cfg)
     phase_train_gpu_vs_cpu(cfg)
     train_rate = phase_train_throughput(cfg, card)
-    k1 = phase_zoo2_k1_in_step(cfg)
+    k1 = phase_zoo2_k1_in_step(cfg, map_side=side)
 
     dcfg = ScouterConfig(**DENSENET121)
     dense_sd = build_slot_model(dcfg, device="cpu").state_dict()
@@ -3402,6 +3461,118 @@ def phase_zoo2(card: str):
     return dict(serve_launches=serve_launches, train_launches=launches,
                 bwd_launches=bwd_launches, explain_launches=explain_launches,
                 dense_serve_launches=dense_serve_launches, k1=k1)
+
+
+# phase 18: one full-depth representative per mechanism of the last ten
+# families, card against CPU at 224 px, batch 2
+ZOO3 = (("dpn68b", {}), ("dpn107", {}), ("tresnet_m", {}), ("tresnet_xl", {}),
+        ("selecsls42b", {}), ("selecsls84", {}), ("inception_v3", {}), ("inception_v4", {}),
+        ("inception_resnet_v2", {}), ("xception", {}), ("gluon_xception65", {}),
+        ("gluon_xception71", {}), ("nasnetalarge", {}), ("pnasnet5large", {}))
+# the flagship's config (10 classes x 3 slots, d=64, batch 70) on xception at
+# its published 299 px (10 x 10: N=100) and on NASNet-A Large at its 331 px
+# (11 x 11: N=121)
+XCEPTION = dict(FLAGSHIP, model="xception", channel=2048, img_size=299)
+NASNET = dict(FLAGSHIP, model="nasnetalarge", channel=4032, img_size=331)
+NASNET_TRAIN_BATCH = 16  # fixed: NASNet-A Large's activations at 331 px are large
+
+
+def phase_nasnet_train_rate(cfg, card: str):
+    """NASNet-A Large + xSlot's f32 train img/s at NASNET_TRAIN_BATCH with
+    the card's peak memory over those steps."""
+    import torch
+
+    torch.cuda.empty_cache()
+    torch.cuda.reset_peak_memory_stats()
+    rate = phase_train_throughput(cfg.replace(batch_size=NASNET_TRAIN_BATCH), card)
+    peak = torch.cuda.max_memory_allocated() / 2**30
+    print(f"train {cfg.model} bs={NASNET_TRAIN_BATCH}: {rate:.1f} img/s, "
+          f"torch.cuda.max_memory_allocated {peak:.2f} GiB on {card}", flush=True)
+    return rate, peak
+
+
+def phase_zoo3_step(cfg, map_side, seed):
+    """One train step of ``cfg``'s slot model at batch 4 on the card and on
+    the CPU (``phase_step_grads``: the loss, the statistics and every
+    parameter's gradient before the update, with the CPU's float64 run as
+    the witness); the card's K1 counts in the step (forward with hist 1,
+    backward on a cluster 1, tiled 0) and its two calls, at (4,
+    ``map_side``**2, 30), held to their plain versions and timed by
+    ``hold_k1_calls``. Returns (the counts, the calls' figures)."""
+    b = 4
+    counts, fwd_calls, bwd_calls = phase_step_grads(cfg, b, map_side, seed)
+    if (counts["hist_launches"], counts["bwd_launches"],
+            counts["bwd_tiled_launches"]) != (1, 1, 0):
+        fail(f"{cfg.model}'s train step at batch {b} gave K1 counts {counts}, expected the "
+             "forward with hist once and the backward on a cluster once")
+    return counts, hold_k1_calls(f"the {cfg.model} train step at batch {b}", fwd_calls,
+                                 bwd_calls, (b, map_side ** 2,
+                                             cfg.slots_per_class * cfg.num_classes),
+                                 cfg.hidden_dim)
+
+
+def phase_zoo3(card: str):
+    """Phase 18: the last ten backbone families. Their full-depth
+    representatives card against CPU; the flagship's config on xception at
+    299 px through the normal entry points (the engine and HTTP, card vs
+    CPU logits, serving img/s in f32 and bf16, the train CLI for two epochs
+    and a resumed third, the explain CLI, a train step at batch 4 card vs
+    CPU with K1's calls at (4, 100, 30), train img/s, K1's calls in a train
+    step at (70, 100, 30) against their plain versions); nasnetalarge +
+    xSlot at 331 px (N=121) served, card vs CPU logits, serving img/s at
+    batch 70, a train step at batch 4 card vs CPU with K1's calls at (4,
+    121, 30) and train img/s at batch 16 with the card's peak memory. The
+    batch-4 steps are ``phase_zoo3_step``'s. Returns what the kernels line
+    carries."""
+    import tempfile
+
+    from scouter_tpu_torch.core import ScouterConfig
+    from scouter_tpu_torch.models import build_slot_model
+
+    t0 = time.monotonic()
+    zoo = phase_zoo_gpu_vs_cpu(ZOO3, seed=300, relative=True)
+    cfg = ScouterConfig(**XCEPTION)
+    state_dict = build_slot_model(cfg, device="cpu").state_dict()
+    side = 10  # xception at 299 px: N=100
+    serve_launches = phase_serve(cfg, state_dict, map_side=side)
+    phase_gpu_vs_cpu(cfg, state_dict, relative=True)
+    serve_rates = phase_throughput(cfg, state_dict, card)
+    with tempfile.TemporaryDirectory() as tmp:
+        k1_counts(reset=True)
+        launches, bwd_launches = phase_train(tmp, cfg.model, cfg.channel, cfg.img_size)
+        tiled = k1_counts()["bwd_tiled_launches"]
+        if tiled:
+            fail(f"{cfg.model} training took K1's tiled backward {tiled} times; (70, 100, 30) "
+                 "runs on a cluster")
+        explain_launches = phase_zoo_explain(tmp, cfg)
+    step_k1 = phase_zoo3_step(cfg, side, seed=18)[1]
+    train_rate = phase_train_throughput(cfg, card)
+    k1 = phase_zoo2_k1_in_step(cfg, map_side=side)
+
+    ncfg = ScouterConfig(**NASNET)
+    nasnet_sd = build_slot_model(ncfg, device="cpu").state_dict()
+    nside = 11  # nasnetalarge at 331 px: N=121
+    nasnet_serve_launches = phase_serve(ncfg, nasnet_sd, map_side=nside)
+    phase_gpu_vs_cpu(ncfg, nasnet_sd, relative=True)
+    nasnet_serve_rates = phase_throughput(ncfg, nasnet_sd, card)
+    step_counts, nasnet_k1 = phase_zoo3_step(ncfg, nside, seed=19)
+    nasnet_train_rate, nasnet_peak = phase_nasnet_train_rate(ncfg, card)
+    seconds = time.monotonic() - t0
+    print(json.dumps({"xception_xslot": dict(
+        zoo_max_rel_err=max(max(e.values()) for e in zoo.values()),
+        serve_img_per_s=serve_rates, train_img_per_s=train_rate),
+        "nasnetalarge_xslot": dict(serve_img_per_s=nasnet_serve_rates,
+                                   train_img_per_s_bs16=nasnet_train_rate,
+                                   train_max_memory_allocated_gib=nasnet_peak),
+        "card": card}), flush=True)
+    print(f"phase 18 (last ten backbone families, xception + xSlot) took {seconds:.1f} s",
+          flush=True)
+    return dict(serve_launches=serve_launches, train_launches=launches,
+                bwd_launches=bwd_launches, explain_launches=explain_launches,
+                nasnet_serve_launches=nasnet_serve_launches,
+                nasnet_step_launches=step_counts["launches"],
+                nasnet_step_bwd_launches=step_counts["bwd_launches"], k1=k1,
+                step_k1=step_k1, nasnet_k1=nasnet_k1)
 
 
 def main() -> int:
@@ -3482,6 +3653,19 @@ def main() -> int:
     entry["densenet121_serve_launches"] = zoo2["dense_serve_launches"]
     bwd_entry["effnet_b2_launches"] = zoo2["bwd_launches"]
     entry["at_70_81_30"], bwd_entry["at_70_81_30"] = zoo2["k1"]["fwd"], zoo2["k1"]["bwd"]
+    zoo3 = phase_zoo3(card)
+    entry["xception_launches"] = zoo3["train_launches"]
+    entry["xception_serve_launches"] = zoo3["serve_launches"]
+    entry["xception_explain_launches"] = zoo3["explain_launches"]
+    entry["nasnet_serve_launches"] = zoo3["nasnet_serve_launches"]
+    entry["nasnet_step_launches"] = zoo3["nasnet_step_launches"]
+    bwd_entry["xception_launches"] = zoo3["bwd_launches"]
+    bwd_entry["nasnet_step_launches"] = zoo3["nasnet_step_bwd_launches"]
+    entry["at_70_100_30"], bwd_entry["at_70_100_30"] = zoo3["k1"]["fwd"], zoo3["k1"]["bwd"]
+    entry["at_4_100_30"], bwd_entry["at_4_100_30"] = (zoo3["step_k1"]["fwd"],
+                                                      zoo3["step_k1"]["bwd"])
+    entry["at_4_121_30"], bwd_entry["at_4_121_30"] = (zoo3["nasnet_k1"]["fwd"],
+                                                      zoo3["nasnet_k1"]["bwd"])
     if "PIL" in sys.modules:
         fail("Pillow was imported")
     print(f"chip_smoke finished in {time.monotonic() - t0:.1f} s after the build started",

@@ -9,7 +9,9 @@ import torch
 from torch import nn
 
 # importing the family modules registers their entrypoints
-from . import densenet, dla, efficientnet, hrnet, regnet, senet, vovnet, zoo  # noqa: F401
+from . import densenet, dla, dpn, efficientnet, gluon_xception, hrnet  # noqa: F401
+from . import inception_resnet_v2, inception_v3, inception_v4, nasnet, pnasnet  # noqa: F401
+from . import regnet, selecsls, senet, tresnet, vovnet, xception, zoo  # noqa: F401
 from ..core.device import resolve_device
 from ..ops.slot_attention import init_xslot_params
 from .convert import (

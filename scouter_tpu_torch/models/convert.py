@@ -8,10 +8,15 @@ reference's names, which ``SlotModel.load_state_dict`` accepts:
 
 - conv kernels HWIO -> OIHW, Conv1d kernels (k, in, out) -> (out, in, k)
   (ECA's), Dense kernels (in, out) -> (out, in)
-- ``layer1_0`` -> ``layer1.0``, ``conv1_0`` -> ``conv1.0``, every index of
-  a name with several (``blocks_2_1`` -> ``blocks.2.1``,
-  ``fuse_layers_1_0_0_0`` -> ``fuse_layers.1.0.0.0``), and the nested
-  ``downsample/downsample_1`` -> ``downsample.1``
+- each module is the one among ``names``, the keys of the state dict to
+  fill, that the JAX package's converter names so (its ``_module_path``:
+  ``layer1.0`` -> ``layer1_0``, ``blocks.2.1`` -> ``blocks_2_1``,
+  ``downsample.1`` -> ``downsample/downsample_1``). That converter writes
+  an attribute ``cell_0`` and a container index ``cell.0`` alike, so a
+  ``_<digits>`` tail that belongs to timm's attribute name (DPN's
+  ``conv2_1``, Inception's ``branch3x3dbl_1``, NASNet's ``cell_stem_0``,
+  Inception-ResNet's ``repeat_1.0``) is read as the model declares it; a
+  module no key declares has every ``_<digits>`` tail split into indices
 - an EvoNorm's ``scale``, ``bias`` and ``v`` (C,) -> timm's (1, C, 1, 1);
   a CondConv ``kernel`` (params, experts) -> ``weight`` (experts, params)
 - BatchNorm ``scale`` -> ``weight``, ``mean``/``var`` -> ``running_mean``/
@@ -29,7 +34,7 @@ nothing.
 from __future__ import annotations
 
 import re
-from typing import Any, Dict, Iterator, Mapping, Optional, Tuple
+from typing import Any, Dict, Iterable, Iterator, Mapping, Optional, Tuple
 
 import numpy as np
 import torch
@@ -75,13 +80,55 @@ def _torch_module_path(segments: Tuple[str, ...]) -> str:
     return ".".join(out)
 
 
+def _flax_module_path(segments) -> Tuple[str, ...]:
+    """The JAX package's ``_module_path`` (``scouter_tpu/models/convert.py:
+    101-117``): an integer index joins the name before it (``layer1.0`` ->
+    ``layer1_0``), except under ``downsample``, where it opens a level of its
+    own (``downsample.1`` -> ``downsample/downsample_1``)."""
+    out = []
+    for seg in segments:
+        if seg.isdigit() and out:
+            merged = f"{out[-1]}_{seg}"
+            if out[-1] == "downsample":
+                out.append(merged)
+            else:
+                out[-1] = merged
+        else:
+            out.append(seg)
+    return tuple(out)
+
+
+def _declared_modules(names: Iterable[str]) -> Dict[Tuple[str, ...], str]:
+    """The flax path of each module that holds a tensor of ``names``, to that
+    module's torch path."""
+    out: Dict[Tuple[str, ...], str] = {}
+    for key in names:
+        mod = key.rpartition(".")[0]
+        if not mod:
+            continue
+        flax = _flax_module_path(mod.split("."))
+        if out.setdefault(flax, mod) != mod:
+            raise ValueError(f"modules {out[flax]!r} and {mod!r} share the flax name "
+                             f"{'/'.join(flax)!r}")
+    return out
+
+
 def _tensor(arr) -> torch.Tensor:
     return torch.tensor(np.asarray(arr), dtype=torch.float32)
 
 
-def variables_to_state_dict(variables: Mapping[str, Mapping]) -> Dict[str, torch.Tensor]:
-    """Convert flax ``{'params', 'batch_stats'}`` variables into a torch state dict."""
+def variables_to_state_dict(variables: Mapping[str, Mapping],
+                            names: Iterable[str]) -> Dict[str, torch.Tensor]:
+    """Convert flax ``{'params', 'batch_stats'}`` variables into a torch state
+    dict whose keys are among ``names`` (e.g. the target model's
+    ``state_dict()``): each module is resolved against the ones the model
+    declares, where a flax name has two readings."""
     sd: Dict[str, torch.Tensor] = {}
+    declared = _declared_modules(names)
+
+    def module_path(path: Tuple[str, ...]) -> str:
+        return declared.get(path) or _torch_module_path(path)
+
     # EvoNorm layers are the modules with a ``v`` gate; their leaves take
     # timm's (1, C, 1, 1)
     evo = {path[:-1] for path, _ in _leaves(variables.get("params", {})) if path[-1] == "v"}
@@ -100,7 +147,7 @@ def variables_to_state_dict(variables: Mapping[str, Mapping]) -> Dict[str, torch
             else:
                 raise KeyError(f"unrecognized slot leaf {'/'.join(path)!r}")
             continue
-        mod = _torch_module_path(path[:-1])
+        mod = module_path(path[:-1])
         if path[:-1] in evo:
             if name not in ("scale", "bias", "v"):
                 raise KeyError(f"unrecognized EvoNorm leaf {'/'.join(path)!r}")
@@ -120,7 +167,7 @@ def variables_to_state_dict(variables: Mapping[str, Mapping]) -> Dict[str, torch
         else:
             raise KeyError(f"unrecognized leaf {'/'.join(path)!r} of shape {arr.shape}")
     for path, leaf in _leaves(variables.get("batch_stats", {})):
-        mod = _torch_module_path(path[:-1])
+        mod = module_path(path[:-1])
         if path[-1] == "mean":
             sd[f"{mod}.running_mean"] = _tensor(leaf)
             sd[f"{mod}.num_batches_tracked"] = torch.tensor(0, dtype=torch.long)
@@ -135,8 +182,8 @@ def readout_params_to_state_dict(variables: Mapping[str, Mapping]) -> Dict[str, 
     """A flax ``ReadoutNet``'s ``{'params': {conv1, conv2, conv3}}`` (the JAX
     package's ``explain/iba_readout.py``) as the state dict of the port's
     ``explain.iba_readout.ReadoutNet``: HWIO kernels to OIHW."""
-    sd = variables_to_state_dict({"params": variables["params"]})
     expected = {f"conv{i}.{p}" for i in (1, 2, 3) for p in ("weight", "bias")}
+    sd = variables_to_state_dict({"params": variables["params"]}, expected)
     if set(sd) != expected:
         raise KeyError(f"not a ReadoutNet's parameters: {sorted(sd)}")
     return sd

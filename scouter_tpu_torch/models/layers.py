@@ -43,6 +43,7 @@ from torch import nn
 from . import act
 
 __all__ = [
+    "Apply",
     "BatchNorm2d",
     "Conv1d",
     "Conv2d",
@@ -141,6 +142,18 @@ class Linear(nn.Linear):
         if dt is None:
             return act.linear(F.linear, x, self.weight, self.bias)
         return act.linear(F.linear, x.to(dt), self.weight.to(dt), self.bias.to(dt))
+
+
+class Apply(nn.Module):
+    """A stage of a Sequential with no parameters (a pool, a pad, an act):
+    ``fn`` on the input, so the stages after it keep timm's indices."""
+
+    def __init__(self, fn):
+        super().__init__()
+        self.fn = fn
+
+    def forward(self, x: torch.Tensor) -> torch.Tensor:
+        return self.fn(x)
 
 
 def conv2d(in_channels: int, out_channels: int, kernel_size: int, *, stride: int = 1,

@@ -165,7 +165,7 @@ def test_two_bf16_head_train_steps_match_jax():
     jstep = jax_make_train_step(jmodel, tx, 1.0, donate=False)
     model = build_slot_model(ScouterConfig(**STEP_CFG), fused_slot=True, device="cpu",
                              compute_dtype=torch.bfloat16)
-    model.load_state_dict(variables_to_state_dict(variables))
+    model.load_state_dict(variables_to_state_dict(variables, model.state_dict()))
     assert model.slot.compute_dtype == torch.bfloat16
     state, step = create_train_state(model, lr), make_train_step(1.0)
     for x, y in batches(1, 2):
@@ -176,7 +176,8 @@ def test_two_bf16_head_train_steps_match_jax():
             assert within_bar(m[k].item(), float(jm[k])), (k, m[k].item(), float(jm[k]))
     assert_state_f32(state)
     # the slot head's parameters moved as JAX's did, to the same bar
-    want = variables_to_state_dict({"params": jax.device_get(jstate.params)})
+    want = variables_to_state_dict({"params": jax.device_get(jstate.params)},
+                                   state.model.state_dict())
     got = state.model.state_dict()
     for name in ("slot.initial_slots", "slot.gru.weight_ih_l0", "conv1x1.weight"):
         err = (got[name] - want[name]).abs().max().item()

@@ -242,7 +242,7 @@ def test_render_explanations_matches_jax(tmp_path, capsys):
     printed_j = capsys.readouterr().out.splitlines()
 
     model = build_slot_model(cfg, fused_slot=True, device="cpu")
-    model.load_state_dict(variables_to_state_dict(variables))
+    model.load_state_dict(variables_to_state_dict(variables, model.state_dict()))
     ratio = render_explanations(cfg, create_train_state(model, cfg.lr), model, te_x[0],
                                 int(te_y[0]), tdir)
     printed = capsys.readouterr().out.splitlines()

@@ -53,7 +53,8 @@ def jax_case(use_slot=True):
     x = jnp.zeros((1, SMALL["img_size"], SMALL["img_size"], 1), jnp.float32)
     variables = jax.device_get(jax.jit(jax_build_slot_model(jcfg).init)(jax.random.PRNGKey(0),
                                                                         x))
-    return jcfg, variables, variables_to_state_dict(variables)
+    names = build_slot_model(small_cfg(use_slot=use_slot), device="cpu").state_dict()
+    return jcfg, variables, variables_to_state_dict(variables, names)
 
 
 def probe_images(n, seed=0):

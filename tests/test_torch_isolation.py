@@ -224,18 +224,56 @@ _NEW_MODULES = ("scouter_tpu_torch.core.png", "scouter_tpu_torch.core.checkpoint
                 "scouter_tpu_torch.serve.server")
 
 
-@pytest.mark.parametrize("module", _NEW_MODULES)
-def test_image_and_resilience_modules_import_no_jax_nor_pil(module):
-    """Each module of the image reading and preemption path, alone in a fresh
-    interpreter, loads neither JAX, the JAX package nor Pillow."""
-    probe = (f"import importlib, sys; importlib.import_module({module!r}); "
-             "print(sorted(m for m in sys.modules if m.split('.')[0] in "
-             "('jax', 'jaxlib', 'flax', 'scouter_tpu', 'PIL')))")
+# Each module's import probe runs alone in a child forked from one fresh
+# interpreter that has loaded only torch and numpy, and itself none of the
+# banned packages: the child's modules are those of a fresh interpreter that
+# imported the module, and the interpreter starts once for every probe.
+_FORKED_PROBES = r"""
+import importlib, json, os, sys
+import numpy, torch
+modules = json.loads(sys.argv[1])
+banned = ("jax", "jaxlib", "flax", "optax", "scouter_tpu", "PIL", "matplotlib")
+loaded = sorted(m for m in sys.modules if m.split(".")[0] in banned)
+assert not loaded, loaded
+for module in modules:
+    sys.stdout.flush()
+    pid = os.fork()
+    if pid == 0:
+        importlib.import_module(module)
+        print(json.dumps([module, sorted(m for m in sys.modules if m.split(".")[0] in banned)]))
+        sys.stdout.flush()
+        os._exit(0)
+    _, status = os.waitpid(pid, 0)
+    if status:
+        print(json.dumps([module, "exit status %d" % status]))
+"""
+
+
+@pytest.fixture(scope="module")
+def import_probes():
+    """{module: the banned packages its import loaded} for every module the
+    per-module tests below name."""
+    import json
+
+    modules = list(_NEW_MODULES) + [f"scouter_tpu_torch.{m}" for m in _XAI_MODULES]
     env = dict(os.environ, PYTHONPATH=str(ROOT))
-    out = subprocess.run([sys.executable, "-c", probe], cwd=ROOT, env=env,
-                         capture_output=True, text=True, timeout=300)
+    out = subprocess.run([sys.executable, "-c", _FORKED_PROBES, json.dumps(modules)], cwd=ROOT,
+                         env=env, capture_output=True, text=True, timeout=300)
     assert out.returncode == 0, out.stderr
-    assert out.stdout.strip() == "[]"
+    found = dict(json.loads(line) for line in out.stdout.splitlines())
+    assert sorted(found) == sorted(modules), out.stderr
+    return found
+
+
+@pytest.mark.parametrize("module", _NEW_MODULES)
+def test_image_and_resilience_modules_import_no_jax_nor_pil(module, import_probes):
+    """Each module of the image reading and preemption path, alone in a fresh
+    interpreter (``_FORKED_PROBES``), loads neither JAX, the JAX package nor
+    Pillow."""
+    loaded = import_probes[module]
+    assert isinstance(loaded, list), loaded
+    assert [m for m in loaded if m.split(".")[0] in
+            ("jax", "jaxlib", "flax", "scouter_tpu", "PIL")] == []
 
 
 _NO_CUDA_DECODE_PROBE = r"""
@@ -301,20 +339,17 @@ _XAI_NO_IMAGING = ("explain.compare_cli", "explain.benchmark", "explain.datasets
 
 
 @pytest.mark.parametrize("module", _XAI_MODULES)
-def test_xai_modules_import_no_jax_optax_nor_jax_package(module):
-    """Each module of the XAI suite, alone in a fresh interpreter, loads
-    neither JAX, flax, optax nor the JAX package; the comparison CLI and
-    the pointing-game stack load neither Pillow nor matplotlib."""
+def test_xai_modules_import_no_jax_optax_nor_jax_package(module, import_probes):
+    """Each module of the XAI suite, alone in a fresh interpreter
+    (``_FORKED_PROBES``), loads neither JAX, flax, optax nor the JAX
+    package; the comparison CLI and the pointing-game stack load neither
+    Pillow nor matplotlib."""
     banned = ["jax", "jaxlib", "flax", "optax", "scouter_tpu"]
     if module in _XAI_NO_IMAGING:
         banned += ["PIL", "matplotlib"]
-    probe = (f"import importlib, sys; importlib.import_module('scouter_tpu_torch.{module}'); "
-             f"print(sorted(m for m in sys.modules if m.split('.')[0] in {tuple(banned)!r}))")
-    env = dict(os.environ, PYTHONPATH=str(ROOT))
-    out = subprocess.run([sys.executable, "-c", probe], cwd=ROOT, env=env,
-                         capture_output=True, text=True, timeout=300)
-    assert out.returncode == 0, out.stderr
-    assert out.stdout.strip() == "[]"
+    loaded = import_probes[f"scouter_tpu_torch.{module}"]
+    assert isinstance(loaded, list), loaded
+    assert [m for m in loaded if m.split(".")[0] in banned] == []
 
 
 _XAI_NO_PIL_PROBE = r"""

@@ -20,7 +20,8 @@ from scouter_tpu.models.convert import torch_state_dict_to_variables
 from scouter_tpu.serve import make_serving_fn as jax_make_serving_fn
 from scouter_tpu_torch.core import ScouterConfig
 from scouter_tpu_torch.data import preprocess_batch, resize_bilinear
-from scouter_tpu_torch.models import build_slot_model, create_model, layers, list_models
+from scouter_tpu_torch.models import build_slot_model, create_model, init_weights, layers
+from scouter_tpu_torch.models import list_models
 from scouter_tpu_torch.models import variables_to_state_dict
 from scouter_tpu_torch.serve import make_serving_fn
 
@@ -47,6 +48,14 @@ def perturb(variables, seed):
         return x
 
     return jax.tree_util.tree_map_with_path(leaf, jax.device_get(variables))
+
+
+def port_variables(model, seed=0):
+    """The port's init of ``model`` as the JAX package's converter reads it,
+    perturbed."""
+    init_weights(model, torch.Generator().manual_seed(seed))
+    sd = {k: t.numpy() for k, t in model.state_dict().items()}
+    return perturb(torch_state_dict_to_variables(sd), seed=seed + 3)
 
 
 def flat(tree):
@@ -89,8 +98,8 @@ def test_torch_conv_padding(k, s):
 
 def test_registry():
     """The port registers the JAX registry name for name, less the families
-    not ported yet (``test_torch_zoo_registry.STILL_TO_PORT``), which
-    raise KeyError."""
+    not ported yet (``test_torch_zoo_registry.STILL_TO_PORT``, none since
+    the last ten families); a name outside it raises KeyError."""
     from scouter_tpu.models.registry import _REGISTRY as jax_registry
     from test_torch_zoo_registry import STILL_TO_PORT
 
@@ -100,7 +109,7 @@ def test_registry():
     with pytest.raises(ValueError):
         create_model("resnet10", pretrained=True)
     with pytest.raises(KeyError):
-        create_model("dpn68")
+        create_model("no_such_model")
 
 
 # ----------------------------------------------------------------- backbones
@@ -114,12 +123,12 @@ def test_registry():
 def test_backbone_features_and_logits(name, chans, size, mnist):
     jmodel = jax_create_model(name, num_classes=5, in_chans=chans, mnist_stem=mnist)
     x = np.random.RandomState(2).randn(2, size, size, chans).astype(np.float32)
-    variables = perturb(jax.jit(jmodel.init)(jax.random.PRNGKey(0), x), seed=3)
+    model = create_model(name, num_classes=5, in_chans=chans, mnist_stem=mnist).eval()
+    variables = port_variables(model)
     feats_j, logits_j = jax.jit(
         lambda v, x: (jmodel.apply(v, x, features_only=True), jmodel.apply(v, x)))(variables, x)
 
-    model = create_model(name, num_classes=5, in_chans=chans, mnist_stem=mnist).eval()
-    model.load_state_dict(variables_to_state_dict(variables))
+    model.load_state_dict(variables_to_state_dict(variables, model.state_dict()))
     with torch.no_grad():
         feats = model(nhwc(x), features_only=True)
         logits = model(nhwc(x))
@@ -154,12 +163,17 @@ def slice_case(request):
     return jcfg, cfg, variables, images
 
 
+def port_state_dict(cfg, variables):
+    """``variables`` as the state dict of ``cfg``'s slot model."""
+    return variables_to_state_dict(variables, build_slot_model(cfg, device="cpu").state_dict())
+
+
 def test_slot_model_logits_area_attention(slice_case):
     jcfg, cfg, variables, images = slice_case
     x = np.asarray((images.astype(np.float32) - 100.0) / 60.0)
     want = jax.jit(jax_build_slot_model(jcfg).apply)(variables, x)
     model = build_slot_model(cfg, device="cpu")
-    model.load_state_dict(variables_to_state_dict(variables))
+    model.load_state_dict(variables_to_state_dict(variables, model.state_dict()))
     with torch.no_grad():
         got = model(nhwc(x))
     np.testing.assert_allclose(got["logits"].numpy(), np.asarray(want["logits"]), **FEATURE_TOL)
@@ -173,7 +187,7 @@ def test_weight_carrier_round_trip(slice_case):
     the JAX variables back, leaf for leaf."""
     _, cfg, variables, _ = slice_case
     model = build_slot_model(cfg, device="cpu")
-    model.load_state_dict(variables_to_state_dict(variables))
+    model.load_state_dict(variables_to_state_dict(variables, model.state_dict()))
     back = flat(torch_state_dict_to_variables(model.state_dict()))
     want = flat(variables)
     assert back.keys() == want.keys()
@@ -198,7 +212,7 @@ def test_serving_fn_matches_jax(slice_case, dtype):
     jdtype = {"float32": None, "bfloat16": jnp.bfloat16}[dtype]
     tdtype = {"float32": None, "bfloat16": torch.bfloat16}[dtype]
     want = jax.jit(jax_make_serving_fn(jcfg, variables, compute_dtype=jdtype))(images)
-    got = make_serving_fn(cfg, variables_to_state_dict(variables), compute_dtype=tdtype,
+    got = make_serving_fn(cfg, port_state_dict(cfg, variables), compute_dtype=tdtype,
                           device="cpu")(images)
     tol = FEATURE_TOL if dtype == "float32" else dict(rtol=3e-2, atol=3e-2)  # serve/cli.py:80-81
     np.testing.assert_allclose(got["logits"].numpy(), np.asarray(want["logits"]), **tol)
@@ -220,7 +234,7 @@ def test_bf16_serving_maps_match_jax(slice_case):
         0, 256, (8, jcfg.img_size, jcfg.img_size, chans), np.uint8)
     want = jax.jit(jax_make_serving_fn(jcfg, variables, compute_dtype=jnp.bfloat16))(images)
     want32 = jax.jit(jax_make_serving_fn(jcfg, variables))(images)
-    got = make_serving_fn(cfg, variables_to_state_dict(variables),
+    got = make_serving_fn(cfg, port_state_dict(cfg, variables),
                           compute_dtype=torch.bfloat16, device="cpu")(images)
     np.testing.assert_allclose(got["logits"].numpy(), np.asarray(want["logits"]),
                                rtol=3e-2, atol=3e-2)
@@ -234,7 +248,7 @@ def test_bf16_serving_keeps_batchnorm_f32(slice_case):
     """Every BatchNorm weight, bias and running statistic of the bf16 served
     model stays f32, as flax keeps its f32 ``param_dtype``."""
     _, cfg, variables, _ = slice_case
-    fn = make_serving_fn(cfg, variables_to_state_dict(variables),
+    fn = make_serving_fn(cfg, port_state_dict(cfg, variables),
                          compute_dtype=torch.bfloat16, device="cpu")
     bns = [m for m in fn.model.modules() if isinstance(m, torch.nn.BatchNorm2d)]
     assert bns

@@ -145,12 +145,12 @@ def test_scouter_loss(with_area):
     assert log_probs.dtype == torch.float32
 
 
-def _label_by_name(labels_tree, params):
+def _label_by_name(labels_tree, params, names):
     """JAX labels as the port's parameter names: push a 1 (frozen) / 0 leaf of
     each parameter's shape through the weight carrier."""
     flags = jax.tree_util.tree_map(
         lambda lab, p: np.full(p.shape, lab == "frozen", np.float32), labels_tree, params)
-    sd = variables_to_state_dict({"params": flags})
+    sd = variables_to_state_dict({"params": flags}, names)
     return {k: "frozen" if bool(v.all()) else "trainable" for k, v in sd.items()}
 
 
@@ -171,8 +171,9 @@ def jax_init(seed):
 @pytest.mark.parametrize("freeze_layers", [0, 1, 2, 3])
 def test_freeze_labels_match_jax(freeze_layers):
     params = jax_init(0)[1]["params"]
-    want = _label_by_name(jax_make_freeze_labels(params, freeze_layers, True), params)
     model = build_slot_model(ScouterConfig(**STEP_CFG), device="cpu")
+    want = _label_by_name(jax_make_freeze_labels(params, freeze_layers, True), params,
+                          model.state_dict())
     names = [n for n, _ in model.named_parameters()]
     got = make_freeze_labels(names, freeze_layers, pre_trained=True)
     assert got == {n: want[n] for n in names}
@@ -229,7 +230,7 @@ def batches(seed, n, b=4, classes=3):
 
 def port_state(variables, lr, **kw):
     model = build_slot_model(ScouterConfig(**STEP_CFG), fused_slot=True, device="cpu")
-    model.load_state_dict(variables_to_state_dict(variables))
+    model.load_state_dict(variables_to_state_dict(variables, model.state_dict()))
     return create_train_state(model, lr, **kw)
 
 
@@ -256,8 +257,8 @@ def test_four_train_steps_match_jax(freeze):
         for k in ("loss", "log_loss", "att_loss", "acc"):
             np.testing.assert_allclose(m[k].item(), float(jm[k]), rtol=1e-3, atol=1e-6)
     assert state.step == 4
-    stats = variables_to_state_dict({"batch_stats": jax.device_get(jstate.batch_stats)})
     got = state.model.state_dict()
+    stats = variables_to_state_dict({"batch_stats": jax.device_get(jstate.batch_stats)}, got)
     for name, want in stats.items():
         if name.endswith(("running_mean", "running_var")):
             np.testing.assert_allclose(got[name].numpy(), want.numpy(), rtol=0, atol=1e-4,

@@ -68,7 +68,7 @@ def nchw(x):
 def port_state(variables, lr, compute_dtype=torch.bfloat16):
     model = build_slot_model(ScouterConfig(**STEP_CFG), fused_slot=True, device="cpu",
                              compute_dtype=compute_dtype)
-    model.load_state_dict(variables_to_state_dict(variables))
+    model.load_state_dict(variables_to_state_dict(variables, model.state_dict()))
     return create_train_state(model, lr)
 
 
@@ -150,8 +150,8 @@ def test_two_bf16_train_steps_match_jax():
     assert state.step == 2
     assert_state_f32(state)
     # the running stats moved as JAX's, in f32, to the same bf16 bar
-    stats = variables_to_state_dict({"batch_stats": jax.device_get(jstate.batch_stats)})
     got = state.model.state_dict()
+    stats = variables_to_state_dict({"batch_stats": jax.device_get(jstate.batch_stats)}, got)
     for name, want in stats.items():
         if name.endswith(("running_mean", "running_var")):
             err = (got[name] - want).abs().max().item()

@@ -57,7 +57,7 @@ def pair():
     x = np.random.RandomState(0).randn(1, SIZE, SIZE, 3).astype(np.float32)
     variables = perturb(jmodel.init(jax.random.PRNGKey(0), jnp.asarray(x)), 1)
     model = create_model("resnet10", num_classes=3).eval()
-    model.load_state_dict(variables_to_state_dict(variables))
+    model.load_state_dict(variables_to_state_dict(variables, model.state_dict()))
     return jmodel, variables, model, x
 
 

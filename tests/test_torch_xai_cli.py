@@ -54,7 +54,7 @@ def runs(tmp_path_factory):
     image = (np.random.RandomState(0).rand(SIZE, SIZE, 3) * 255).astype(np.uint8)
     variables = perturb(jmodel.init(jax.random.PRNGKey(0), jnp.zeros((1, SIZE, SIZE, 3))), 1)
     model = create_model("resnet10", num_classes=3).eval()
-    model.load_state_dict(variables_to_state_dict(variables))
+    model.load_state_dict(variables_to_state_dict(variables, model.state_dict()))
     jdir = str(tmp_path_factory.mktemp("jax"))
     tdir = str(tmp_path_factory.mktemp("port"))
     want = jax_compare_methods(jmodel, variables, image, CLASSES, jdir, dataset="ImageNet",

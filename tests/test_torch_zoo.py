@@ -4,10 +4,13 @@ each block kind, attention, stem and stride option at reduced depth
 functions, the init of the new modules, and a slot model on a bottleneck
 backbone through a train step.
 
-Weights come from JAX init with numpy noise on BatchNorm statistics, scales
-and biases (``test_torch_models.perturb``), and reach the port through
-``variables_to_state_dict``."""
+Weights come from the port's init read into a JAX tree by the JAX
+package's own converter (``test_torch_models.port_variables``; JAX's compiled init takes as
+long as a case's forward), with numpy noise on BatchNorm statistics,
+scales and biases (``test_torch_models.perturb``), and reach the port back
+through ``variables_to_state_dict``."""
 
+import functools
 import re
 
 import jax
@@ -29,7 +32,7 @@ from scouter_tpu_torch.models import build_slot_model, create_model, layers
 from scouter_tpu_torch.models import variables_to_state_dict
 from scouter_tpu_torch.models.resnet import ResNet
 from scouter_tpu_torch.train import create_train_state, make_train_step
-from test_torch_models import FEATURE_TOL, flat, nhwc, perturb
+from test_torch_models import FEATURE_TOL, flat, nhwc, perturb, port_variables
 
 STATS_TOL = dict(rtol=1e-5, atol=1e-5)
 
@@ -83,11 +86,6 @@ MECHANISMS = {
 }
 
 
-def jax_variables(jmodel, size, seed=0):
-    x = np.zeros((2, size, size, 3), np.float32)
-    return perturb(jax.jit(jmodel.init)(jax.random.PRNGKey(seed), x), seed=seed + 3)
-
-
 # the extra cases beyond the issue's list run in test_torch_zoo_registry.py,
 # so that --dist loadfile spreads the compiles over two workers
 EXTRA_MECHANISMS = ("aa_basic", "bottleneck_d_os8", "eca_basic", "res2next", "s2d_deep_odd")
@@ -99,7 +97,7 @@ def mechanism_case(name):
     kw, size = MECHANISMS[name]
     kw = dict(layers=(1, 1, 1, 1), num_classes=5, **kw)
     jmodel = JaxResNet(**kw)
-    variables = jax_variables(jmodel, size)
+    variables = port_variables(ResNet(**kw))
     x = np.random.RandomState(2).randn(2, size, size, 3).astype(np.float32)
     want = jax.device_get(jax.jit(lambda v, x: (
         jmodel.apply(v, x, features_only=True), jmodel.apply(v, x),
@@ -115,7 +113,7 @@ def mechanism(request):
 
 def port_model(kw, variables):
     model = ResNet(**kw)
-    model.load_state_dict(variables_to_state_dict(variables))
+    model.load_state_dict(variables_to_state_dict(variables, model.state_dict()))
     return model
 
 
@@ -137,37 +135,80 @@ def check_eval(case):
 STATS_F32_GAP = 3e-4  # the most a statistic may miss JAX's f32 reading
 
 
-def jax_f64_running_stats(kw, variables, x):
+def jax_f64_running_stats(kw, variables, x, names):
     """The running statistics of JAX's own train-mode forward in float64."""
     with jax.enable_x64(True):
         v64 = jax.tree_util.tree_map(lambda a: np.asarray(a, np.float64), variables)
         _, mutated = JaxResNet(**kw).apply(v64, x.astype(np.float64), train=True,
                                            mutable=["batch_stats"])
-        return variables_to_state_dict({"batch_stats": jax.device_get(mutated["batch_stats"])})
+        return variables_to_state_dict({"batch_stats": jax.device_get(mutated["batch_stats"])},
+                                       names)
+
+
+def assert_statistic(name, g, w, f64_stat):
+    """A running statistic ``g`` within 1e-5 of JAX's f32 reading ``w``, or,
+    where it misses, within 1e-5 of JAX's float64 reading (``f64_stat()``,
+    asked for only on a miss) or no further from it than JAX's f32 reading,
+    and within ``STATS_F32_GAP`` of that f32 reading. Where JAX's f32
+    reading itself lies further than ``STATS_F32_GAP`` from its float64
+    one, it is no reference: the statistic is then held within
+    ``STATS_F32_GAP`` of the float64 reading instead."""
+    g, w = g.double(), w.double()
+    if torch.allclose(g, w, **STATS_TOL):
+        return
+    r = f64_stat().double()
+    assert (torch.allclose(g, r, **STATS_TOL)
+            or (g - r).abs().max() <= (w - r).abs().max()), name
+    ref = r if (w - r).abs().max() > STATS_F32_GAP else w
+    assert (g - ref).abs().max() <= STATS_F32_GAP, name
 
 
 def assert_running_stats(model, want, kw, variables, x):
-    """Each running statistic within 1e-5 of JAX's, or, where JAX's f32
-    reading misses, within 1e-5 of JAX's float64 reading or no further from
-    it than JAX's f32 reading, and within ``STATS_F32_GAP`` of that f32
-    reading. flax takes the variance as E[x^2] - E[x]^2 in f32, which
-    cancels where the mean is large against the spread: on the ResNeSt cases
-    at output stride 16 and 8 that puts JAX's f32 up to 2.3e-4 from its
-    float64 reading, where the port stays within 7.7e-6."""
+    """Each running statistic held by ``assert_statistic``. flax takes the
+    variance as E[x^2] - E[x]^2 in f32, which cancels where the mean is
+    large against the spread: on the ResNeSt cases at output stride 16 and 8
+    that puts JAX's f32 up to 2.3e-4 from its float64 reading on one host,
+    where the port stays within 7.7e-6; on another, resnest_os16's and
+    sk_basic_split's lie up to 8.3e-4 and 3.4e-4 from it, the port's 7.6e-6
+    and 2.6e-5."""
     got = model.state_dict()
-    ref = None
+    f64 = functools.lru_cache(maxsize=None)(
+        lambda: jax_f64_running_stats(kw, variables, x, got))
     for name, w in want.items():
-        if not name.endswith(("running_mean", "running_var")):
-            continue
-        g, w = got[name].double(), w.double()
-        if torch.allclose(g, w, **STATS_TOL):
-            continue
-        if ref is None:
-            ref = jax_f64_running_stats(kw, variables, x)
-        r = ref[name].double()
-        assert (torch.allclose(g, r, **STATS_TOL)
-                or (g - r).abs().max() <= (w - r).abs().max()), name
-        assert (g - w).abs().max() <= STATS_F32_GAP, name
+        if name.endswith(("running_mean", "running_var")):
+            assert_statistic(name, got[name], w, lambda: f64()[name])
+
+
+LOGITS_F32_GAP = 3e-3  # past FEATURE_TOL, the most train logits may miss JAX's f32 ones
+
+
+def assert_train_logits(got, want, f64_logits):
+    """Train-mode logits within ``FEATURE_TOL`` of JAX's f32 logits ``want``,
+    or, where they miss, within ``FEATURE_TOL`` of JAX's own float64 run
+    (``f64_logits()``, run only on a miss), no further from it than JAX's
+    f32 logits are, and within ``FEATURE_TOL`` plus ``LOGITS_F32_GAP`` of
+    those. flax takes the train-mode variance as E[x^2] - E[x]^2 in f32,
+    which cancels, as for the running statistics (``assert_running_stats``):
+    on resnest_os16 and sk_basic_split JAX's f32 logits lie 1.87e-3 and
+    3.79e-3 from its float64 run, the port's 1.13e-5 and 3.06e-4, and the
+    two 1.88e-3 and 4.10e-3 apart (6.3e-4 and 2.8e-3 past ``FEATURE_TOL``)."""
+    g, w = np.asarray(got, np.float64), np.asarray(want, np.float64)
+    if np.allclose(g, w, **FEATURE_TOL):
+        return
+    r = np.asarray(f64_logits(), np.float64)
+    np.testing.assert_allclose(g, r, **FEATURE_TOL)
+    assert np.abs(g - r).max() <= np.abs(w - r).max()
+    np.testing.assert_allclose(g, w, rtol=FEATURE_TOL["rtol"],
+                               atol=FEATURE_TOL["atol"] + LOGITS_F32_GAP)
+
+
+def jax_f64_logits(kw, variables, x):
+    """The logits of JAX's own train-mode forward in float64."""
+    with jax.enable_x64(True):
+        v64 = jax.tree_util.tree_map(lambda a: np.asarray(a, np.float64), variables)
+        logits, _ = JaxResNet(**kw).apply(v64, x.astype(np.float64), train=True,
+                                          mutable=["batch_stats"])
+        return np.asarray(logits)
 
 
 def test_mechanism_train_logits_and_running_stats(mechanism):
@@ -178,15 +219,16 @@ def check_train(case):
     kw, variables, x, (_, _, (logits_j, mutated)) = case
     model = port_model(kw, variables).train()
     logits = model(nhwc(x))
-    np.testing.assert_allclose(logits.detach().numpy(), np.asarray(logits_j), **FEATURE_TOL)
-    want = variables_to_state_dict({"batch_stats": mutated["batch_stats"]})
+    assert_train_logits(logits.detach().numpy(), logits_j,
+                        lambda: jax_f64_logits(kw, variables, x))
+    want = variables_to_state_dict({"batch_stats": mutated["batch_stats"]}, model.state_dict())
     assert_running_stats(model, want, kw, variables, x)
 
 
 def test_stop_after_start_from_compose_to_the_whole_forward():
     kw = dict(block="bottleneck", layers=(1, 1, 1, 1), num_classes=5, attn="se", **_DEEP_D)
     jmodel = JaxResNet(**kw)
-    variables = jax_variables(jmodel, 48)
+    variables = port_variables(ResNet(**kw))
     x = np.random.RandomState(3).randn(2, 48, 48, 3).astype(np.float32)
     model = port_model(kw, variables).eval()
     with torch.no_grad():
@@ -211,16 +253,17 @@ def test_sk_attention_batch_norm_at_batch_one_in_train_mode():
     kw = dict(block="sk_basic", layers=(1, 1, 1, 1), num_classes=5, sk_min_attn_channels=16,
               sk_attn_reduction=8, sk_split_input=True)
     jmodel = JaxResNet(**kw)
-    variables = jax_variables(jmodel, 32)
+    variables = port_variables(ResNet(**kw))
     x = np.random.RandomState(6).randn(1, 32, 32, 3).astype(np.float32)
     logits_j, mutated = jmodel.apply(variables, x, train=True, mutable=["batch_stats"])
     model = port_model(kw, variables).train()
     logits = model(nhwc(x))
     np.testing.assert_allclose(logits.detach().numpy(), np.asarray(logits_j), **FEATURE_TOL)
-    want = variables_to_state_dict({"batch_stats": jax.device_get(mutated["batch_stats"])})
+    names = model.state_dict()
+    want = variables_to_state_dict({"batch_stats": jax.device_get(mutated["batch_stats"])}, names)
     assert_running_stats(model, want, kw, variables, x)
     # at batch 1 the gate's variance is 0: the running variance decays by 0.9
-    before = variables_to_state_dict(variables)["layer4.0.conv1.attn.bn.running_var"]
+    before = variables_to_state_dict(variables, names)["layer4.0.conv1.attn.bn.running_var"]
     torch.testing.assert_close(model.state_dict()["layer4.0.conv1.attn.bn.running_var"],
                                0.9 * before)
 
@@ -249,7 +292,7 @@ def _gate_case(jmod, tmod, channels):
     x = np.random.RandomState(7).randn(3, 5, 4, channels).astype(np.float32)
     variables = perturb(jmod.init(jax.random.PRNGKey(0), x), seed=8)
     want = jmod.apply(variables, x)
-    tmod.load_state_dict(variables_to_state_dict(variables))
+    tmod.load_state_dict(variables_to_state_dict(variables, tmod.state_dict()))
     with torch.no_grad():
         got = tmod(nhwc(x))
     np.testing.assert_allclose(nchw_to_nhwc(got), np.asarray(want), rtol=1e-5, atol=1e-6)

@@ -161,8 +161,8 @@ def test_variables_round_trip_through_the_jax_converter(name):
     ``fuse_layers_1_0_0_0``, ``conv_dw_0``), EvoNorm's (1, C, 1, 1) leaves
     and the CondConv kernel's (params, experts) layout included."""
     tree = jax_random_tree(name)
-    sd = variables_to_state_dict(tree)
     model = create_model(name)
+    sd = variables_to_state_dict(tree, model.state_dict())
     model.load_state_dict(sd)  # strict: every name and shape is the port's own
     back = torch_state_dict_to_variables(
         {k: t.numpy() for k, t in model.state_dict().items()})
@@ -173,10 +173,12 @@ def test_variables_round_trip_through_the_jax_converter(name):
 
 
 def test_evonorm_and_condconv_leaves_take_timm_layouts():
-    sd = variables_to_state_dict(jax_random_tree("ese_vovnet39b_evos"))
+    sd = variables_to_state_dict(jax_random_tree("ese_vovnet39b_evos"),
+                                 meta_model("ese_vovnet39b_evos").state_dict())
     assert sd["stem.0.bn.v"].shape == sd["stem.0.bn.weight"].shape == (1, 64, 1, 1)
     assert sd["stem.0.bn.bias"].shape == (1, 64, 1, 1)
-    sd = variables_to_state_dict(jax_random_tree("efficientnet_cc_b0_4e"))
+    sd = variables_to_state_dict(jax_random_tree("efficientnet_cc_b0_4e"),
+                                 meta_model("efficientnet_cc_b0_4e").state_dict())
     w = sd["blocks.4.0.conv_dw.weight"]
     assert w.shape == (4, 480 * 1 * 5 * 5)  # (experts, out x in/g x k x k)
 

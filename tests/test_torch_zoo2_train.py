@@ -25,7 +25,7 @@ from scouter_tpu_torch.models import densenet, efficientnet as eff, variables_to
 from scouter_tpu_torch.train import create_train_state, make_train_step
 from test_torch_models import FEATURE_TOL, flat, nhwc, perturb
 from test_torch_zoo import nchw_to_nhwc
-from test_torch_zoo2 import port_variables
+from test_torch_models import port_variables
 from test_torch_zoo2_registry import jax_feature_width
 from test_torch_zoo_registry import jax_f64_grads
 
@@ -54,7 +54,7 @@ def test_efficientnet_b2_pruned_at_its_real_depth():
     x = np.random.RandomState(4).randn(2, 48, 48, 3).astype(np.float32)
     feats_j, logits_j = jax.jit(
         lambda v, x: (jmodel.apply(v, x, features_only=True), jmodel.apply(v, x)))(variables, x)
-    model.load_state_dict(variables_to_state_dict(variables))
+    model.load_state_dict(variables_to_state_dict(variables, model.state_dict()))
     model.eval()
     with torch.no_grad():
         feats, logits = model(nhwc(x), features_only=True), model(nhwc(x))
@@ -155,7 +155,7 @@ def test_slot_model_train_step_matches_jax(family):
     init_weights(model, torch.Generator().manual_seed(1))
     sd = {k: t.numpy() for k, t in model.state_dict().items()}
     variables = perturb(torch_state_dict_to_variables(sd), seed=9)
-    model.load_state_dict(variables_to_state_dict(variables))
+    model.load_state_dict(variables_to_state_dict(variables, model.state_dict()))
     lr = 1e-4
     jstate, tx = jax_create_train_state(variables, lr)
     jstep = jax_make_train_step(jmodel, tx, 1.0, donate=False)
@@ -167,8 +167,9 @@ def test_slot_model_train_step_matches_jax(family):
     state, m = make_train_step(1.0)(state, {"image": nhwc(x), "label": torch.from_numpy(y)})
     for k in ("loss", "log_loss", "att_loss", "acc"):
         np.testing.assert_allclose(m[k].item(), float(jm[k]), rtol=1e-3, atol=1e-6)
-    want = jax_f64_grads(jmodel, variables, x, y)
-    jax_f32 = jax_grads(jmodel, variables, x, y)
+    names = model.state_dict()
+    want = jax_f64_grads(jmodel, variables, x, y, names)
+    jax_f32 = jax_grads(jmodel, variables, x, y, names)
     grads = {k: p.grad for k, p in state.model.named_parameters() if p.grad is not None}
     assert set(grads) == set(want) and any(k.startswith("slot.") for k in grads)
     for name, g in grads.items():
@@ -182,7 +183,7 @@ def test_slot_model_train_step_matches_jax(family):
                                    atol=max(1e-3 * np.abs(w).max(), floor), err_msg=name)
 
 
-def jax_grads(jmodel, variables, x, y):
+def jax_grads(jmodel, variables, x, y, names):
     """``jax.grad`` of the JAX train step's loss in f32, as a state dict."""
     from scouter_tpu.ops.losses import scouter_loss
 
@@ -192,7 +193,7 @@ def jax_grads(jmodel, variables, x, y):
         return scouter_loss(out["logits"], y, out.get("area_loss"), 1.0)[1]["loss"]
 
     return variables_to_state_dict({"params": jax.device_get(
-        jax.jit(jax.grad(loss))(variables["params"]))})
+        jax.jit(jax.grad(loss))(variables["params"]))}, names)
 
 
 # ------------------------------------------- the pretrained load by layout

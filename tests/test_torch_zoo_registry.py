@@ -32,9 +32,9 @@ from scouter_tpu_torch.models import build_slot_model, create_model, layers, lis
 from scouter_tpu_torch.models import variables_to_state_dict
 from scouter_tpu_torch.models.resnet import ResNet
 from scouter_tpu_torch.train import create_train_state, make_train_step
-from test_torch_models import FEATURE_TOL, flat, nhwc, perturb
+from test_torch_models import FEATURE_TOL, flat, nhwc, perturb, port_variables
 from test_torch_zoo import (EXTRA_MECHANISMS, _DEEP_D, check_eval, check_train,
-                            jax_variables, mechanism_case, nchw_to_nhwc)
+                            mechanism_case, nchw_to_nhwc)
 
 JAX_ZOO = sorted(n for n, fn in JAX_REGISTRY.items() if fn.__module__ == "scouter_tpu.models.zoo")
 
@@ -47,25 +47,17 @@ def _full_f32():
 
 # ------------------------------------------------------------- the registry
 
-# the JAX registry's entrypoints the port has still to come: dpn, tresnet,
-# selecsls, inception_v3, inception_resnet_v2, gluon_xception, inception_v4,
-# nasnet, pnasnet and xception (ROADMAP Queue A item 1)
-STILL_TO_PORT = (
-    "adv_inception_v3", "dpn107", "dpn131", "dpn68", "dpn68b", "dpn92", "dpn98",
-    "ens_adv_inception_resnet_v2", "gluon_inception_v3", "gluon_xception65", "gluon_xception71",
-    "inception_resnet_v2", "inception_v3", "inception_v4", "nasnetalarge", "pnasnet5large",
-    "selecsls42", "selecsls42b", "selecsls60", "selecsls60b", "selecsls84", "tf_inception_v3",
-    "tresnet_l", "tresnet_l_448", "tresnet_m", "tresnet_m_448", "tresnet_xl", "tresnet_xl_448",
-    "xception",
-)
+# the JAX registry's entrypoints the port has still to come: none since the
+# last ten families (test_torch_zoo3_registry.py)
+STILL_TO_PORT = ()
 
 
 def test_the_port_registers_the_jax_zoo():
-    """The JAX registry less the 29 entrypoints still to be ported; the 92 of
-    the ResNet zoo among them."""
-    assert len(STILL_TO_PORT) == 29 and set(STILL_TO_PORT) <= set(JAX_REGISTRY)
+    """The JAX registry, all 297 entrypoints; the 92 of the ResNet zoo among
+    them."""
+    assert not STILL_TO_PORT
     assert list_models() == sorted(set(JAX_REGISTRY) - set(STILL_TO_PORT))
-    assert len(list_models()) == 268 and set(JAX_ZOO) <= set(list_models())
+    assert len(list_models()) == 297 and set(JAX_ZOO) <= set(list_models())
     assert len(JAX_ZOO) == 92
 
 
@@ -165,12 +157,12 @@ def test_extra_mechanism_train_logits_and_running_stats(extra_mechanism):
 
 def test_ecaresnet50d_pruned_at_its_real_depth():
     jmodel = jax_create_model("ecaresnet50d_pruned", num_classes=7)
-    variables = jax_variables(jmodel, 32, seed=5)
+    model = create_model("ecaresnet50d_pruned", num_classes=7)
+    variables = port_variables(model, seed=5)
     x = np.random.RandomState(4).randn(2, 32, 32, 3).astype(np.float32)
     feats_j, logits_j = jax.jit(
         lambda v, x: (jmodel.apply(v, x, features_only=True), jmodel.apply(v, x)))(variables, x)
-    model = create_model("ecaresnet50d_pruned", num_classes=7)
-    model.load_state_dict(variables_to_state_dict(variables))
+    model.load_state_dict(variables_to_state_dict(variables, model.state_dict()))
     model.eval()
     with torch.no_grad():
         feats, logits = model(nhwc(x), features_only=True), model(nhwc(x))
@@ -274,7 +266,7 @@ def test_bottleneck_slot_model_matches_jax(slot_case):
     x = np.random.RandomState(10).randn(2, 64, 64, 3).astype(np.float32)
     want = jax.jit(jmodel.apply)(variables, x)
     model = build_slot_model(cfg, device="cpu")
-    model.load_state_dict(variables_to_state_dict(variables))
+    model.load_state_dict(variables_to_state_dict(variables, model.state_dict()))
     with torch.no_grad():
         got = model(nhwc(x))
     np.testing.assert_allclose(got["logits"].numpy(), np.asarray(want["logits"]), **FEATURE_TOL)
@@ -283,9 +275,10 @@ def test_bottleneck_slot_model_matches_jax(slot_case):
                                atol=1e-5)
 
 
-def jax_f64_grads(jmodel, variables, x, y):
+def jax_f64_grads(jmodel, variables, x, y, names):
     """jax.grad of the JAX train step's loss (``scouter_tpu.train.steps``'
-    ``loss_fn``, lambda 1) in float64, as a state dict."""
+    ``loss_fn``, lambda 1) in float64, as a state dict (``names``: the
+    model's keys, for ``variables_to_state_dict``)."""
     with jax.enable_x64(True):
         v64 = jax.tree_util.tree_map(lambda a: np.asarray(a, np.float64), variables)
 
@@ -295,7 +288,7 @@ def jax_f64_grads(jmodel, variables, x, y):
             return jax_scouter_loss(out["logits"], y, out.get("area_loss"), 1.0)[1]["loss"]
 
         grads = jax.device_get(jax.jit(jax.grad(loss))(v64["params"]))
-    return variables_to_state_dict({"params": grads})
+    return variables_to_state_dict({"params": grads}, names)
 
 
 def test_bottleneck_slot_model_train_step_matches_jax(slot_case):
@@ -309,7 +302,7 @@ def test_bottleneck_slot_model_train_step_matches_jax(slot_case):
     jstate, tx = jax_create_train_state(variables, lr)
     jstep = jax_make_train_step(jmodel, tx, 1.0, donate=False)
     model = build_slot_model(cfg, fused_slot=True, device="cpu")
-    model.load_state_dict(variables_to_state_dict(variables))
+    model.load_state_dict(variables_to_state_dict(variables, model.state_dict()))
     state = create_train_state(model, lr)
     rng = np.random.RandomState(11)
     x = rng.randn(4, 64, 64, 3).astype(np.float32)
@@ -318,22 +311,22 @@ def test_bottleneck_slot_model_train_step_matches_jax(slot_case):
     state, m = make_train_step(1.0)(state, {"image": nhwc(x), "label": torch.from_numpy(y)})
     for k in ("loss", "log_loss", "att_loss", "acc"):
         np.testing.assert_allclose(m[k].item(), float(jm[k]), rtol=1e-3, atol=1e-6)
-    want = jax_f64_grads(jmodel, variables, x, y)
+    want = jax_f64_grads(jmodel, variables, x, y, model.state_dict())
     grads = {k: p.grad for k, p in state.model.named_parameters() if p.grad is not None}
     assert set(grads) == set(want) and any(k.startswith("slot.") for k in grads)
     for name, g in grads.items():
         w = want[name].numpy()
         np.testing.assert_allclose(g.double().numpy(), w, rtol=0, atol=1e-3 * np.abs(w).max(),
                                    err_msg=name)
-    stats = variables_to_state_dict({"batch_stats": jax.device_get(jstate.batch_stats)})
     got = state.model.state_dict()
+    stats = variables_to_state_dict({"batch_stats": jax.device_get(jstate.batch_stats)}, got)
     for name, want in stats.items():
         if name.endswith(("running_mean", "running_var")):
             np.testing.assert_allclose(got[name].numpy(), want.numpy(), rtol=0, atol=1e-4,
                                        err_msg=name)
     # AdamW's first update is about lr * sign(g): a gradient near zero whose
     # last bits differ moves a weight by up to 2 lr
-    params = variables_to_state_dict({"params": jax.device_get(jstate.params)})
+    params = variables_to_state_dict({"params": jax.device_get(jstate.params)}, got)
     for name in ("backbone.layer2.0.se.fc1.weight", "backbone.layer1.0.conv2.weight",
                  "conv1x1.weight", "slot.gru.weight_hh_l0"):
         np.testing.assert_allclose(got[name].numpy(), params[name].numpy(), rtol=0,
@@ -508,7 +501,7 @@ def test_pretrained_1001_class_head_loads_as_jax_strips_it(tmp_path, monkeypatch
     want = variables_to_state_dict({
         "params": jax_convert.merge_variables(init["params"], loaded["params"]),
         "batch_stats": jax_convert.merge_variables(init["batch_stats"],
-                                                   loaded["batch_stats"])})
+                                                   loaded["batch_stats"])}, got)
     assert got["fc.weight"].shape == (1000, 512)
     for name in ("fc.weight", "fc.bias", "conv1.weight", "layer4.0.conv2.weight"):
         torch.testing.assert_close(got[name], want[name], rtol=0, atol=0, msg=name)
