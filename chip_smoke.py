@@ -190,6 +190,32 @@ Phases (any failure exits non-zero; nothing is caught and passed over):
    and train img/s at batch 16 with ``torch.cuda.max_memory_allocated``;
    the phase's seconds.
 
+19. the optimizer and scheduler factories, extra losses, augmentation,
+   TF preprocessing, MNIST variants and the utils package at the
+   flagship's width (resnest26d + xSlot, batch 70, 224 px, f32): one
+   ``make_train_step`` step with each of the 15 factory optimizers and
+   ``lookahead_adamw`` (lr 1e-4, weight decay 0.01) from one saved state,
+   the card's updated parameters and optimizer state held to the port's
+   CPU optimizer applied to the card's own pre-step parameters and
+   gradients (1e-6 of max(1, max|p|)), each optimizer's step timed alone;
+   ten nadam steps on a repeated batch (the loss falls) with ``ModelEma``
+   held to a CPU replay, ``CheckpointSaver(max_history=2)`` ranking the
+   steps by ``evaluate_top1``, ``update_summary``'s rows, ``Timer`` and a
+   ``trace()`` of two steps naming K1's kernels; every AutoAugment op at
+   levels 0, 5 and 10 (both signs where signed) and AutoAugment 'v0' /
+   'original' and RandAugment(2, 9) at seed 0 on 70 fixtures staged to 260
+   px, card vs CPU (equal, or 1 level on at most 0.1% of the pixels), with
+   each policy's img/s grouped by op and image by image;
+   ``TfPreprocessTransform`` at 224 px from the fixtures' bytes, eval and
+   train, against its CPU twin in a child process (boxes equal, PNG bit for
+   bit, JPEG within JPEG_MEAN_LEVEL_BAR); mixup (within 1e-6) and random
+   erasing (bit for bit) card vs CPU on seeded CPU draws; the three extra
+   losses on the flagship's logits card vs CPU (1e-6 relative), top-1 and
+   top-5 equal; ``load_mnist_variant`` on written FashionMNIST and QMNIST
+   files; K1's counts over the phase (forward with hist and backward once
+   a train step, a hist-free forward once an eval forward); the phase's
+   seconds.
+
 The line before the last is the kernels' JSON; the last line is
 ``{"ok": true, "device": {...}}``. Without a CUDA device, or without the
 package beside this file, it exits non-zero and prints no result.
@@ -3575,6 +3601,481 @@ def phase_zoo3(card: str):
                 step_k1=step_k1, nasnet_k1=nasnet_k1)
 
 
+# phase 19: the optimizer and scheduler factories, extra losses,
+# AutoAugment/RandAugment, mixup and erasing, TF preprocessing, MNIST
+# variants and the utils package, at the flagship's width
+FACTORY_NAMES = ("sgd", "nesterov", "momentum", "adam", "adamw", "nadam", "radam", "rmsprop",
+                 "rmsproptf", "novograd", "nvnovograd", "adadelta", "adagrad", "lamb", "lars",
+                 "lookahead_adamw")
+FACTORY_LR, FACTORY_WD = 1e-4, 0.01
+FACTORY_BAR = 1e-6  # card vs the CPU optimizer, of max(1, max|p|)
+EMA_BAR = 1e-6
+AUG_LEVELS = (0, 5, 10)
+AUG_SIZE, AUG_BATCH = 260, 70  # the CUB recipe's staging size, the flagship's batch
+AUG_PIXEL_SHARE = 1e-3  # at most this share of an op's pixels may be 1 level off
+RECIPE_STEPS = 10
+# the CPU twin of the card's TfPreprocessTransform calls, in a child process:
+# its JPEG decode is Pillow's, which this process never imports
+TF_PRE_CPU = r"""
+import sys, numpy as np
+sys.path.insert(0, sys.argv[1])
+from scouter_tpu_torch.data import TfPreprocessTransform
+names, out = sys.argv[2].split(","), {}
+for train in (False, True):
+    t = TfPreprocessTransform(is_training=train, size=224, seed=0, device="cpu")
+    for name in names:
+        key = f"{int(train)}/{name}"
+        out[key] = t(open(sys.argv[3] + "/" + name, "rb").read()).numpy()
+        out[key + "/box"] = np.asarray(t.last_box)
+np.savez(sys.argv[4], **out)
+"""
+
+
+def sync(dev: str) -> None:
+    import torch
+
+    if dev == "cuda":
+        torch.cuda.synchronize()
+
+
+def host_copy(t):
+    """A CPU copy of ``t`` (``.cpu()`` would alias a CPU tensor)."""
+    return t.detach().to("cpu", copy=True)
+
+
+def flagship_batch(cfg, dev="cuda"):
+    """The first ``cfg.batch_size`` images of the synthetic ImageNet stand-in,
+    preprocessed, on the card (as ``phase_train_throughput``)."""
+    import torch
+
+    from scouter_tpu_torch.data import _synthetic_folder, preprocess_batch
+
+    bs = cfg.batch_size
+    ds = _synthetic_folder(cfg.dataset, cfg.num_classes, cfg.img_size, train=True)
+    images = preprocess_batch(torch.from_numpy(ds.images[:bs]).to(dev), dataset=cfg.dataset,
+                              img_size=cfg.img_size).permute(0, 3, 1, 2).contiguous()
+    return {"image": images, "label": torch.from_numpy(ds.labels[:bs]).long().to(dev)}
+
+
+def rel_err(got, want) -> float:
+    """max|got - want| over max(1, max|want|), on the CPU."""
+    got, want = got.detach().cpu().double(), want.detach().cpu().double()
+    if got.numel() == 0:
+        return 0.0
+    return (got - want).abs().max().item() / max(1.0, want.abs().max().item())
+
+
+def phase_factory_optimizers(cfg, batch, card: str, dev="cuda"):
+    """Each factory optimizer in one ``make_train_step`` step from the same
+    saved state; the card's updated parameters and optimizer state held to
+    the port's CPU optimizer applied to the card's own pre-step parameters
+    and gradients (FACTORY_BAR); then the optimizer's step alone timed on
+    the card (5 calls, host clock between synchronizes)."""
+    import torch
+
+    from scouter_tpu_torch.models import build_slot_model
+    from scouter_tpu_torch.train import TrainState, make_train_step
+    from scouter_tpu_torch.train.optim_factory import create_optimizer
+
+    model = build_slot_model(cfg, fused_slot=True, device=dev)
+    init = {k: v.clone() for k, v in model.state_dict().items()}
+    step = make_train_step(cfg.lambda_value)
+    errors, step_ms = {}, {}
+    for name in FACTORY_NAMES:
+        model.load_state_dict(init)
+        params = dict(model.named_parameters())
+        opt = create_optimizer(name, lr=FACTORY_LR, weight_decay=FACTORY_WD, params=params)
+        pre = {k: host_copy(p) for k, p in params.items()}
+        _, m = step(TrainState(model=model, optimizer=opt), batch)
+        if not torch.isfinite(m["loss"]).item():
+            fail(f"{name}: the train step's loss is not finite")
+        cpu = {k: torch.nn.Parameter(v.clone()) for k, v in pre.items()}
+        cpu_opt = create_optimizer(name, lr=FACTORY_LR, weight_decay=FACTORY_WD, params=cpu)
+        for k, p in params.items():
+            cpu[k].grad = p.grad.detach().cpu()
+        cpu_opt.step()
+        worst = (0.0, "")
+        for k, p in params.items():
+            worst = max(worst, (rel_err(p, cpu[k]), k))
+            state, cpu_state = opt.state[p], cpu_opt.state[cpu[k]]
+            if sorted(state) != sorted(cpu_state):
+                fail(f"{name}: {k}'s optimizer state has {sorted(state)} on the card, "
+                     f"{sorted(cpu_state)} on the CPU")
+            for key, value in state.items():
+                worst = max(worst, (rel_err(value, cpu_state[key]), f"{k} state {key}"))
+        errors[name] = worst
+        sync(dev)
+        t0 = time.perf_counter()
+        for _ in range(5):
+            opt.step()
+        sync(dev)
+        step_ms[name] = (time.perf_counter() - t0) / 5 * 1e3
+    name, (err, where) = max(errors.items(), key=lambda kv: kv[1][0])
+    print(f"factory optimizers in the flagship's train step, card vs the CPU optimizer on the "
+          f"card's pre-step parameters and gradients: worst {name} ({where}) {err:.3e} of "
+          f"max(1, max|p|) (bar {FACTORY_BAR:g}); each: "
+          f"{json.dumps({n: float(f'{e:.3e}') for n, (e, _) in errors.items()})}", flush=True)
+    if err > FACTORY_BAR:
+        fail(f"{name}'s step on the card is {err:.3e} from the CPU optimizer's at {where}")
+    print(f"optimizer step alone ({cfg.model} + xSlot, {len(params)} tensors, ms, host clock): "
+          f"{json.dumps({n: round(v, 3) for n, v in step_ms.items()})} on {card}", flush=True)
+    return step_ms
+
+
+def phase_recipe(cfg, batch, tmp: str, card: str, dev="cuda"):
+    """Ten nadam steps on one repeated batch with the utils package: the
+    loss falls; ``ModelEma`` updated every step and held to a CPU replay of
+    the same parameter sequence; ``CheckpointSaver(max_history=2)`` ranking
+    the steps by ``evaluate_top1`` of an eval forward; ``update_summary``'s
+    rows; ``Timer`` around each step; ``trace()`` around the last two steps,
+    whose file must name K1's kernels."""
+    import csv
+    import glob
+    import os
+    import re
+
+    import torch
+
+    from scouter_tpu_torch.models import build_slot_model
+    from scouter_tpu_torch.train import TrainState, make_train_step
+    from scouter_tpu_torch.train.optim_factory import create_optimizer
+    from scouter_tpu_torch.utils import (CheckpointSaver, ModelEma, Timer, evaluate_top1,
+                                         trace, update_summary)
+
+    model = build_slot_model(cfg, fused_slot=True, device=dev)
+    params = dict(model.named_parameters())
+    state = TrainState(model=model, optimizer=create_optimizer(
+        "nadam", lr=FACTORY_LR, weight_decay=FACTORY_WD, params=params))
+    ema = ModelEma(params, decay=0.9, device=dev)
+    history = [{k: host_copy(p) for k, p in params.items()}]
+    saver = CheckpointSaver(os.path.join(tmp, "ckpt"), max_history=2)
+    summary = os.path.join(tmp, "summary.csv")
+    timer = Timer(device=dev)
+    step = make_train_step(cfg.lambda_value)
+    losses, top1s = [], []
+
+    def one_step(i):
+        nonlocal state
+        ema.decay = min(0.9, (1 + i) / (10 + i))  # a timm-style warmup: the decay moves
+        with timer.measure():
+            state, m = step(state, batch)
+        ema.update(params)
+        history.append({k: host_copy(p) for k, p in params.items()})
+        model.eval()
+        with torch.no_grad():
+            top1 = evaluate_top1(model(batch["image"])["logits"], batch["label"]).item()
+        losses.append(m["loss"].item())
+        top1s.append(top1)
+        saver.save_checkpoint({"step": i, "top1": top1, "model": model.state_dict()}, i, top1)
+        update_summary(i, {"loss": losses[-1]}, {"top1": top1}, summary)
+
+    for i in range(RECIPE_STEPS - 2):
+        one_step(i)
+    with trace(os.path.join(tmp, "trace")):
+        for i in range(RECIPE_STEPS - 2, RECIPE_STEPS):
+            one_step(i)
+    print(f"nadam recipe, {RECIPE_STEPS} steps on one repeated batch of {cfg.batch_size}: loss "
+          f"{', '.join(f'{v:.4f}' for v in losses)}; top-1 {top1s}; step {timer.mean * 1e3:.2f} "
+          f"ms (Timer) on {card}", flush=True)
+    if not losses[-1] < losses[0]:
+        fail(f"the nadam recipe's loss did not fall: {losses[0]} -> {losses[-1]}")
+    replay = ModelEma(history[0], decay=0.9, device="cpu")
+    for i, p in enumerate(history[1:]):
+        replay.decay = min(0.9, (1 + i) / (10 + i))
+        replay.update(p)
+    ema_err = max(rel_err(ema.params[k], replay.params[k]) for k in params)
+    print(f"ModelEma on the card vs its CPU replay: {ema_err:.3e} (bar {EMA_BAR:g})", flush=True)
+    if ema_err > EMA_BAR:
+        fail(f"ModelEma on the card is {ema_err:.3e} from its CPU replay")
+    kept = sorted(m for _, m in saver.checkpoint_files)
+    files = sorted(os.path.basename(p) for p in glob.glob(os.path.join(tmp, "ckpt", "*.pth")))
+    if (kept != sorted(top1s)[-2:] or files != sorted(
+            [os.path.basename(p) for p, _ in saver.checkpoint_files] + ["model_best.pth"])):
+        fail(f"CheckpointSaver kept {saver.checkpoint_files} ({files}) of top-1 {top1s}")
+    best = torch.load(os.path.join(tmp, "ckpt", "model_best.pth"), weights_only=True)
+    if (best["step"], saver.best_epoch) != (top1s.index(max(top1s)),) * 2:
+        fail(f"model_best.pth holds step {best['step']}, the saver's best {saver.best_epoch}, "
+             f"of top-1 {top1s}")
+    with open(summary) as f:
+        rows = list(csv.DictReader(f))
+    if [int(r["epoch"]) for r in rows] != list(range(RECIPE_STEPS)) or list(rows[0]) != [
+            "epoch", "train_loss", "eval_top1"]:
+        fail(f"update_summary wrote {rows}")
+    (trace_file,) = glob.glob(os.path.join(tmp, "trace", "*.pt.trace.json"))
+    with open(trace_file) as f:
+        events = json.load(f)["traceEvents"]
+    kernels = sorted({m.group(0) for e in events if e.get("cat") == "kernel"
+                      for m in [re.search(r"\w*xslot\w*", e.get("name", ""))] if m})
+    ops = sorted({e["name"] for e in events if e.get("name", "").startswith("scouter_tpu_torch::")})
+    print(f"trace() around two steps: K1's kernels {kernels}, its ops {ops}", flush=True)
+    if not kernels:
+        fail(f"the trace {trace_file} names none of K1's kernels")
+    return model, dict(losses=losses, top1=top1s, step_ms=timer.mean * 1e3, ema_err=ema_err)
+
+
+def staged_fixture_batch(dev: str):
+    """AUG_BATCH images staged to AUG_SIZE from the committed fixtures
+    (fixture k mod 8), uint8 (N, 3, H, W) on ``device``."""
+    import torch
+
+    from scouter_tpu_torch.data._decode import decode_file
+
+    names = FIXTURE_JPEGS + FIXTURE_PNGS
+    staged = [decode_file(str(FIXTURES / n), AUG_SIZE, dev).permute(2, 0, 1) for n in names]
+    return torch.stack([staged[i % len(names)] for i in range(AUG_BATCH)])
+
+
+def held_pixels(what: str, got, want, counts):
+    """``got`` (card) equal to ``want`` (CPU), or at most 1 level off on at
+    most AUG_PIXEL_SHARE of the pixels; the count goes into ``counts``."""
+    diff = (got.cpu().int() - want.int()).abs()
+    off = int((diff > 0).sum())
+    counts[what] = off
+    if diff.max().item() > 1 or off > AUG_PIXEL_SHARE * diff.numel():
+        fail(f"{what}: the card is {diff.max().item()} levels from the CPU at {off} of "
+             f"{diff.numel()} pixels")
+
+
+def phase_augment(card: str, dev="cuda"):
+    """Every op of ``_OPS`` on a batch of 70 fixtures staged to 260 px, each
+    image with one of levels 0, 5, 10 and, for a signed op, one of both
+    signs (every combination on some images), card vs CPU; AutoAugment
+    'v0' and 'original' and RandAugment(2, 9) at seed 0 on the batch, card
+    vs CPU, with img/s on the card (grouped by op, and image by image)."""
+    import random
+
+    import torch
+
+    from scouter_tpu_torch.data import auto_augment as aa
+
+    card_batch = staged_fixture_batch(dev)
+    cpu_batch = card_batch.cpu()
+    counts = {}
+    for name, (fn, to_arg) in aa._OPS.items():
+        args = []
+        for i in range(AUG_BATCH):
+            level = AUG_LEVELS[i % len(AUG_LEVELS)]
+            if name in aa.SIGNED_OPS:
+                rng = random.Random(0)
+                sign = (i // len(AUG_LEVELS)) % 2
+                rng.random = lambda s=sign: float(s)  # 1 negates, 0 keeps
+                args.append(to_arg(level, rng))
+            else:
+                args.append(to_arg(level))
+        held_pixels(name, fn(card_batch, args), fn(cpu_batch, args), counts)
+    rates = {}
+    for label, make in (("AutoAugment v0", lambda: aa.AutoAugment("v0", seed=0)),
+                        ("AutoAugment original", lambda: aa.AutoAugment("original", seed=0)),
+                        ("RandAugment(2, 9)", lambda: aa.RandAugment(2, 9, seed=0))):
+        held_pixels(label, make()(card_batch), make()(cpu_batch), counts)
+        for mode in ("grouped", "image by image"):
+            times = []
+            for _ in range(3):
+                policy = make()
+                sync(dev)
+                t0 = time.perf_counter()
+                if mode == "grouped":
+                    policy(card_batch)
+                else:
+                    for img in card_batch:
+                        policy(img)
+                sync(dev)
+                times.append(time.perf_counter() - t0)
+            rates[f"{label}, {mode}"] = AUG_BATCH / min(times)
+    print(f"augmentation ops and policies, card vs CPU on {AUG_BATCH} fixtures staged to "
+          f"{AUG_SIZE} px, pixels off by 1 level (bar {AUG_PIXEL_SHARE:g} of the pixels): "
+          f"{json.dumps(counts)}", flush=True)
+    print(f"augmentation img/s on the card (batch {AUG_BATCH}, {AUG_SIZE} px, best of 3, host "
+          f"clock): {json.dumps({k: round(v, 1) for k, v in rates.items()})} on {card}",
+          flush=True)
+    return card_batch, rates, counts
+
+
+def phase_tf_pre(tmp: str, child, dev="cuda"):
+    """``TfPreprocessTransform`` on the card from the fixtures' bytes at 224
+    px, eval and train (seed 0), against its CPU twin run in ``child``: the
+    crop boxes equal, PNG outputs bit for bit, JPEG outputs within
+    JPEG_MEAN_LEVEL_BAR on average (nvJPEG's decode)."""
+    import os
+
+    import numpy as np
+
+    from scouter_tpu_torch.data import TfPreprocessTransform
+
+    names = FIXTURE_JPEGS + FIXTURE_PNGS
+    card = {}
+    for train in (False, True):
+        t = TfPreprocessTransform(is_training=train, size=224, seed=0, device=dev)
+        for name in names:
+            out = t((FIXTURES / name).read_bytes())
+            if out.device.type != dev or tuple(out.shape) != (224, 224, 3):
+                fail(f"TfPreprocessTransform gave {tuple(out.shape)} on {out.device}")
+            card[f"{int(train)}/{name}"] = (out.cpu().numpy(), t.last_box)
+    if child.wait(timeout=120) != 0:
+        fail(f"the CPU TfPreprocessTransform child exited {child.returncode}: "
+             f"{child.stderr.read()}")
+    cpu = np.load(os.path.join(tmp, "tf_pre_cpu.npz"))
+    worst = {}
+    for key, (out, box) in card.items():
+        if tuple(cpu[key + "/box"]) != tuple(box):
+            fail(f"TfPreprocessTransform {key}: crop box {box} on the card, "
+                 f"{tuple(cpu[key + '/box'])} on the CPU")
+        diff = np.abs(out.astype(np.int16) - cpu[key].astype(np.int16))
+        if key.endswith(".png") and diff.any():
+            fail(f"TfPreprocessTransform {key}: the card differs from the CPU on PNG bytes")
+        if diff.mean() > JPEG_MEAN_LEVEL_BAR:
+            fail(f"TfPreprocessTransform {key}: {diff.mean():.4f} levels from the CPU on average")
+        worst[key] = round(float(diff.mean()), 4)
+    print(f"TfPreprocessTransform at 224 px, eval and train (seed 0), card vs CPU: boxes equal, "
+          f"PNG bit for bit, mean level difference per output {json.dumps(worst)} (JPEG bar "
+          f"{JPEG_MEAN_LEVEL_BAR})", flush=True)
+
+
+def phase_batch_augment_and_losses(cfg, model, flagship, staged, dev="cuda"):
+    """Mixup (alpha 0.2, smoothing 0.1) and random erasing (p 0.5) on the
+    staged batch with draws from a seeded CPU generator, card vs CPU
+    (mixup within 1e-6, erasing bit for bit); the three extra losses on the
+    flagship's logits card vs CPU within 1e-6 relative; top-1 and top-5
+    equal."""
+    import torch
+
+    from scouter_tpu_torch.data.extra_augment import mixup, random_erasing
+    from scouter_tpu_torch.ops.extra_losses import (jsd_cross_entropy,
+                                                    label_smoothing_cross_entropy,
+                                                    soft_target_cross_entropy)
+    from scouter_tpu_torch.utils import evaluate_top1, evaluate_top5
+
+    x = staged.to(torch.float32)
+    labels = torch.arange(x.shape[0], device=dev) % cfg.num_classes
+    out = {}
+    for where in (dev, "cpu"):
+        gen = torch.Generator().manual_seed(19)
+        mixed, targets = mixup(x.to(where), labels.to(where), cfg.num_classes, gen, alpha=0.2,
+                               smoothing=0.1)
+        erased = random_erasing(x.to(where), torch.Generator().manual_seed(19), probability=0.5)
+        out[where] = (mixed.cpu(), targets.cpu(), erased.cpu())
+    out["card"] = out[dev]
+    mix_err = max((a - b).abs().max().item() for a, b in zip(out["card"][:2], out["cpu"][:2]))
+    erased_n = int((out["cpu"][2] != x.cpu()).flatten(1).any(1).sum())
+    print(f"mixup card vs CPU max|d| {mix_err:.3e} (bar 1e-6); random erasing bit for bit: "
+          f"{torch.equal(out['card'][2], out['cpu'][2])} ({erased_n} of {x.shape[0]} images "
+          "erased)", flush=True)
+    if mix_err > 1e-6 or not torch.equal(out["card"][2], out["cpu"][2]):
+        fail("mixup or random erasing differ between the card and the CPU")
+
+    images, y = flagship["image"], flagship["label"]
+    gen = torch.Generator().manual_seed(20)
+    mixed, soft = mixup(images, y, cfg.num_classes, gen, alpha=0.2, smoothing=0.1)
+    erased = random_erasing(images, gen, probability=0.5)
+    model.eval()
+    with torch.no_grad():
+        logits = [model(b)["logits"] for b in (images, mixed, erased)]
+    losses = {
+        "label_smoothing": lambda l, y, s: label_smoothing_cross_entropy(l[0], y, 0.1),
+        "soft_target": lambda l, y, s: soft_target_cross_entropy(l[1], s),
+        "jsd": lambda l, y, s: jsd_cross_entropy(*l, y),
+    }
+    errs = {}
+    for name, fn in losses.items():
+        got = fn(logits, y, soft).item()
+        want = fn([l.cpu() for l in logits], y.cpu(), soft.cpu()).item()
+        errs[name] = abs(got - want) / max(abs(want), 1e-30)
+        if errs[name] > 1e-6:
+            fail(f"{name} on the card {got} is {errs[name]:.3e} from the CPU's {want}")
+    tops = {name: (fn(logits[0], y).item(), fn(logits[0].cpu(), y.cpu()).item())
+            for name, fn in (("top1", evaluate_top1), ("top5", evaluate_top5))}
+    print(f"extra losses on the flagship's logits, card vs CPU relative: {json.dumps(errs)}; "
+          f"top-1/top-5 card vs CPU {json.dumps(tops)}", flush=True)
+    if any(a != b for a, b in tops.values()):
+        fail(f"evaluate_top1/top5 differ between the card and the CPU: {tops}")
+
+
+def phase_mnist_variants(tmp: str):
+    """``load_mnist_variant`` on a FashionMNIST-layout tree and on
+    QMNIST-prefixed files: the arrays equal what was written."""
+    import gzip
+    import os
+    import struct
+
+    import numpy as np
+
+    from scouter_tpu_torch.data.mnist import load_mnist_variant
+
+    rng = np.random.RandomState(19)
+    for variant, sub, prefix in (("FashionMNIST", "FashionMNIST/raw", ""),
+                                 ("QMNIST", "QMNIST", "qmnist-")):
+        for train, stem in ((True, "train"), (False, "t10k")):
+            images = rng.randint(0, 256, (5, 28, 28)).astype(np.uint8)
+            labels = rng.randint(0, 10, 5).astype(np.uint8)
+            d = os.path.join(tmp, "mnist", sub)
+            os.makedirs(d, exist_ok=True)
+            for kind, arr in (("images-idx3", images), ("labels-idx1", labels)):
+                head = struct.pack(">I", 0x0800 | arr.ndim) + struct.pack(f">{arr.ndim}I",
+                                                                          *arr.shape)
+                with gzip.open(os.path.join(d, f"{prefix}{stem}-{kind}-ubyte.gz"), "wb") as f:
+                    f.write(head + arr.tobytes())
+            x, y = load_mnist_variant(os.path.join(tmp, "mnist"), variant, train)
+            if not (np.array_equal(x[..., 0], images) and np.array_equal(y, labels)):
+                fail(f"load_mnist_variant({variant!r}, train={train}) read other arrays")
+    print("load_mnist_variant: FashionMNIST and QMNIST-prefixed IDX files read back equal",
+          flush=True)
+
+
+def phase_factories(card: str, dev="cuda"):
+    """Phase 19 (see the docstring). Returns K1's counts over the phase."""
+    import os
+    import tempfile
+
+    from scouter_tpu_torch.core import ScouterConfig
+
+    t0 = time.monotonic()
+    cfg = ScouterConfig(**FLAGSHIP)
+    with tempfile.TemporaryDirectory() as tmp:
+        names = FIXTURE_JPEGS + FIXTURE_PNGS
+        child = subprocess.Popen(
+            [sys.executable, "-c", TF_PRE_CPU, str(ROOT), ",".join(names), str(FIXTURES),
+             os.path.join(tmp, "tf_pre_cpu.npz")], stdout=subprocess.DEVNULL,
+            stderr=subprocess.PIPE, text=True)
+        marks = [("start", time.monotonic())]
+        try:
+            k1_counts(reset=True)
+            batch = flagship_batch(cfg, dev)
+            step_ms = phase_factory_optimizers(cfg, batch, card, dev)
+            marks.append(("optimizers", time.monotonic()))
+            model, recipe = phase_recipe(cfg, batch, tmp, card, dev)
+            marks.append(("recipe", time.monotonic()))
+            staged, rates, counts = phase_augment(card, dev)
+            marks.append(("augment", time.monotonic()))
+            phase_tf_pre(tmp, child, dev)
+            marks.append(("tf_pre", time.monotonic()))
+            phase_batch_augment_and_losses(cfg, model, batch, staged, dev)
+            phase_mnist_variants(tmp)
+            marks.append(("mixup_losses_mnist", time.monotonic()))
+            k1 = k1_counts()
+        finally:
+            if child.poll() is None:
+                child.kill()
+                child.wait()
+    steps = len(FACTORY_NAMES) + RECIPE_STEPS
+    # every forward counts in "launches", the train steps' also in "hist_launches"
+    want = dict(hist_launches=steps, bwd_launches=steps, launches=steps + RECIPE_STEPS + 3)
+    print(f"phase 19 K1 counts: {json.dumps(k1)} (train steps {steps}, eval forwards "
+          f"{RECIPE_STEPS + 3})", flush=True)
+    if any(k1[k] != v for k, v in want.items()) or k1["bwd_tiled_launches"]:
+        fail(f"phase 19 gave K1 counts {k1}, expected {want} and no tiled backward")
+    if "PIL" in sys.modules:
+        fail("Pillow was imported in phase 19")
+    seconds = time.monotonic() - t0
+    print(json.dumps({"factories_and_augment": dict(
+        optimizer_step_ms=step_ms, recipe=recipe, augment_img_per_s=rates,
+        augment_pixels_off=counts, card=card, seconds=seconds,
+        seconds_by_part={name: round(t - marks[i][1], 2)
+                         for i, (name, t) in enumerate(marks[1:])})}), flush=True)
+    print(f"phase 19 (factories, losses, augmentation, TF preprocessing, utils) took "
+          f"{seconds:.1f} s", flush=True)
+    return k1
+
+
 def main() -> int:
     if not (ROOT / "scouter_tpu_torch" / "__init__.py").exists():
         fail(f"the scouter_tpu_torch package is not beside {Path(__file__).name}")
@@ -3666,6 +4167,10 @@ def main() -> int:
                                                       zoo3["step_k1"]["bwd"])
     entry["at_4_121_30"], bwd_entry["at_4_121_30"] = (zoo3["nasnet_k1"]["fwd"],
                                                       zoo3["nasnet_k1"]["bwd"])
+    k1 = phase_factories(card)
+    entry["factories_hist_launches"], entry["factories_launches"] = (k1["hist_launches"],
+                                                                     k1["launches"])
+    bwd_entry["factories_launches"] = k1["bwd_launches"]
     if "PIL" in sys.modules:
         fail("Pillow was imported")
     print(f"chip_smoke finished in {time.monotonic() - t0:.1f} s after the build started",

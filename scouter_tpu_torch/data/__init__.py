@@ -5,6 +5,7 @@ from .folders import load_image_list, scan_context, scan_cub200, scan_imagenet_s
 from .mnist import load_mnist, mnist_or_synthetic, synthetic_mnist
 from .pipeline import ArrayDataset, Loader
 from .streaming import FolderDataset
+from .tf_pre import TfPreprocessTransform
 from .transforms import NORMALIZE_VALUES, augment_batch, preprocess_batch, resize_bilinear
 
 __all__ = [
@@ -12,6 +13,7 @@ __all__ = [
     "FolderDataset",
     "Loader",
     "NORMALIZE_VALUES",
+    "TfPreprocessTransform",
     "augment_batch",
     "load_image_list",
     "load_mnist",

@@ -17,11 +17,29 @@ from typing import Optional, Tuple
 
 import numpy as np
 
-__all__ = ["load_mnist", "mnist_or_synthetic", "synthetic_mnist"]
+__all__ = ["load_mnist", "load_mnist_variant", "mnist_or_synthetic", "synthetic_mnist"]
 
 _FILES = {
     True: ("train-images-idx3-ubyte", "train-labels-idx1-ubyte"),
     False: ("t10k-images-idx3-ubyte", "t10k-labels-idx1-ubyte"),
+}
+
+# The reference vendors Fashion/K/E/QMNIST beside MNIST (dataset/mnist.py:161-421);
+# they share the IDX format and differ only in the download source and the
+# subdirectory. There is no download: they are read from disk.
+_VARIANT_SUBDIRS = {
+    "MNIST": "MNIST",
+    "FashionMNIST": "FashionMNIST",
+    "KMNIST": "KMNIST",
+    "EMNIST": "EMNIST",
+    "QMNIST": "QMNIST",
+}
+# the official EMNIST/QMNIST archives prefix the IDX file names
+# (emnist-<split>-train-images-idx3-ubyte, qmnist-train-images-idx3-ubyte)
+_VARIANT_PREFIXES = {
+    "EMNIST": ("emnist-balanced-", "emnist-byclass-", "emnist-digits-", "emnist-letters-",
+               "emnist-mnist-"),
+    "QMNIST": ("qmnist-",),
 }
 
 
@@ -60,6 +78,32 @@ def load_mnist(root: str, train: bool = True) -> Tuple[np.ndarray, np.ndarray]:
     raise FileNotFoundError(
         f"MNIST IDX files not found under {root!r} (no download in this build). "
         f"Last: {last_err}")
+
+
+def load_mnist_variant(root: str, variant: str = "MNIST", train: bool = True
+                       ) -> Tuple[np.ndarray, np.ndarray]:
+    """Fashion/K/E/QMNIST: the IDX layout under ``<root>/<variant>``, else
+    under ``root`` (each as :func:`load_mnist` searches it), else the
+    EMNIST/QMNIST-prefixed names under ``<root>/<variant>``, its ``raw`` and
+    ``root``. Returns (images (N,28,28,1) uint8, labels (N,) int32)."""
+    if variant not in _VARIANT_SUBDIRS:
+        raise ValueError(f"unknown MNIST variant {variant!r}; known: {sorted(_VARIANT_SUBDIRS)}")
+    sub = _VARIANT_SUBDIRS[variant]
+    for candidate in (os.path.join(root, sub), root):
+        try:
+            return load_mnist(candidate, train)
+        except FileNotFoundError:
+            continue
+    img_name, lbl_name = _FILES[train]
+    for prefix in _VARIANT_PREFIXES.get(variant, ()):
+        for candidate in (os.path.join(root, sub), os.path.join(root, sub, "raw"), root):
+            try:
+                images = _read_idx(os.path.join(candidate, prefix + img_name))
+                labels = _read_idx(os.path.join(candidate, prefix + lbl_name))
+                return images[..., None], labels.astype(np.int32)
+            except FileNotFoundError:
+                continue
+    raise FileNotFoundError(f"{variant} IDX files not found under {root!r}")
 
 
 def synthetic_mnist(num_train: int = 2048, num_test: int = 512, seed: int = 0,

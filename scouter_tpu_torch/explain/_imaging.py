@@ -4,9 +4,10 @@ path, so that the path runs where neither is installed:
 - :func:`jet_lut`: matplotlib's 256-entry ``jet`` table
   (``LinearSegmentedColormap`` with N=256), built in float64 from the same
   segment data;
-- :func:`resize_bilinear_u8`: Pillow's ``Image.resize(size, BILINEAR)`` of an
-  8-bit image: separable passes, horizontal then vertical, fixed-point taps
-  with 22 fraction bits and a uint8 image between the passes;
+- :func:`resize_bilinear_u8` and :func:`resize_bicubic_u8`: Pillow's
+  ``Image.resize(size, BILINEAR|BICUBIC)`` of an 8-bit image: separable
+  passes, horizontal then vertical, fixed-point taps with 22 fraction bits
+  and a uint8 image between the passes;
 - :func:`alpha_composite`: Pillow's ``Image.alpha_composite``, integer
   arithmetic with 7 fraction bits;
 - :func:`to_rgba`: Pillow's ``convert("RGBA")`` of an L, RGB or RGBA image.
@@ -26,7 +27,7 @@ from typing import Tuple
 import numpy as np
 import torch
 
-__all__ = ["alpha_composite", "jet_lut", "resize_bilinear_u8", "to_rgba"]
+__all__ = ["alpha_composite", "jet_lut", "resize_bicubic_u8", "resize_bilinear_u8", "to_rgba"]
 
 # matplotlib's _cm._jet_data: per channel, rows (x, y0, y1)
 _JET_SEGMENTS = (
@@ -66,15 +67,34 @@ def jet_lut(device="cpu") -> torch.Tensor:
     return _jet_lut_cpu().to(device, copy=True)  # the cached table stays unaliased
 
 
+def _bilinear_filter(x: float) -> float:
+    x = abs(x)
+    return 1.0 - x if x < 1.0 else 0.0
+
+
+def _bicubic_filter(x: float, a: float = -0.5) -> float:
+    x = abs(x)
+    if x < 1.0:
+        return ((a + 2.0) * x - (a + 3.0)) * x * x + 1
+    if x < 2.0:
+        return (((x - 5) * x + 8) * x - 4) * a
+    return 0.0
+
+
+# Resample.c's filters: (function, support)
+_FILTERS = {"bilinear": (_bilinear_filter, 1.0), "bicubic": (_bicubic_filter, 2.0)}
+
+
 @functools.lru_cache(maxsize=None)
-def _bilinear_taps(in_size: int, out_size: int) -> Tuple[torch.Tensor, torch.Tensor]:
-    """Pillow's ``precompute_coeffs`` with the bilinear filter and
+def _taps(in_size: int, out_size: int, kind: str) -> Tuple[torch.Tensor, torch.Tensor]:
+    """Pillow's ``precompute_coeffs`` with the ``kind`` filter and
     ``normalize_coeffs_8bpc`` (Resample.c): for each output index the input
-    indices (out, k) and their fixed-point weights (out, k), int64; unused
-    taps have weight 0."""
+    indices (out, k) and their fixed-point weights (out, k), int64, a
+    negative weight rounded away from zero; unused taps have weight 0."""
+    fn, filter_support = _FILTERS[kind]
     scale = in_size / out_size
     filterscale = max(scale, 1.0)
-    support = filterscale  # the bilinear filter's support is 1
+    support = filter_support * filterscale
     ksize = int(math.ceil(support)) * 2 + 1
     ss = 1.0 / filterscale
     index = np.zeros((out_size, ksize), np.int64)
@@ -83,12 +103,12 @@ def _bilinear_taps(in_size: int, out_size: int) -> Tuple[torch.Tensor, torch.Ten
         center = (xx + 0.5) * scale
         xmin = max(int(center - support + 0.5), 0)
         xmax = min(int(center + support + 0.5), in_size) - xmin
-        w = [max(0.0, 1.0 - abs((x + xmin - center + 0.5) * ss)) for x in range(xmax)]
+        w = [fn((x + xmin - center + 0.5) * ss) for x in range(xmax)]
         total = sum(w)
         if total != 0.0:
             w = [v / total for v in w]
         index[xx, :xmax] = np.arange(xmin, xmin + xmax)
-        weight[xx, :xmax] = [int(0.5 + v * (1 << 22)) for v in w]
+        weight[xx, :xmax] = [int((-0.5 if v < 0 else 0.5) + v * (1 << 22)) for v in w]
     return torch.from_numpy(index), torch.from_numpy(weight)
 
 
@@ -97,21 +117,32 @@ def _clip8(acc: torch.Tensor) -> torch.Tensor:
     return ((acc + (1 << 21)) >> 22).clamp(0, 255).to(torch.uint8)
 
 
+def _resize_u8(img: torch.Tensor, height: int, width: int, kind: str) -> torch.Tensor:
+    if img.dtype != torch.uint8:
+        raise TypeError(f"resize takes uint8 planes, got {img.dtype}")
+    in_h, in_w = img.shape[-2:]
+    out = img
+    if width != in_w:
+        index, weight = (t.to(img.device) for t in _taps(in_w, width, kind))
+        out = _clip8((out.long()[..., index] * weight).sum(-1))
+    if height != in_h:
+        index, weight = (t.to(img.device) for t in _taps(in_h, height, kind))
+        out = _clip8((out.long()[..., index, :] * weight[:, :, None]).sum(-2))
+    return out.clone() if out is img else out
+
+
 def resize_bilinear_u8(img: torch.Tensor, height: int, width: int) -> torch.Tensor:
     """Pillow's ``Image.resize((width, height), Image.BILINEAR)`` of uint8
     (..., H, W) planes, bit for bit. A pass whose size already matches is
     skipped, as Pillow skips it."""
-    if img.dtype != torch.uint8:
-        raise TypeError(f"resize_bilinear_u8 takes uint8 planes, got {img.dtype}")
-    in_h, in_w = img.shape[-2:]
-    out = img
-    if width != in_w:
-        index, weight = (t.to(img.device) for t in _bilinear_taps(in_w, width))
-        out = _clip8((out.long()[..., index] * weight).sum(-1))
-    if height != in_h:
-        index, weight = (t.to(img.device) for t in _bilinear_taps(in_h, height))
-        out = _clip8((out.long()[..., index, :] * weight[:, :, None]).sum(-2))
-    return out.clone() if out is img else out
+    return _resize_u8(img, height, width, "bilinear")
+
+
+def resize_bicubic_u8(img: torch.Tensor, height: int, width: int) -> torch.Tensor:
+    """Pillow's ``Image.resize((width, height), Image.BICUBIC)`` of uint8
+    (..., H, W) planes, bit for bit (the filter's support scaled on a
+    downscale, as for bilinear)."""
+    return _resize_u8(img, height, width, "bicubic")
 
 
 def _shift_div255(a: torch.Tensor) -> torch.Tensor:

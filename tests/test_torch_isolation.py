@@ -255,7 +255,8 @@ def import_probes():
     per-module tests below name."""
     import json
 
-    modules = list(_NEW_MODULES) + [f"scouter_tpu_torch.{m}" for m in _XAI_MODULES]
+    modules = list(_NEW_MODULES) + [f"scouter_tpu_torch.{m}" for m in
+                                    _XAI_MODULES + _FACTORY_MODULES]
     env = dict(os.environ, PYTHONPATH=str(ROOT))
     out = subprocess.run([sys.executable, "-c", _FORKED_PROBES, json.dumps(modules)], cwd=ROOT,
                          env=env, capture_output=True, text=True, timeout=300)
@@ -326,6 +327,71 @@ def test_stager_raises_without_a_compiler(tmp_path, monkeypatch):
     with pytest.raises(RuntimeError, match="g\\+\\+ not found"):
         native_stager.resize_batch(np.zeros((1, 4, 4, 3), np.uint8), (2, 2))
     assert not list(tmp_path.iterdir())
+
+
+# the factories, augmentation and utils slice: none loads JAX, optax, flax,
+# the JAX package or Pillow
+_FACTORY_MODULES = ("train.optim_factory", "train.scheduler_factory", "ops.extra_losses",
+                    "utils", "utils.ema", "utils.metrics", "utils.profiling", "utils.saver",
+                    "utils.summary", "data.mnist", "data.extra_augment", "data.auto_augment",
+                    "data.tf_pre")
+
+
+@pytest.mark.parametrize("module", _FACTORY_MODULES)
+def test_factory_and_augment_modules_import_no_jax_nor_pil(module, import_probes):
+    """Each module of the factories, augmentation and utils slice, alone in a
+    fresh interpreter (``_FORKED_PROBES``), loads neither JAX, flax, optax,
+    the JAX package nor Pillow."""
+    loaded = import_probes[f"scouter_tpu_torch.{module}"]
+    assert isinstance(loaded, list), loaded
+    assert [m for m in loaded if m.split(".")[0] in
+            ("jax", "jaxlib", "flax", "optax", "scouter_tpu", "PIL")] == []
+
+
+_AUGMENT_NO_PIL_PROBE = r"""
+import sys
+sys.modules["PIL"] = None
+import numpy as np, torch
+from scouter_tpu_torch.core.png import encode_png
+from scouter_tpu_torch.data import TfPreprocessTransform
+from scouter_tpu_torch.data.auto_augment import AutoAugment, RandAugment
+from scouter_tpu_torch.data.extra_augment import mixup, random_erasing
+from scouter_tpu_torch.utils import model_cost_analysis
+
+img = torch.from_numpy(np.random.RandomState(0).randint(0, 256, (4, 3, 40, 30)).astype(np.uint8))
+a = AutoAugment("original", seed=0)(img)
+r = RandAugment(2, 9, seed=0)(img[0])
+png = encode_png(img[0].permute(1, 2, 0).numpy())
+t = TfPreprocessTransform(is_training=True, size=16, seed=0, device="cpu")(png)
+x, y = mixup(img.float(), torch.arange(4), 4, torch.Generator().manual_seed(0))
+e = random_erasing(img.float(), torch.Generator().manual_seed(0))
+cost = model_cost_analysis(lambda m: m @ m, torch.ones(3, 3))
+print(tuple(a.shape), tuple(r.shape), tuple(t.shape), tuple(y.shape), tuple(e.shape),
+      cost["flops"], sorted(m for m in sys.modules if m.split(".")[0] == "PIL"
+                            and sys.modules[m] is not None))
+"""
+
+
+def test_augmentations_run_without_pil():
+    """AutoAugment, RandAugment, TF preprocessing from PNG bytes, mixup,
+    erasing and the cost analysis run with Pillow blocked, as on the card's
+    machine."""
+    env = dict(os.environ, PYTHONPATH=str(ROOT))
+    out = subprocess.run([sys.executable, "-c", _AUGMENT_NO_PIL_PROBE], cwd=ROOT, env=env,
+                         capture_output=True, text=True, timeout=300)
+    assert out.returncode == 0, out.stderr
+    assert out.stdout.strip().splitlines()[-1] == (
+        "(4, 3, 40, 30) (3, 40, 30) (16, 16, 3) (4, 4) (4, 3, 40, 30) 54.0 []")
+
+
+def test_factory_entry_points_raise_without_cuda(no_cuda):
+    from scouter_tpu_torch.data import TfPreprocessTransform
+    from scouter_tpu_torch.utils import ModelEma, Timer
+
+    for make in (lambda: TfPreprocessTransform(), lambda: ModelEma({"w": torch.zeros(2)}),
+                 lambda: Timer()):
+        with pytest.raises(RuntimeError, match="CUDA"):
+            make()
 
 
 _XAI_MODULES = ("models.act", "explain.cam", "explain.backprop", "explain.rise",
