@@ -216,6 +216,30 @@ Phases (any failure exits non-zero; nothing is caught and passed over):
    a train step, a hist-free forward once an eval forward); the phase's
    seconds.
 
+20. training and serving over ``torch.distributed`` on the one card: (a)
+   ``python -m torch.distributed.run --standalone --nproc_per_node 1
+   chip_smoke.py dist-cli`` (one process, NCCL, world size 1) runs the train
+   CLI on the flagship (batch 70, 224 px, one epoch of the stand-in) with
+   ``--mesh_shape 1 --sync_bn true``, ``--mesh_shape 1 --sync_bn false`` and
+   ``--mesh_shape 1,1 --zero1 true``: finite metrics, the reference's
+   checkpoint names, K1's hist, hist-free and backward launches equal to the
+   train steps and val batches, each epoch's unrounded averages within
+   DIST_LOSS_BAR of the same CLI run here without a mesh and the launcher;
+   then its train img/s with a (1,) mesh over NCCL and without a mesh; (b)
+   two gloo ranks on the card (``chip_smoke.py dist-rank``, both on
+   ``cuda:0``): one flagship train step at batch 35 a rank in each BN mode
+   against one rank's step here on the same 70 images (per-replica BN: the
+   mean of each half's own step), the loss within DIST_STEP_LOSS_BAR and
+   each gradient before the update within STEP_GRAD_NORM_BAR in norm (one
+   that is zero in exact arithmetic, the split-attention's fc1 bias before
+   its BatchNorm, no further from the float64 step than twice the f32
+   step), the
+   parameters equal on both ranks (a checksum), K1 with hist and its
+   backward once on each rank, a checkpoint written by rank 0 alone, and
+   the global train img/s; (c) ``InferenceEngine(mesh=)`` over a mesh of the
+   card: logits bit for bit with the engine without one at buckets 1, 4
+   and 16; the phase's seconds.
+
 The line before the last is the kernels' JSON; the last line is
 ``{"ok": true, "device": {...}}``. Without a CUDA device, or without the
 package beside this file, it exits non-zero and prints no result.
@@ -2022,8 +2046,8 @@ def phase_folder_preempt(tmp: str):
     flags = ["--preempt_save", "true", "--ckpt_async", "true"]
     make_step = train_loop.make_train_step
 
-    def signalling_step(lam):
-        step, calls = make_step(lam), []
+    def signalling_step(lam, **kw):  # the Trainer passes its mesh too
+        step, calls = make_step(lam, **kw), []
 
         def wrapped(state, batch):
             result = step(state, batch)
@@ -4076,6 +4100,415 @@ def phase_factories(card: str, dev="cuda"):
     return k1
 
 
+# phase 20: training and serving over torch.distributed on the one card
+DIST_RUNS = (("mesh_sync_bn", ["--mesh_shape", "1", "--sync_bn", "true"]),
+             ("mesh_per_replica_bn", ["--mesh_shape", "1", "--sync_bn", "false"]),
+             ("mesh_zero1", ["--mesh_shape", "1,1", "--zero1", "true"]))
+DIST_LOSS_BAR = 1e-5  # world 1 over NCCL against no mesh: the same arithmetic
+DIST_STEP_LOSS_BAR = 1e-3  # two gloo ranks against one rank's step on the 70 images
+DIST_RANKS = 2
+DIST_TIMEOUT_S = 300
+
+
+def recorded_epochs():
+    """A context in which every ``Trainer.run_epoch`` appends (mode, epoch,
+    its unrounded averages, the process group's backend or None) to the list
+    it yields."""
+    import contextlib
+
+    import torch.distributed as dist
+
+    from scouter_tpu_torch.train import loop
+
+    @contextlib.contextmanager
+    def recording():
+        run_epoch, seen = loop.Trainer.run_epoch, []
+
+        def recorded(self, epoch, mode):
+            avg = run_epoch(self, epoch, mode)
+            seen.append((mode, epoch, dict(avg),
+                         dist.get_backend() if dist.is_initialized() else None))
+            return avg
+
+        loop.Trainer.run_epoch = recorded
+        try:
+            yield seen
+        finally:
+            loop.Trainer.run_epoch = run_epoch
+
+    return recording()
+
+
+def train_rate(step, state, batch, global_batch: int, steps: int = 10,
+               warmup: int = 3) -> float:
+    """img/s of ``step`` on one repeated batch (this rank's rows of a global
+    batch of ``global_batch``)."""
+    import torch
+
+    for _ in range(warmup):
+        state, _ = step(state, batch)
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    for _ in range(steps):
+        state, _ = step(state, batch)
+    torch.cuda.synchronize()
+    return global_batch * steps / (time.perf_counter() - t0)
+
+
+def flagship_state(cfg):
+    from scouter_tpu_torch.models import build_slot_model
+    from scouter_tpu_torch.train import create_train_state
+
+    return create_train_state(build_slot_model(cfg, fused_slot=True, device="cuda"), cfg.lr)
+
+
+def dist_cli_child(tmp: str) -> int:
+    """``chip_smoke.py dist-cli <tmp>`` under ``torch.distributed.run`` (one
+    process): the train CLI once for each of ``DIST_RUNS`` (each starts and
+    destroys its group of one), with K1's counts, the unrounded epoch
+    averages and the group's backend of each; then, once ``<tmp>/go``
+    exists, the flagship's train img/s with a (1,) mesh under the group
+    started again, and without a mesh. Prints one JSON line."""
+    import os
+
+    import torch
+
+    sys.path.insert(0, str(ROOT))
+    torch.backends.cuda.matmul.allow_tf32 = False
+    torch.backends.cudnn.allow_tf32 = False
+    from scouter_tpu_torch.core import ScouterConfig
+    from scouter_tpu_torch.core.distributed import init_distributed_mode
+    from scouter_tpu_torch.parallel import make_mesh
+    from scouter_tpu_torch.train import cli, make_train_step
+
+    runs = {}
+    torch.backends.cudnn.deterministic = True  # as the run without a mesh it is held to
+    for name, extra in DIST_RUNS:
+        out = os.path.join(tmp, name)
+        k1_counts(reset=True)
+        t0 = time.monotonic()
+        with recorded_epochs() as epochs:
+            cli.main(flagship_flags(out) + ["--epochs", "1", "--lr_drop", "1"] + extra)
+        runs[name] = dict(k1=k1_counts(), epochs=epochs, seconds=time.monotonic() - t0,
+                          files=sorted(os.listdir(out)))
+    torch.backends.cudnn.deterministic = False
+    deadline = time.monotonic() + 120
+    while not os.path.exists(os.path.join(tmp, "go")) and time.monotonic() < deadline:
+        time.sleep(0.2)
+    cfg = ScouterConfig(**FLAGSHIP)
+    batch = flagship_batch(cfg)
+    init_distributed_mode()
+    backend = torch.distributed.get_backend()
+    mesh = make_mesh((1,))
+    rates = {"mesh_1": train_rate(make_train_step(cfg.lambda_value, mesh=mesh),
+                                  flagship_state(cfg), batch, cfg.batch_size)}
+    torch.distributed.destroy_process_group()
+    rates["no_mesh"] = train_rate(make_train_step(cfg.lambda_value), flagship_state(cfg), batch,
+                                  cfg.batch_size)
+    print(json.dumps({"dist_cli": dict(runs=runs, rates=rates, backend=backend)}), flush=True)
+    return 0
+
+
+def dist_rank_child(rank: int, port: str, tmp: str) -> int:
+    """``chip_smoke.py dist-rank <rank> <port> <tmp>``: one of two gloo ranks
+    on the one card (``device="cuda:0"`` for both; NCCL refuses two ranks on
+    one device). For each BN mode, one flagship train step over a (2,) mesh
+    on this rank's 35 of the 70 images, from the seeded weights: the loss,
+    K1's counts over the step, the averaged gradients (rank 0 saves them)
+    and a checksum of the parameters after it; a checkpoint through
+    ``save_checkpoint`` (rank 0 alone writes); the global train img/s with
+    global BatchNorm. Writes ``<tmp>/rank<r>.json``."""
+    import os
+
+    import numpy as np
+    import torch
+
+    sys.path.insert(0, str(ROOT))
+    torch.backends.cuda.matmul.allow_tf32 = False
+    torch.backends.cudnn.allow_tf32 = False
+    torch.backends.cudnn.deterministic = True
+    os.environ.update(RANK=str(rank), WORLD_SIZE=str(DIST_RANKS), LOCAL_RANK="0",
+                      MASTER_ADDR="localhost", MASTER_PORT=port)
+    from scouter_tpu_torch.core import ScouterConfig
+    from scouter_tpu_torch.core.checkpoint import save_checkpoint
+    from scouter_tpu_torch.core.distributed import init_distributed_mode
+    from scouter_tpu_torch.parallel import make_mesh, shard_batch
+    from scouter_tpu_torch.train import make_train_step
+
+    init_distributed_mode(backend="gloo", device="cuda:0", timeout=DIST_TIMEOUT_S)
+    import torch.distributed as dist
+
+    cfg = ScouterConfig(**FLAGSHIP)
+    mesh = make_mesh((DIST_RANKS,))
+    rows = shard_batch(mesh, flagship_batch(cfg))
+    out = dict(rank=rank, backend=dist.get_backend(), steps={})
+    for sync_bn in (True, False):
+        state = flagship_state(cfg)
+        step = make_train_step(cfg.lambda_value, mesh=mesh, sync_bn=sync_bn)
+        k1_counts(reset=True)
+        state, m = step(state, rows)
+        torch.cuda.synchronize()
+        k1 = k1_counts()
+        params = {n: p.detach().double().cpu() for n, p in state.model.named_parameters()}
+        out["steps"][str(sync_bn)] = dict(
+            loss=float(m["loss"]), metrics={k: float(v) for k, v in m.items()}, k1=k1,
+            checksum=float(sum(np.abs(v.numpy()).sum() for v in params.values())))
+        if rank == 0:
+            torch.save({n: p.grad.detach().cpu() for n, p in state.model.named_parameters()
+                        if p.grad is not None}, os.path.join(tmp, f"grads_{sync_bn}.pt"))
+        if sync_bn:
+            out["paths"] = [os.path.basename(path) for path in
+                            save_checkpoint(os.path.join(tmp, "ckpt"), cfg, state, 0)]
+            timed = (step, state)
+    deadline = time.monotonic() + DIST_TIMEOUT_S  # the reference's steps end first
+    while not os.path.exists(os.path.join(tmp, "go")) and time.monotonic() < deadline:
+        time.sleep(0.2)
+    out["img_per_s"] = train_rate(*timed, rows, cfg.batch_size, steps=5)
+    with open(os.path.join(tmp, f"rank{rank}.json"), "w") as f:
+        json.dump(out, f)
+    dist.barrier()
+    dist.destroy_process_group()
+    return 0
+
+
+def dist_reference_grads(cfg, batch, sync_bn: bool, dtype=None):
+    """One rank's step on the 70 images without a mesh: the loss and the
+    gradients the step leaves; with per-replica BN, the mean of each half's
+    own step (its own statistics), as two replicas take it. In float64
+    (``dtype``) the slot head runs its plain version (K1 is f32 and bf16)."""
+    import torch
+
+    from scouter_tpu_torch.models import build_slot_model
+    from scouter_tpu_torch.train import create_train_state, make_train_step
+
+    dtype = dtype or torch.float32
+    halves = [batch] if sync_bn else [
+        {k: v[i * 35:(i + 1) * 35] for k, v in batch.items()} for i in range(DIST_RANKS)]
+    loss, grads = 0.0, {}
+    for half in halves:
+        model = build_slot_model(cfg, fused_slot=dtype == torch.float32, device="cuda")
+        state = create_train_state(model.to(dtype), cfg.lr)
+        state, m = make_train_step(cfg.lambda_value)(
+            state, {**half, "image": half["image"].to(dtype)})
+        loss += float(m["loss"]) / len(halves)
+        for n, p in state.model.named_parameters():
+            if p.grad is not None:
+                grads[n] = grads.get(n, 0) + p.grad.detach().double().cpu() / len(halves)
+    torch.cuda.synchronize()
+    return loss, grads
+
+
+def held_grads(what: str, got, ref32, ref64):
+    """Each gradient of ``got`` within STEP_GRAD_NORM_BAR of ``ref32``'s in
+    norm; one that is zero in exact arithmetic (a conv bias before a train-
+    mode BatchNorm: the split-attention's fc1) is f32 noise on both sides,
+    and is held instead no further from the float64 step than twice the f32
+    reference lies from it (Queue C). Returns the worst relative norm and
+    the names held by float64 with the largest ratio of the two distances."""
+    if set(got) != set(ref32):
+        fail(f"{what}: gradients for {sorted(set(got) ^ set(ref32))} on one side only")
+    worst, by_f64, ratio = (0.0, ""), [], 0.0
+    for n, g in ref32.items():
+        rel = float((got[n].double() - g).norm() / g.norm().clamp_min(1e-30))
+        if rel <= STEP_GRAD_NORM_BAR:
+            worst = max(worst, (rel, n))
+            continue
+        ours = float((got[n].double() - ref64[n]).norm())
+        theirs = float((g - ref64[n]).norm())
+        if ours > 2 * theirs:
+            fail(f"{what}: gradient {n} {rel:.3g} from one rank's step in norm, "
+                 f"{ours:.3g} from the float64 step (the f32 step's {theirs:.3g})")
+        by_f64.append(n)
+        ratio = max(ratio, ours / theirs)
+    return worst, by_f64, ratio
+
+
+def phase_dist_engine(cfg, state_dict):
+    """(c): the engine with a mesh of the card against the engine without:
+    logits bit for bit at buckets 1, 4 and 16."""
+    import numpy as np
+    import torch
+
+    from scouter_tpu_torch.parallel import make_mesh
+    from scouter_tpu_torch.serve import InferenceEngine
+
+    images = np.random.RandomState(20).randint(0, 256, (16, cfg.img_size, cfg.img_size, 3),
+                                               np.uint8)
+    plain = InferenceEngine(cfg, state_dict, buckets=BUCKETS)
+    meshed = InferenceEngine(cfg, state_dict, buckets=BUCKETS,
+                             mesh=make_mesh(devices=[torch.device("cuda", 0)]))
+    try:
+        for b in BUCKETS:
+            want, got = plain.infer_batch(images[:b]), meshed.infer_batch(images[:b])
+            if not np.array_equal(got["logits"], want["logits"]):
+                fail(f"the meshed engine's logits differ at bucket {b}")
+    finally:
+        plain.close()
+        meshed.close()
+    print(f"meshed engine (a mesh of the card): logits bit for bit at buckets {BUCKETS}",
+          flush=True)
+
+
+def phase_distributed(card: str):
+    """Phase 20 (see the docstring). Returns K1's launches over its train
+    steps: the CLI runs' (a) and each gloo rank's (b)."""
+    import math
+    import os
+    import socket
+
+    import torch
+
+    from scouter_tpu_torch.core import ScouterConfig
+    from scouter_tpu_torch.models import build_slot_model
+    from scouter_tpu_torch.train import cli
+
+    t0 = time.monotonic()
+    cfg = ScouterConfig(**FLAGSHIP)
+    train_steps, val_batches = 256 // 70, -(-128 // 70)  # the synthetic stand-in
+    with tempfile.TemporaryDirectory() as tmp:
+        a_tmp, b_tmp = os.path.join(tmp, "a"), os.path.join(tmp, "b")
+        os.makedirs(a_tmp)
+        os.makedirs(b_tmp)
+        # (a)'s launcher and (b)'s two ranks start together; each times its
+        # steps only once this process has made its references and writes
+        # the directory's "go" file, and (b) only after (a) has ended
+        with socket.socket() as sock:
+            sock.bind(("localhost", 0))
+            port = str(sock.getsockname()[1])
+        # the children write to files: a full pipe would stall them unread
+        logs = [open(os.path.join(tmp, f"{name}.log"), "w+")
+                for name in ["a_out", "a_err"] + [f"rank{r}" for r in range(DIST_RANKS)]]
+        child = subprocess.Popen(
+            [sys.executable, "-m", "torch.distributed.run", "--standalone",
+             "--nproc_per_node", "1", str(ROOT / "chip_smoke.py"), "dist-cli", a_tmp],
+            stdout=logs[0], stderr=logs[1], text=True)
+        ranks = [subprocess.Popen([sys.executable, str(ROOT / "chip_smoke.py"), "dist-rank",
+                                   str(r), port, b_tmp], stdout=logs[2 + r],
+                                  stderr=subprocess.STDOUT, text=True)
+                 for r in range(DIST_RANKS)]
+        try:
+            # meanwhile here: the run without a mesh (phase 7's way, cuDNN
+            # deterministic, as the launched runs), (c), and (b)'s references
+            torch.backends.cudnn.deterministic = True
+            try:
+                with recorded_epochs() as ref_epochs:
+                    run_cli(cli.main, flagship_flags(os.path.join(tmp, "ref"))
+                            + ["--epochs", "1", "--lr_drop", "1"])
+            finally:
+                torch.backends.cudnn.deterministic = False
+            phase_dist_engine(cfg, build_slot_model(cfg, device="cpu").state_dict())
+            batch = flagship_batch(cfg)
+            refs = {sync_bn: (dist_reference_grads(cfg, batch, sync_bn),
+                              dist_reference_grads(cfg, batch, sync_bn, torch.float64))
+                    for sync_bn in (True, False)}
+            open(os.path.join(a_tmp, "go"), "w").close()
+            child.wait(timeout=DIST_TIMEOUT_S)
+            open(os.path.join(b_tmp, "go"), "w").close()
+            for p in ranks:
+                p.wait(timeout=DIST_TIMEOUT_S)
+        finally:
+            for p in [child] + ranks:
+                if p.poll() is None:
+                    p.kill()
+                    p.wait()
+        texts = []
+        for f in logs:
+            f.seek(0)
+            texts.append(f.read())
+            f.close()
+        out, err, logs = texts[0], texts[1], texts[2:]
+        if child.returncode != 0:
+            fail(f"torch.distributed.run of the train CLI failed:\n{out[-4000:]}\n{err[-4000:]}")
+        found = [json.loads(line)["dist_cli"] for line in out.splitlines()
+                 if line.startswith('{"dist_cli"')]
+        if len(found) != 1:
+            fail(f"the launched CLI printed no result:\n{out[-4000:]}\n{err[-4000:]}")
+        a = found[0]
+        ref = {(mode, e): avg for mode, e, avg, _ in ref_epochs}
+        names = ["ImageNet_use_slot_checkpoint.pth", "ImageNet_use_slot_checkpoint0000.pth"]
+        a_launches = a_bwd = 0
+        for name, run in a["runs"].items():
+            k1 = run["k1"]
+            hist, plain = k1["hist_launches"], k1["launches"] - k1["hist_launches"]
+            if (hist, plain, k1["bwd_launches"]) != (train_steps, val_batches, train_steps):
+                fail(f"{name}: K1 hist / hist-free / backward launches {hist} / {plain} / "
+                     f"{k1['bwd_launches']}, expected {train_steps} / {val_batches} / "
+                     f"{train_steps}")
+            a_launches += k1["launches"]
+            a_bwd += k1["bwd_launches"]
+            if [f for f in names if f not in run["files"]]:
+                fail(f"{name}: checkpoints {run['files']}, expected {names}")
+            worst, gaps = 0.0, {}
+            for mode, e, avg, backend in run["epochs"]:
+                if backend != "nccl":
+                    fail(f"{name}: the {mode} epoch ran with backend {backend}, not nccl")
+                for k, v in avg.items():
+                    if not math.isfinite(v):
+                        fail(f"{name}: {mode} {k} = {v}")
+                    gaps[f"{mode}_{k}"] = abs(v - ref[(mode, e)][k])
+                    if k != "acc":  # the losses; acc moves by a whole image
+                        worst = max(worst, gaps[f"{mode}_{k}"])
+            if worst > DIST_LOSS_BAR:
+                fail(f"{name}: epoch losses {worst:.3g} from the run without a mesh: {gaps}")
+            print(f"phase 20 (a) {name} under torch.distributed.run (world 1, nccl): "
+                  f"{run['seconds']:.1f} s, K1 {hist} / {plain} / {k1['bwd_launches']}, "
+                  f"epoch averages within {worst:.3g} of no mesh "
+                  f"({json.dumps(run['epochs'][0][2])})", flush=True)
+        print(f"phase 20 (a) flagship train img/s at batch 70: {a['rates']['mesh_1']:.1f} "
+              f"with a (1,) mesh over {a['backend']}, {a['rates']['no_mesh']:.1f} without, "
+              f"on {card}", flush=True)
+
+        # (b): two gloo ranks on the one card against one rank's step here
+        for r, (p, log) in enumerate(zip(ranks, logs)):
+            if p.returncode != 0:
+                fail(f"gloo rank {r} failed:\n{log[-4000:]}")
+        results = [json.load(open(os.path.join(b_tmp, f"rank{r}.json")))
+                   for r in range(DIST_RANKS)]
+        b_launches = b_bwd = 0
+        for sync_bn in (True, False):
+            key = str(sync_bn)
+            steps = [res["steps"][key] for res in results]
+            (ref_loss, ref_grads), (_, f64_grads) = refs[sync_bn]
+            got = torch.load(os.path.join(b_tmp, f"grads_{sync_bn}.pt"))
+            worst, by_f64, ratio = held_grads(f"(b) sync_bn={sync_bn}", got, ref_grads,
+                                              f64_grads)
+            loss_gap = abs(steps[0]["loss"] - ref_loss)
+            if loss_gap > DIST_STEP_LOSS_BAR or len({s["loss"] for s in steps}) != 1:
+                fail(f"(b) sync_bn={sync_bn}: losses {[s['loss'] for s in steps]} against "
+                     f"{ref_loss}")
+            if len({s["checksum"] for s in steps}) != 1:
+                fail(f"(b) sync_bn={sync_bn}: the ranks' parameters differ: "
+                     f"{[s['checksum'] for s in steps]}")
+            for r, s in enumerate(steps):
+                if (s["k1"]["hist_launches"], s["k1"]["bwd_launches"]) != (1, 1):
+                    fail(f"(b) rank {r} sync_bn={sync_bn}: K1 counts {s['k1']}")
+                b_launches += s["k1"]["launches"]
+                b_bwd += s["k1"]["bwd_launches"]
+            print(f"phase 20 (b) two gloo ranks on the card, sync_bn={sync_bn}: loss "
+                  f"{steps[0]['loss']:.6f} against one rank's {ref_loss:.6f} ({loss_gap:.3g}), "
+                  f"largest gradient gap {worst[0]:.3g} in norm ({worst[1]}; zero in exact "
+                  f"arithmetic, held to float64: {len(by_f64)}, {by_f64[:3]}, at most "
+                  f"{ratio:.3g} times the f32 step's distance from it), parameters "
+                  f"equal on both ranks (checksum {steps[0]['checksum']:.6f}), K1 hist / "
+                  f"backward 1 / 1 on each rank", flush=True)
+        if [res["backend"] for res in results] != ["gloo"] * DIST_RANKS:
+            fail(f"(b) backends {[res['backend'] for res in results]}")
+        written = sorted(os.listdir(os.path.join(b_tmp, "ckpt")))
+        if (not results[0]["paths"] or results[1]["paths"] != []
+                or written != sorted(results[0]["paths"])):
+            fail(f"(b) checkpoint paths {[r['paths'] for r in results]}, files {written}")
+        print(f"phase 20 (b) only rank 0 wrote the checkpoint ({', '.join(written)}); global train "
+              f"img/s at 2 x 35: {results[0]['img_per_s']:.1f} on {card}", flush=True)
+    seconds = time.monotonic() - t0
+    print(json.dumps({"distributed": dict(
+        train_img_per_s={"mesh_1_nccl": a["rates"]["mesh_1"], "no_mesh": a["rates"]["no_mesh"],
+                         "two_gloo_ranks": results[0]["img_per_s"]},
+        card=card, seconds=seconds)}), flush=True)
+    print(f"phase 20 (distributed) took {seconds:.1f} s", flush=True)
+    return dict(cli_launches=a_launches, cli_bwd_launches=a_bwd, gloo_launches=b_launches,
+                gloo_bwd_launches=b_bwd)
+
+
 def main() -> int:
     if not (ROOT / "scouter_tpu_torch" / "__init__.py").exists():
         fail(f"the scouter_tpu_torch package is not beside {Path(__file__).name}")
@@ -4171,6 +4604,11 @@ def main() -> int:
     entry["factories_hist_launches"], entry["factories_launches"] = (k1["hist_launches"],
                                                                      k1["launches"])
     bwd_entry["factories_launches"] = k1["bwd_launches"]
+    dist = phase_distributed(card)
+    entry["dist_cli_launches"], bwd_entry["dist_cli_launches"] = (dist["cli_launches"],
+                                                                  dist["cli_bwd_launches"])
+    entry["dist_gloo_launches"], bwd_entry["dist_gloo_launches"] = (dist["gloo_launches"],
+                                                                    dist["gloo_bwd_launches"])
     if "PIL" in sys.modules:
         fail("Pillow was imported")
     print(f"chip_smoke finished in {time.monotonic() - t0:.1f} s after the build started",
@@ -4185,4 +4623,8 @@ def main() -> int:
 
 
 if __name__ == "__main__":
+    if sys.argv[1:2] == ["dist-cli"]:
+        sys.exit(dist_cli_child(sys.argv[2]))
+    if sys.argv[1:2] == ["dist-rank"]:
+        sys.exit(dist_rank_child(int(sys.argv[2]), sys.argv[3], sys.argv[4]))
     sys.exit(main())

@@ -19,6 +19,12 @@ Writes go through ``path + ".tmp"`` and ``os.replace``. With an
 :class:`AsyncCheckpointWriter` the host copy of the state is still taken on
 the caller's thread, before the next step changes the parameters in place;
 serialising and writing run on the writer's thread.
+
+On a mesh every rank calls :func:`save_checkpoint`: leaves that ranks hold
+in shards (``parallel/tp.py``) are gathered collectively, and only rank 0
+writes (``scouter_tpu/core/checkpoint.py:41-69, 158-163``). The file is the
+unsharded state a one-process run writes, and loads as one;
+:func:`restore_checkpoint` cuts it back onto the state's layout.
 """
 
 from __future__ import annotations
@@ -33,6 +39,7 @@ from typing import Any, Callable, Dict, Optional, Tuple
 import torch
 
 from .config import ScouterConfig, checkpoint_name
+from .distributed import get_rank
 
 __all__ = ["AsyncCheckpointWriter", "checkpoint_path", "restore_checkpoint",
            "save_checkpoint", "save_on_master"]
@@ -44,8 +51,9 @@ def checkpoint_path(output_dir: str, cfg: ScouterConfig, epoch: Optional[int] = 
 
 def save_on_master(payload: Dict[str, Any], path: str) -> None:
     """``torch.save`` ``payload`` to ``path + ".tmp"``, then ``os.replace``
-    it to ``path`` (the reference's ``save_on_master``; the port runs one
-    process, which is the master)."""
+    it to ``path``, on rank 0 only (the reference's ``save_on_master``)."""
+    if get_rank() != 0:
+        return
     os.makedirs(os.path.dirname(path) or ".", exist_ok=True)
     tmp = path + ".tmp"
     torch.save(payload, tmp)
@@ -107,6 +115,36 @@ def _to_host(tree):
     return tree
 
 
+def _optimizer_moments(opt_sd, shardings, fn):
+    """``opt_sd`` with ``fn(tensor, spec)`` applied to each AdamW moment
+    (``state[i]``, the i-th trainable parameter's), in new dicts."""
+    specs = list(shardings.moments.values())
+    state = {}
+    for i, entry in opt_sd["state"].items():
+        entry = dict(entry)
+        for key in ("exp_avg", "exp_avg_sq"):
+            if key in entry:
+                entry[key] = fn(entry[key], specs[i])
+        state[i] = entry
+    return {**opt_sd, "state": state}
+
+
+def full_state_dicts(state) -> Tuple[Dict[str, Any], Dict[str, Any]]:
+    """The model's and the optimizer's state dicts, unsharded: a collective
+    on every rank where ``state.shardings`` splits a leaf."""
+    model_sd, opt_sd = state.model.state_dict(), state.optimizer.state_dict()
+    sh = state.shardings
+    if sh is None:
+        return model_sd, opt_sd
+    from ..parallel.tp import gather_full
+
+    specs = {**sh.params, **sh.buffers}
+    model_sd = {k: gather_full(v, specs[k], sh.mesh) if any(specs[k]) else v
+                for k, v in model_sd.items()}
+    opt_sd = _optimizer_moments(opt_sd, sh, lambda t, spec: gather_full(t, spec, sh.mesh))
+    return model_sd, opt_sd
+
+
 def save_checkpoint(output_dir: str, cfg: ScouterConfig, state, epoch: int,
                     batch: Optional[int] = None, metric_sums: Optional[Dict[str, Any]] = None,
                     writer: Optional[AsyncCheckpointWriter] = None) -> Tuple[str, ...]:
@@ -117,13 +155,19 @@ def save_checkpoint(output_dir: str, cfg: ScouterConfig, state, epoch: int,
     preemption checkpoint, which overwrites only the latest path.
     ``metric_sums``: ``{"sums": {name: float}, "n": int}``, the interrupted
     epoch's running sums, so that the resumed epoch logs the average over all
-    its batches. ``writer``: serialise and write on its thread."""
+    its batches. ``writer``: serialise and write on its thread.
+
+    Every rank calls it on a mesh (the gathering is collective); rank 0
+    writes, and returns its paths, the others ``()``."""
+    model_sd, opt_sd = full_state_dicts(state)
+    if get_rank() != 0:
+        return tuple()
     paths = [checkpoint_path(output_dir, cfg)]
     if batch is None and ((epoch + 1) % cfg.lr_drop == 0 or (epoch + 1) % 10 == 0):
         paths.append(checkpoint_path(output_dir, cfg, epoch))
     payload = {
-        "model": _to_host(state.model.state_dict()),
-        "optimizer": _to_host(state.optimizer.state_dict()),
+        "model": _to_host(model_sd),
+        "optimizer": _to_host(opt_sd),
         "epoch": int(epoch),
         "step": int(state.step),
         "config": dataclasses.asdict(cfg),
@@ -146,8 +190,9 @@ def save_checkpoint(output_dir: str, cfg: ScouterConfig, state, epoch: int,
     return tuple(paths)
 
 
-def restore_checkpoint(path: str, state, *, optimizer: bool = True, return_batch: bool = False,
-                       return_extras: bool = False) -> Tuple[Any, ...]:
+def restore_checkpoint(path: str, state, *, optimizer: bool = True, shardings=None,
+                       return_batch: bool = False, return_extras: bool = False
+                       ) -> Tuple[Any, ...]:
     """Load a checkpoint into ``state`` (model and, with ``optimizer``, the
     optimizer, in place, on the model's device). Returns (state, epoch,
     config dict); ``return_batch`` appends the preemption cursor (None at an
@@ -157,14 +202,36 @@ def restore_checkpoint(path: str, state, *, optimizer: bool = True, return_batch
     A checkpoint of the reference's train.py reads too: its ``args`` entry
     is an ``argparse.Namespace``, its model's ``slot.to_q.*`` entries are
     dropped (the forward bypasses to_q), and the step, epoch and config it
-    lacks come back as 0, -1 and None."""
+    lacks come back as 0, -1 and None.
+
+    ``shardings`` (``parallel/tp.py::StateShardings``, by default the
+    state's own): the unsharded file is cut onto that layout, each rank
+    taking its blocks."""
     device = next(state.model.parameters()).device
     with torch.serialization.safe_globals([argparse.Namespace]):
         payload = torch.load(path, map_location=device, weights_only=True)
-    state.model.load_state_dict({k: v for k, v in payload["model"].items()
-                                 if not k.startswith("slot.to_q.")})
-    if optimizer:
-        state.optimizer.load_state_dict(payload["optimizer"])
+    model_sd = {k: v for k, v in payload["model"].items() if not k.startswith("slot.to_q.")}
+    opt_sd = payload["optimizer"] if optimizer else None
+    sh = shardings if shardings is not None else state.shardings
+    if sh is not None:
+        from ..parallel.tp import local_slices
+
+        def cut(t, spec):
+            return t[local_slices(t.shape, spec, sh.mesh)].clone() if any(spec) else t
+
+        specs = {**sh.params, **sh.buffers}
+        model_sd = {k: cut(v, specs[k]) if k in specs else v for k, v in model_sd.items()}
+        if opt_sd is not None:
+            opt_sd = _optimizer_moments(opt_sd, sh, cut)
+    state.model.load_state_dict(model_sd)
+    if sh is not None:
+        with torch.no_grad():  # ZeRO-1's optimizer leaves: this rank's slices anew
+            for p, leaf, z in sh.leaves:
+                if z is not None:
+                    spec = tuple("data" if d == z else None for d in range(p.dim()))
+                    leaf.copy_(p[local_slices(p.shape, spec, sh.mesh)])
+    if opt_sd is not None:
+        state.optimizer.load_state_dict(opt_sd)
     state.step = int(payload.get("step", 0))
     out = (state, int(payload.get("epoch", -1)), payload.get("config"))
     if return_batch:

@@ -4,10 +4,11 @@
 Every flag of the JAX package's parser is accepted with the same name and
 default, including the reference's string-typed sweepable flags
 (``num_classes``, ``lambda_value``, ``power``, ``slots_per_class``), which
-:func:`config_from_args` coerces to scalars. ``device`` is ``cuda`` (the
-default) or ``cpu``. Flags of features the port does not have yet (the device
-mesh, ZeRO-1, per-replica BN) parse, and :func:`check_serving_supported` and
-:func:`check_training_supported` refuse them.
+:func:`config_from_args` coerces to scalars, and ``--mesh_shape``, parsed as
+the JAX package parses it. ``device`` is ``cuda`` (the default) or ``cpu``,
+which :func:`check_serving_supported` and :func:`check_training_supported`
+hold to; the mesh flags are the Trainer's (``train/loop.py``), and serving
+ignores them, as the JAX package's does.
 :func:`expand_sweep` is the reference's sweep over comma lists
 (``train.py:207-230``).
 """
@@ -82,8 +83,7 @@ class ScouterConfig:
     start_epoch: int = 0
     resume: bool = False
 
-    # parallelism flags of the JAX package (not ported yet: mesh_shape,
-    # mesh_axes, sync_bn, zero1), bf16 compute, and resilience
+    # parallelism (parallel/), bf16 compute, and resilience
     mesh_shape: Optional[Tuple[int, ...]] = None
     mesh_axes: Tuple[str, ...] = ("data",)
     sync_bn: bool = True
@@ -148,15 +148,17 @@ def get_args_parser() -> argparse.ArgumentParser:
     p.add_argument("--resume", default=False, type=str2bool)
 
     p.add_argument("--mesh_shape", default=None, type=str,
-                   help="comma list, e.g. '8' or '4,2' (data[,model]); not ported yet")
+                   help="comma list, e.g. '8' or '4,2' (data[,model])")
     p.add_argument("--sync_bn", default=True, type=str2bool,
-                   help="False (per-replica BN) is not ported yet")
+                   help="True: global-batch BN stats; False: per-replica BN "
+                        "(reference DDP semantics)")
     p.add_argument("--compute_dtype", default="float32", choices=["float32", "bfloat16"],
                    help="the backbone's compute dtype; parameters stay float32 in training")
     p.add_argument("--slot_head_dtype", default="float32", choices=["float32", "compute"],
                    help="keep the slot head f32 under a bf16 backbone (default) "
                         "or follow compute_dtype")
-    p.add_argument("--zero1", default=False, type=str2bool, help="not ported yet")
+    p.add_argument("--zero1", default=False, type=str2bool,
+                   help="shard optimizer state over the data mesh axis (ZeRO-1)")
     p.add_argument("--preempt_save", default=False, type=str2bool,
                    help="on SIGTERM finish the step, checkpoint with the batch cursor and "
                         "exit; --resume true continues from exactly that step")
@@ -201,26 +203,17 @@ def config_from_args(ns: argparse.Namespace) -> ScouterConfig:
     return ScouterConfig(**kw)
 
 
-# flag -> its default; any other value names a feature the port lacks
-_NOT_PORTED = {"mesh_shape": None, "mesh_axes": ("data",), "sync_bn": True, "zero1": False}
-
-
 def check_serving_supported(cfg: ScouterConfig) -> None:
-    """Raise for a device the port does not know and for flags of features
-    it has not ported yet."""
+    """Raise for a device the port does not know."""
     if cfg.device not in DEVICES:
         raise ValueError(f"device must be one of {DEVICES}, got {cfg.device!r}")
-    for name, default in _NOT_PORTED.items():
-        if getattr(cfg, name) != default:
-            raise NotImplementedError(
-                f"--{name}={getattr(cfg, name)!r} is not ported to the PyTorch "
-                "package yet (see ROADMAP.md)")
 
 
 def check_training_supported(cfg: ScouterConfig) -> None:
-    """Raise for a device the port does not know and for flags of training
-    features it has not ported yet: the device mesh, per-replica BN and
-    ZeRO-1. A bf16 slot head (``--slot_head_dtype compute`` under
+    """Raise for a device the port does not know. The mesh flags are checked
+    where the JAX package checks them: the mesh against the world in
+    ``parallel/mesh.py::make_mesh``, TP and ZeRO-1 against ``sync_bn`` in
+    the Trainer. A bf16 slot head (``--slot_head_dtype compute`` under
     ``--compute_dtype bfloat16``) trains; ``float32`` stays the default, for
     the JAX package's reason (``scouter_tpu/core/config.py:92-97``)."""
     check_serving_supported(cfg)

@@ -1,5 +1,5 @@
-"""Host data pipeline: shuffling, batching, device transfer and prefetch
-(counterpart of ``scouter_tpu/data/pipeline.py``, one process).
+"""Host data pipeline: shuffling, batching, host sharding, device transfer
+and prefetch (counterpart of ``scouter_tpu/data/pipeline.py``).
 
 Replaces the reference's DataLoader stack (``train.py:152-160``: sampler,
 BatchSampler(drop_last=True), DataLoaderX thread prefetch):
@@ -27,6 +27,16 @@ BatchSampler(drop_last=True), DataLoaderX thread prefetch):
   the allocator does not hand its memory back to the producer's too soon.
   Which batches an epoch holds, and in which order, does not depend on the
   thread: every batch is a function of (epoch, index) alone.
+- several processes (``shard_by_host``, the JAX package's multi-process
+  rules, ``pipeline.py:71-91, 100-145``): each data rank (the mesh's
+  ``data`` coordinate, or the process's rank without a mesh) reads a
+  contiguous shard (``parallel/mesh.py::host_shard_bounds``, the
+  DistributedSampler's place); a train epoch takes this rank's slice of one
+  global permutation, truncated to the smallest shard's full batches, and
+  val shards are padded with fully masked batches, so that every rank runs
+  the same number of steps. ``--batch_size`` is per process (the global
+  batch is the data ranks times it), and with ``--aug`` a rank's draws are
+  those its rows would get in the global batch.
 """
 
 from __future__ import annotations
@@ -38,7 +48,9 @@ from typing import Dict, Iterator, Optional
 import numpy as np
 import torch
 
+from ..core import distributed
 from ..core.device import resolve_device
+from ..parallel.mesh import host_shard_bounds
 from .native_stager import gather_items
 from .transforms import preprocess_batch
 
@@ -65,8 +77,8 @@ class Loader:
     ``label`` (B,) int64 and ``mask`` (B,) float32 on ``device``."""
 
     def __init__(self, dataset: ArrayDataset, batch_size: int, *, img_size: int,
-                 train: bool, aug: bool = False, seed: int = 0, prefetch: int = 2,
-                 device="cuda"):
+                 train: bool, aug: bool = False, seed: int = 0, shard_by_host: bool = True,
+                 mesh=None, prefetch: int = 2, device="cuda"):
         if prefetch < 1:
             raise ValueError(f"prefetch must be at least 1, got {prefetch}")
         self.ds = dataset
@@ -77,10 +89,29 @@ class Loader:
         self.aug = aug
         self.seed = seed
         self.device = resolve_device(device)
-        self._indices = np.arange(len(dataset))
+        # this process's data rank and the number of data ranks
+        if mesh is not None:
+            self._shard = (mesh.coords().get("data", 0), mesh.size("data"))
+        else:
+            self._shard = (distributed.get_rank(), distributed.get_world_size())
+        pi, pc = self._shard if shard_by_host else (0, 1)
+        start, stop = host_shard_bounds(len(dataset), process_index=pi, process_count=pc)
+        self._indices = np.arange(start, stop)
+        self._shard_bounds = (start, stop)
+        self._global_n = len(dataset)
+        self._multi = pc > 1
+        if self._multi:
+            # every rank runs as many steps, or a collective of the step waits
+            # forever: train truncates to the smallest shard's full batches,
+            # val pads up to the largest shard's
+            base, rem = divmod(len(dataset), pc)
+            self._train_steps = base // batch_size
+            self._val_steps = -(-(base + (1 if rem else 0)) // batch_size)
         self._stream = None  # the producer's CUDA stream, made at the first epoch
 
     def steps_per_epoch(self) -> int:
+        if self._multi:
+            return self._train_steps if self.train else self._val_steps
         n = len(self._indices)
         return n // self.batch_size if self.train else -(-n // self.batch_size)
 
@@ -88,8 +119,14 @@ class Loader:
         idx = self._indices
         if self.train:
             rng = np.random.RandomState((self.seed * 100003 + epoch) % (2**31))
-            idx = idx.copy()
-            rng.shuffle(idx)
+            if self._multi:
+                # one global permutation a epoch, the same on every rank; each
+                # takes its slice (DistributedSampler, train.py:152-154)
+                start, stop = self._shard_bounds
+                idx = rng.permutation(self._global_n)[start:stop]
+            else:
+                idx = idx.copy()
+                rng.shuffle(idx)
             idx = idx[: (len(idx) // self.batch_size) * self.batch_size]
         return idx
 
@@ -129,9 +166,11 @@ class Loader:
             if pin and t.device.type == "cpu":
                 t = t.pin_memory()
             out[key] = t.to(self.device, non_blocking=pin)  # no copy if already there
+        rank, ranks = self._shard if self._multi else (0, 1)
         x = preprocess_batch(out["image"], dataset=self.ds.dataset_name,
                              img_size=self.img_size, train=self.train, aug=self.aug,
-                             generator=self._aug_generator(epoch, batch_index))
+                             generator=self._aug_generator(epoch, batch_index),
+                             rows=(rank * self.batch_size, ranks * self.batch_size))
         out["image"] = x.permute(0, 3, 1, 2).contiguous()
         return out
 

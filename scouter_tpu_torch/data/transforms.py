@@ -149,19 +149,26 @@ def draw_aug_params(batch: int, generator: torch.Generator):
     return gates, torch.stack([sx, sy, tx, ty, rot, sigma], dim=1), order
 
 
-def augment_batch(images: torch.Tensor, generator: torch.Generator) -> torch.Tensor:
-    """Per-image augmentation of (B, H, W, C) float [0, 255] images."""
-    return _apply_augs(images, *draw_aug_params(images.shape[0], generator))
+def augment_batch(images: torch.Tensor, generator: torch.Generator,
+                  rows: Optional[Tuple[int, int]] = None) -> torch.Tensor:
+    """Per-image augmentation of (B, H, W, C) float [0, 255] images.
+    ``rows=(start, total)``: the images are rows start..start+B of a batch
+    of ``total``, and take those rows' draws."""
+    start, total = rows if rows is not None else (0, images.shape[0])
+    drawn = draw_aug_params(total, generator)
+    return _apply_augs(images, *(t[start:start + images.shape[0]] for t in drawn))
 
 
 def preprocess_batch(images_u8: torch.Tensor, *, dataset: str, img_size: int,
                      train: bool = False, aug: bool = False,
-                     generator: Optional[torch.Generator] = None) -> torch.Tensor:
+                     generator: Optional[torch.Generator] = None,
+                     rows: Optional[Tuple[int, int]] = None) -> torch.Tensor:
     """uint8 (B, H, W, C) -> normalised float32 (B, img_size, img_size, C);
-    augmented when ``train and aug`` and a ``generator`` is given."""
+    augmented when ``train and aug`` and a ``generator`` is given (``rows``:
+    see :func:`augment_batch`)."""
     x = resize_bilinear(images_u8, img_size)
     if train and aug and generator is not None:
-        x = augment_batch(x, generator)
+        x = augment_batch(x, generator, rows)
     mean, std = NORMALIZE_VALUES[dataset]
     mean = torch.tensor(mean, dtype=torch.float32, device=x.device) * 255.0
     std = torch.tensor(std, dtype=torch.float32, device=x.device) * 255.0

@@ -140,7 +140,13 @@ def build_slot_model(cfg, fused_slot: bool = False, device="cuda",
       (``ops.slot_kernel``); ``generator`` seeds the init (default: cfg.seed)
     - ``backbone_kwargs`` go to the backbone's factory as they are (e.g.
       ``output_stride``, ``s2d_stem``, ``drop_rate``)
+    - ``device="meta"`` builds the structure alone, with no init and no
+      memory (to plan a layout, ``parallel/tp.py``)
     """
+    if str(device) == "meta":
+        with torch.device("meta"):
+            return build_slot_model(cfg, fused_slot, "cpu", generator, compute_dtype,
+                                    backbone_kwargs)
     dev = resolve_device(device)
     mnist = cfg.dataset == "MNIST"
     backbone = create_model(cfg.model, num_classes=0 if cfg.use_slot else cfg.num_classes,
@@ -161,5 +167,7 @@ def build_slot_model(cfg, fused_slot: bool = False, device="cuda",
         fused_slot=fused_slot,
         head_dtype=compute_dtype if head_compute else None,
     )
+    if next(model.parameters()).is_meta:
+        return model.eval()
     init_weights(model, generator or torch.Generator().manual_seed(cfg.seed))
     return model.eval().to(dev)

@@ -33,7 +33,9 @@ runs the substituted convs.
 
 from __future__ import annotations
 
+import contextlib
 import math
+import threading
 from typing import Optional
 
 import torch
@@ -56,6 +58,7 @@ __all__ = [
     "avg_pool_include_pad",
     "avg_pool_same_zero_pad",
     "batch_norm",
+    "batch_norm_group",
     "blur_pool",
     "conv2d",
     "drop_path",
@@ -192,6 +195,23 @@ def set_conv_policy(model: nn.Module, policy) -> int:
     return count
 
 
+_BN_GROUP = threading.local()
+
+
+@contextlib.contextmanager
+def batch_norm_group(group):
+    """Within: every ``BatchNorm2d`` in train mode takes its batch statistics
+    over the ranks of ``group`` (a ``torch.distributed`` process group; None
+    keeps them local), as flax's BatchNorm does over a sharded global batch.
+    A train step sets it around its forward (``train/steps.py``)."""
+    before = getattr(_BN_GROUP, "group", None)
+    _BN_GROUP.group = group
+    try:
+        yield
+    finally:
+        _BN_GROUP.group = before
+
+
 class BatchNorm2d(nn.BatchNorm2d):
     """``nn.BatchNorm2d`` whose train mode updates the running variance with
     the biased batch variance, as flax's BatchNorm in the JAX package does
@@ -211,6 +231,13 @@ class BatchNorm2d(nn.BatchNorm2d):
     normalised by ``F.batch_norm`` with the f32 scale, bias and statistics:
     the statistics and the arithmetic are f32, the output is in
     ``compute_dtype``.
+
+    Under :func:`batch_norm_group` the batch statistics are the group's
+    (:meth:`_global`): the per-channel count and sum, then the sum of squared
+    deviations from the global mean, cross ranks through collectives whose
+    gradient is summed over the group, so the gradient flows through the
+    global mean and variance as it does in one process over the whole batch.
+    The running variance takes the biased global variance.
     """
 
     def __init__(self, *args, compute_dtype=None, **kw):
@@ -225,6 +252,9 @@ class BatchNorm2d(nn.BatchNorm2d):
             x = x.to(self.compute_dtype)
         if not self.training:
             return super().forward(x)
+        group = getattr(_BN_GROUP, "group", None)
+        if group is not None:
+            return self._global(x, group)
         c = x.shape[1]
         n = x.numel() // c
         if n == 1:
@@ -251,6 +281,29 @@ class BatchNorm2d(nn.BatchNorm2d):
             m = self.momentum
             self.running_mean.mul_(1.0 - m).add_(mean, alpha=m)
             self.running_var.mul_(1.0 - m)
+            self.num_batches_tracked.add_(1)
+        return y.to(x.dtype)
+
+    def _global(self, x: torch.Tensor, group) -> torch.Tensor:
+        """Train mode over the group's global batch, in f32. A global count
+        of one value a channel is ``_single_value``'s case: the deviation and
+        so the variance are 0, the output is the bias."""
+        from ..parallel.mesh import all_reduce_sum
+
+        xf = x.float()
+        c = x.shape[1]
+        count = torch.full((1,), x.numel() // c, dtype=torch.float32, device=x.device)
+        sums = all_reduce_sum(torch.cat([xf.sum(dim=(0, 2, 3)), count]), group)
+        n = sums[c]
+        mean = sums[:c] / n
+        dev = xf - mean[None, :, None, None]
+        var = all_reduce_sum(dev.square().sum(dim=(0, 2, 3)), group) / n
+        y = (dev * torch.rsqrt(var + self.eps)[None, :, None, None]
+             * self.weight[None, :, None, None] + self.bias[None, :, None, None])
+        with torch.no_grad():
+            m = self.momentum
+            self.running_mean.mul_(1.0 - m).add_(mean.detach(), alpha=m)
+            self.running_var.mul_(1.0 - m).add_(var.detach(), alpha=m)
             self.num_batches_tracked.add_(1)
         return y.to(x.dtype)
 

@@ -14,6 +14,13 @@ while the dispatcher forms the next batch. At most ``max_inflight`` batches
 are dispatched and not yet fetched: the dispatcher takes a slot before it
 dispatches and the resolver gives it back after the fetch.
 
+With ``mesh=`` (``parallel/mesh.py::make_mesh``) each bucket batch is
+split over the mesh's ``data`` devices in this process, each block served on
+its device, and the rows joined again: what the unmeshed engine returns
+(``scouter_tpu/serve/engine.py:54-95``). Every bucket must divide the mesh's
+device count. A mesh of the world's ranks serves on this process's own
+device; on one card the mesh is that card.
+
 Two races of the JAX engine are not carried over: ``submit``'s close-race
 path fails only requests still in the request queue (it never touches the
 resolvers' queue, so it cannot eat their shutdown sentinels), and the
@@ -42,6 +49,24 @@ def _host(v) -> np.ndarray:
     return v.cpu().numpy() if torch.is_tensor(v) else np.asarray(v)
 
 
+def _split_over(fns):
+    """A serving function that runs block i of a batch's rows through
+    ``fns[i]`` and joins the outputs row-wise (on the first block's device)."""
+    n = len(fns)
+
+    def join(parts):
+        if torch.is_tensor(parts[0]):
+            return torch.cat([p.to(parts[0].device) for p in parts])
+        return np.concatenate(parts)
+
+    def serve(images_u8):
+        rows = images_u8.shape[0] // n
+        outs = [fn(images_u8[i * rows:(i + 1) * rows]) for i, fn in enumerate(fns)]
+        return outs[0] if n == 1 else {k: join([o[k] for o in outs]) for k in outs[0]}
+
+    return serve
+
+
 class InferenceEngine:
     def __init__(
         self,
@@ -56,8 +81,12 @@ class InferenceEngine:
         quant=None,
         resolvers: int = 4,
         device="cuda",
+        mesh=None,
     ):
-        """max_inflight: batches dispatched and not yet fetched before the
+        """mesh: serve data-parallel over its ``data`` axis (see the module
+        docstring); every bucket size must divide the mesh's device count.
+
+        max_inflight: batches dispatched and not yet fetched before the
         dispatcher blocks (pipelining depth; 1 = fully serial).
         quant: a ``serve/quant.py`` policy name ('int8'), installed on the
         served model, so the dispatcher thread serves it.
@@ -69,9 +98,22 @@ class InferenceEngine:
         if not self.buckets or self.buckets[0] < 1:
             raise ValueError("buckets must be positive ints")
         self.max_wait_s = max_wait_ms / 1e3
-        self._fn = make_serving_fn(cfg, state_dict, compute_dtype=compute_dtype,
-                                   include_maps=include_maps, quant=quant, device=device)
         self.device = resolve_device(device)
+        if mesh is None:
+            self._fn = make_serving_fn(cfg, state_dict, compute_dtype=compute_dtype,
+                                       include_maps=include_maps, quant=quant, device=device)
+        else:
+            n = int(mesh.devices.size)
+            bad = [b for b in self.buckets if b % n]
+            if bad:
+                raise ValueError(f"buckets {bad} not divisible by the {n}-device mesh")
+            devices, fns = self._data_devices(mesh), {}
+            for dev in devices:
+                if dev not in fns:
+                    fns[dev] = make_serving_fn(cfg, state_dict, compute_dtype=compute_dtype,
+                                               include_maps=include_maps, quant=quant,
+                                               device=dev)
+            self._fn = _split_over([fns[d] for d in devices])
         self._queue: "queue.Queue" = queue.Queue()
         # bucket_fill["b/n"] counts batches that ran bucket b carrying n live images
         self._stats = {"requests": 0, "batches": 0, "padded": 0, "bucket_fill": {}}
@@ -91,6 +133,22 @@ class InferenceEngine:
             t.start()
         self._thread = threading.Thread(target=self._dispatch_loop, daemon=True)
         self._thread.start()
+
+    def _data_devices(self, mesh):
+        """The device of each ``data`` index (the ``model`` axis replicates)."""
+        from ..core.distributed import get_rank
+
+        line = mesh.devices.reshape(mesh.size("data"), -1)[:, 0]
+        out = []
+        for d in line:
+            if isinstance(d, (int, np.integer)):
+                if int(d) != get_rank():
+                    raise ValueError(f"rank {int(d)} of the mesh is another process: an "
+                                     "engine serves on the devices of its own process")
+                out.append(self.device)
+            else:
+                out.append(resolve_device(d))
+        return out
 
     # -- public API ---------------------------------------------------------
 

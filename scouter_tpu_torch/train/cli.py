@@ -8,6 +8,13 @@ by default. A comma list in num_classes / lambda_value / power /
 slots_per_class runs a grid, each cell trained ``iterated_evaluation_num``
 times (``param_translation``, ``train.py:207-230``).
 
+Under ``python -m torch.distributed.run --nproc_per_node N -m
+scouter_tpu_torch.train.cli ... --mesh_shape N`` one process runs on each
+device: :func:`main` first starts the process group from the launcher's
+environment (``core/distributed.py::init_distributed_mode``: NCCL on the
+card, gloo with ``--device cpu``), and destroys it at the end. Without the
+launcher it trains in this one process.
+
 ``--thop`` (``train.py:91-137``) prints the parameter count (M) and the
 GFLOPs of one forward at (1, C, 260, 260), counted by
 ``torch.utils.flop_counter.FlopCounterMode`` in place of the thop library,
@@ -21,6 +28,7 @@ import pathlib
 from typing import Dict, List
 
 from ..core.config import expand_sweep, get_args_parser
+from ..core.distributed import init_distributed_mode, is_dist_avail_and_initialized
 from .loop import run_training
 
 __all__ = ["main", "model_cost", "param_translation"]
@@ -71,9 +79,18 @@ def main(argv=None):
         "SCOUTER training and evaluation script (PyTorch/CUDA port)",
         parents=[get_args_parser()])
     ns = parser.parse_args(argv)
-    if ns.output_dir:
-        pathlib.Path(ns.output_dir).mkdir(parents=True, exist_ok=True)
-    return param_translation(ns)
+    started = not is_dist_avail_and_initialized()
+    init_distributed_mode(device="cpu" if ns.device == "cpu" else None)
+    started = started and is_dist_avail_and_initialized()
+    try:
+        if ns.output_dir:
+            pathlib.Path(ns.output_dir).mkdir(parents=True, exist_ok=True)
+        return param_translation(ns)
+    finally:
+        if started:
+            import torch.distributed as dist
+
+            dist.destroy_process_group()
 
 
 if __name__ == "__main__":

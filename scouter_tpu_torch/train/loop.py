@@ -11,9 +11,17 @@ reference's ``train.py:82-204`` and ``engine.py``).
   synchronously, and ``fit`` returns; ``--resume`` redoes that epoch from its
   cursor, consuming the batches before it without stepping, so the run ends
   with the parameters an uninterrupted run ends with, bit for bit (the
-  JAX package's ``loop.py:113-131, 252-380``, one process: no consensus
-  poll). ``--ckpt_async`` writes epoch-end checkpoints on a background
-  thread (``core.checkpoint.AsyncCheckpointWriter``).
+  JAX package's ``loop.py:113-131, 252-380``). ``--ckpt_async`` writes
+  epoch-end checkpoints on a background thread
+  (``core.checkpoint.AsyncCheckpointWriter``).
+- on a mesh (``--mesh_shape``, ``parallel/``; one process a device under
+  ``python -m torch.distributed.run``) each rank loads its data shard, the
+  steps average gradients and report the global batch's metrics, so the
+  epoch averages are equal on every rank; ``--mesh_shape D,M`` or
+  ``--zero1 true`` shards the state (``_place_state``), which needs
+  ``--sync_bn true``; checkpoints are gathered on every rank and written by
+  rank 0; a preemption stops every rank at the same batch
+  (``_stop_consensus``).
 
 The model is built with ``fused_slot=True``: under grad the slot head runs
 K1 with hist and its checkpointed gradient, in eval the hist-free build. The
@@ -40,14 +48,18 @@ import time
 from typing import Dict, List, Tuple
 
 import torch
+import torch.distributed as dist
 
 from ..core.checkpoint import (AsyncCheckpointWriter, checkpoint_path, restore_checkpoint,
                                save_checkpoint)
 from ..core.config import ScouterConfig, check_training_supported, compute_dtype
 from ..core.device import resolve_device
+from ..core.distributed import collective_device, get_world_size
 from ..data import Loader, select_dataset
 from ..models import (build_slot_model, merge_variables, prepare_pretrained_state_dict,
                       strip_prefix)
+from ..parallel.mesh import make_mesh
+from ..parallel.tp import gather_full, shard_train_state, tp_enabled
 from .preempt import PreemptionGuard
 from .state import create_train_state, step_lr
 from .steps import make_eval_step, make_train_step, set_learning_rate
@@ -83,23 +95,31 @@ class MetricLog:
 class Trainer:
     """Owns the model, train state, steps and loaders of one config."""
 
-    def __init__(self, cfg: ScouterConfig, datasets=None):
+    def __init__(self, cfg: ScouterConfig, mesh=None, datasets=None):
         check_training_supported(cfg)
         self.cfg = cfg
         self.device = resolve_device(cfg.device)
+        self.mesh = mesh if mesh is not None else make_mesh(cfg.mesh_shape, cfg.mesh_axes)
         self.model = build_slot_model(cfg, fused_slot=True, device=self.device,
                                       compute_dtype=compute_dtype(cfg))
         if datasets is None:
             datasets = (select_dataset(cfg, train=True), select_dataset(cfg, train=False))
         ds_train, ds_val = datasets
         self.loader_train = Loader(ds_train, cfg.batch_size, img_size=cfg.img_size,
-                                   train=True, aug=cfg.aug, seed=cfg.seed, device=self.device)
+                                   train=True, aug=cfg.aug, seed=cfg.seed, mesh=self.mesh,
+                                   device=self.device)
         self.loader_val = Loader(ds_val, cfg.batch_size, img_size=cfg.img_size,
-                                 train=False, seed=cfg.seed, device=self.device)
+                                 train=False, seed=cfg.seed, mesh=self.mesh, device=self.device)
+        if get_world_size() > 1:
+            # one start for every rank: rank 0's weights (the init is seeded
+            # alike everywhere; this makes it so whatever the device)
+            with torch.no_grad():
+                for t in self.model.state_dict().values():
+                    dist.broadcast(t, src=0)
         self.state = create_train_state(self.model, cfg.lr, freeze_layers=cfg.freeze_layers,
                                         pre_trained=cfg.pre_trained)
-        self.train_step = make_train_step(float(cfg.lambda_value))
-        self.eval_step = make_eval_step(float(cfg.lambda_value))
+        self._place_state()
+        self.eval_step = make_eval_step(float(cfg.lambda_value), mesh=self.mesh)
         self.log = MetricLog()
         self.start_epoch = cfg.start_epoch
         self._skip_batches = 0  # a mid-epoch resume's cursor
@@ -107,18 +127,54 @@ class Trainer:
         self._preempted_at = None  # (epoch, train batches done) once the guard fired
         self._preempt_sums = None  # the interrupted epoch's {"sums", "n"}
         self._preempt_exit = False  # the guard fired during val: exit after the epoch
+        # the preemption poll's interval in batches on several processes
+        # (_stop_consensus); a test of exact stop indices on a tiny epoch sets 1
+        self.consensus_every = 8
         self.guard = PreemptionGuard().install() if cfg.preempt_save else None
         self.ckpt_writer = AsyncCheckpointWriter() if cfg.ckpt_async else None
 
+    def _place_state(self) -> None:
+        """Tensor parallelism / ZeRO-1 (``parallel/tp.py``): with a ``model``
+        axis or ``zero1`` the state keeps this rank's shards, and the train
+        step is built for that layout; ``state_shardings`` is None where the
+        state is whole."""
+        self.state_shardings = None
+        if tp_enabled(self.mesh) or self.cfg.zero1:
+            if not self.cfg.sync_bn:
+                raise ValueError(
+                    "tensor parallelism / zero1 requires sync_bn=True (the "
+                    "per-replica-BN shard_map path is data-axis-only)")
+            self.state, self.state_shardings = shard_train_state(
+                self.state, self.mesh, zero1=self.cfg.zero1)
+        self.train_step = make_train_step(float(self.cfg.lambda_value), mesh=self.mesh,
+                                          sync_bn=self.cfg.sync_bn,
+                                          state_shardings=self.state_shardings)
+
+    def _unshard(self) -> None:
+        """Gather the model's sharded leaves back into whole tensors (a
+        collective), before new weights are loaded over them."""
+        sh = self.state.shardings
+        if sh is None:
+            return
+        named = {**dict(self.model.named_parameters()), **dict(self.model.named_buffers())}
+        specs = {**sh.params, **sh.buffers}
+        with torch.no_grad():
+            for name in sh.gathered_names():
+                named[name].data = gather_full(named[name].data, specs[name], self.mesh)
+        self.state.shardings = None
+
     def _reset_optimizer(self) -> None:
-        """Fresh optimizer state after new weights (``load_variables`` parity)."""
+        """Fresh optimizer state after new weights (``load_variables`` parity),
+        re-placed on the mesh's layout."""
         self.state = create_train_state(self.model, self.cfg.lr,
                                         freeze_layers=self.cfg.freeze_layers,
                                         pre_trained=self.cfg.pre_trained)
+        self._place_state()
 
     def _load_backbone(self, sd: Dict[str, torch.Tensor]) -> None:
         """Overlay backbone weights (reference names, no ``backbone.`` prefix);
         entries the backbone lacks or that are absent keep their init."""
+        self._unshard()
         self.model.backbone.load_state_dict(
             merge_variables(self.model.backbone.state_dict(), sd))
         self._reset_optimizer()
@@ -180,8 +236,10 @@ class Trainer:
     def maybe_resume(self) -> None:
         if self.cfg.resume:
             path = checkpoint_path(self.cfg.output_dir, self.cfg)
+            # a sharded state is cut back onto its layout
             self.state, epoch, _, batch, extras = restore_checkpoint(
-                path, self.state, return_batch=True, return_extras=True)
+                path, self.state, shardings=self.state_shardings, return_batch=True,
+                return_extras=True)
             if batch is not None:
                 # a preemption checkpoint: redo epoch `epoch` from its cursor
                 self.start_epoch = epoch
@@ -191,6 +249,24 @@ class Trainer:
             else:
                 self.start_epoch = epoch + 1
                 print(f"resumed from {path} at epoch {epoch}")
+
+    def _stop_consensus(self, bi: int) -> bool:
+        """Whether to stop after batch ``bi``, the same answer on every rank.
+
+        A SIGTERM reaches each rank at its own time; a rank that stopped alone
+        would wait in the checkpoint's gathering while the others wait in the
+        step's collectives. So the ranks max-reduce their guards' flags and
+        all stop at the same batch, and checkpoint the same cursor. They poll
+        every ``consensus_every`` batches (every rank at the same ``bi``), not
+        every batch; one process answers its own flag at once."""
+        local = self.guard is not None and self.guard.triggered
+        if self.guard is None or get_world_size() == 1:
+            return local
+        if (bi + 1) % self.consensus_every:
+            return False
+        flag = torch.tensor([int(local)], dtype=torch.int32, device=collective_device())
+        dist.all_reduce(flag, op=dist.ReduceOp.MAX)
+        return bool(flag.item())
 
     def run_epoch(self, epoch: int, mode: str) -> Dict[str, float]:
         loader = self.loader_train if mode == "train" else self.loader_val
@@ -216,7 +292,7 @@ class Trainer:
             stacked = torch.stack([metrics[k] for k in _METRICS])
             sums = stacked if sums is None else sums + stacked
             n += 1
-            if self.guard is not None and self.guard.triggered:
+            if self.guard is not None and self._stop_consensus(bi):
                 if mode == "train":
                     self._preempted_at = (epoch, bi + 1)
                     self._preempt_sums = {"sums": dict(zip(_METRICS, sums.tolist())), "n": n}

@@ -17,18 +17,27 @@ top-level module name contains none of
 The slot head (conv1x1, slot) is always trainable. BatchNorm running stats
 are buffers, not parameters: frozen layers still update them in train mode,
 as in the JAX package and the reference.
+
+On a mesh (``parallel/tp.py::shard_train_state``) the state holds this
+rank's shards and :func:`optimizer_step` averages the gradients over the
+``data`` group before AdamW steps; under ZeRO-1 each rank reduce-scatters
+them to its ``data`` slice, steps AdamW on that slice with its slices of the
+moments, and all-gathers the updated slices. AdamW is elementwise, so the
+numbers are the unsharded step's.
 """
 
 from __future__ import annotations
 
 import dataclasses
-from typing import Dict, Iterable
+from typing import Any, Dict, Iterable, Optional
 
 import torch
+import torch.distributed as dist
 from torch import nn
+from torch._utils import _flatten_dense_tensors, _unflatten_dense_tensors
 
 __all__ = ["TrainState", "create_train_state", "make_freeze_labels", "make_optimizer",
-           "restore_inference_state", "step_lr", "sync_batch_stats"]
+           "optimizer_step", "restore_inference_state", "step_lr", "sync_batch_stats"]
 
 
 @dataclasses.dataclass
@@ -39,6 +48,9 @@ class TrainState:
     model: nn.Module
     optimizer: torch.optim.Optimizer
     step: int = 0
+    # this rank's layout on a mesh (parallel/tp.py::StateShardings); None
+    # where the state is whole
+    shardings: Optional[Any] = None
 
 
 def _kept_layer_names(freeze_layers: int):
@@ -121,9 +133,77 @@ def restore_inference_state(cfg, *, fused_slot: bool = True, require: bool = Fal
     return model, state, path
 
 
-def sync_batch_stats(state: TrainState, mesh=None) -> TrainState:
-    """Cross-replica BN statistics averaging: a no-op for one process, the
-    only layout the port trains in so far."""
-    del mesh
-    return state
+def _all_reduce_mean(tensors, group, n: int) -> None:
+    """Average ``tensors`` in place over ``group`` (n ranks), in one flat
+    collective."""
+    flat = _flatten_dense_tensors(tensors)
+    dist.all_reduce(flat, group=group)
+    flat.div_(float(n))
+    for t, r in zip(tensors, _unflatten_dense_tensors(flat, tensors)):
+        t.copy_(r)
 
+
+_reduce_scatter = getattr(dist, "reduce_scatter_single", None) or dist.reduce_scatter_tensor
+
+
+def optimizer_step(state: TrainState, data_group=None, dp: int = 1,
+                   clip_grad: Optional[float] = None) -> None:
+    """Average the gradients over ``data_group`` (``dp`` ranks), clamp them to
+    [-clip_grad, clip_grad] if asked, and step the optimizer. Under ZeRO-1
+    (``state.shardings.leaves``) a parameter with a ``data`` dim is
+    reduce-scattered to this rank's slice, stepped there and all-gathered."""
+    leaves = state.shardings.leaves if state.shardings is not None else []
+    if not leaves:
+        params = [p for g in state.optimizer.param_groups for p in g["params"]
+                  if p.grad is not None]
+        if data_group is not None and params:
+            _all_reduce_mean([p.grad for p in params], data_group, dp)
+        _clamp([p.grad for p in params], clip_grad)
+        state.optimizer.step()
+        return
+    whole = [p for p, _, z in leaves if z is None and p.grad is not None]
+    if data_group is not None and whole:
+        _all_reduce_mean([p.grad for p in whole], data_group, dp)
+    for p, leaf, z in leaves:
+        if z is None:
+            continue
+        if p.grad is None:
+            leaf.grad = None
+            continue
+        g = p.grad.movedim(z, 0).contiguous()
+        out = torch.empty((g.shape[0] // dp,) + g.shape[1:], dtype=g.dtype, device=g.device)
+        _reduce_scatter(out, g, group=data_group)
+        leaf.grad = out.div_(float(dp)).movedim(0, z).contiguous()
+    _clamp([leaf.grad for _, leaf, _ in leaves if leaf.grad is not None], clip_grad)
+    state.optimizer.step()
+    with torch.no_grad():
+        for p, leaf, z in leaves:
+            if z is not None:
+                parts = [torch.empty_like(leaf) for _ in range(dp)]
+                dist.all_gather(parts, leaf.contiguous(), group=data_group)
+                p.copy_(torch.cat(parts, z))
+
+
+def _clamp(grads, clip_grad: Optional[float]) -> None:
+    if clip_grad is not None:
+        for g in grads:
+            g.clamp_(-clip_grad, clip_grad)
+
+
+def sync_batch_stats(state: TrainState, mesh=None) -> TrainState:
+    """Average the BatchNorm statistics (the model's floating buffers) over
+    the replicas (timm's ``distribute_bn`` with reduce, the JAX package's
+    ``train/state.py:133-154``): over the mesh's ``data`` group, the ranks
+    that hold the same shards, or over the world without a mesh. A world of
+    one process is left as it is."""
+    from ..core.distributed import get_world_size
+
+    if mesh is not None:
+        group, n = mesh.group("data"), mesh.size("data")
+    else:
+        group, n = (dist.group.WORLD if get_world_size() > 1 else None), get_world_size()
+    bufs = [b for b in state.model.buffers() if b.is_floating_point()]
+    if group is not None and bufs:
+        with torch.no_grad():
+            _all_reduce_mean(bufs, group, n)
+    return state

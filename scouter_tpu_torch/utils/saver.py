@@ -6,7 +6,7 @@ files.
 A checkpoint is a payload dict written through
 ``core/checkpoint.py::save_on_master`` (``torch.save`` to a temporary file,
 then a rename), with the port's ``.pth`` extension. Files are written and
-removed by rank 0 only: rank 0 unless ``torch.distributed`` is initialised.
+removed by rank 0 only (``core/distributed.py::get_rank``).
 """
 
 from __future__ import annotations
@@ -16,16 +16,10 @@ import operator
 import os
 from typing import Any, Dict, List, Optional, Tuple
 
-import torch
-
 from ..core.checkpoint import save_on_master
+from ..core.distributed import get_rank
 
 __all__ = ["CheckpointSaver"]
-
-
-def _rank() -> int:
-    dist = torch.distributed
-    return dist.get_rank() if dist.is_available() and dist.is_initialized() else 0
 
 
 class CheckpointSaver:
@@ -54,16 +48,16 @@ class CheckpointSaver:
                 or self.cmp(metric, worst)):
             if len(self.checkpoint_files) >= self.max_history:
                 path, _ = self.checkpoint_files.pop()
-                if _rank() == 0 and os.path.exists(path):
+                if get_rank() == 0 and os.path.exists(path):
                     os.remove(path)
             path = os.path.join(self.checkpoint_dir, f"checkpoint-{epoch}.pth")
-            if _rank() == 0:
+            if get_rank() == 0:
                 save_on_master(payload, path)
             self.checkpoint_files.append((path, metric))
             self.checkpoint_files.sort(key=lambda x: x[1], reverse=not self.decreasing)
             if self.best_metric is None or self.cmp(metric, self.best_metric):
                 self.best_metric, self.best_epoch = metric, epoch
-                if _rank() == 0:
+                if get_rank() == 0:
                     save_on_master(payload, os.path.join(self.checkpoint_dir, "model_best.pth"))
         return self.best_metric
 
@@ -72,7 +66,7 @@ class CheckpointSaver:
         clean, rank 0 only: deleting the old file first would leave a crash
         window with no recovery point at all."""
         path = os.path.join(self.recovery_dir, f"recovery-{epoch}-{batch_idx}.pth")
-        if _rank() != 0:
+        if get_rank() != 0:
             return path
         save_on_master(payload, path)
         for old in glob.glob(os.path.join(self.recovery_dir, "recovery-*.pth")):

@@ -256,7 +256,7 @@ def import_probes():
     import json
 
     modules = list(_NEW_MODULES) + [f"scouter_tpu_torch.{m}" for m in
-                                    _XAI_MODULES + _FACTORY_MODULES]
+                                    _XAI_MODULES + _FACTORY_MODULES + _DIST_MODULES]
     env = dict(os.environ, PYTHONPATH=str(ROOT))
     out = subprocess.run([sys.executable, "-c", _FORKED_PROBES, json.dumps(modules)], cwd=ROOT,
                          env=env, capture_output=True, text=True, timeout=300)
@@ -489,3 +489,66 @@ def test_xai_entry_points_raise_without_cuda(no_cuda, tmp_path):
         get_model("resnet50", "voc")
     with pytest.raises(RuntimeError, match="CUDA"):
         imread(str(tmp_path / "missing.png"))
+
+
+# the distributed slice: none loads JAX, flax or the JAX package
+_DIST_MODULES = ("core.distributed", "parallel", "parallel.mesh", "parallel.tp")
+
+
+@pytest.mark.parametrize("module", _DIST_MODULES)
+def test_distributed_modules_import_no_jax(module, import_probes):
+    """Each module of the distributed slice, alone in a fresh interpreter
+    (``_FORKED_PROBES``), loads neither JAX, flax nor the JAX package."""
+    loaded = import_probes[f"scouter_tpu_torch.{module}"]
+    assert isinstance(loaded, list), loaded
+    assert [m for m in loaded if m.split(".")[0] in ("jax", "jaxlib", "flax", "scouter_tpu")] == []
+
+
+_NO_FALLBACK_PROBE = r"""
+import json, os, socket, sys, time
+import torch.distributed as dist
+from scouter_tpu_torch.core.distributed import init_distributed_mode
+
+def free_port():
+    with socket.socket() as s:
+        s.bind(("localhost", 0))
+        return str(s.getsockname()[1])
+
+out = {}
+init_distributed_mode(backend="nccl")  # no launcher environment: nothing happens
+out["no_env"] = dist.is_initialized()
+for case, world, kw in (("nccl", "1", dict(backend="nccl")),
+                        ("nccl_cpu", "1", dict(backend="nccl", device="cpu")),
+                        ("world2", "2", dict(device="cpu", timeout=2.0))):
+    os.environ.update(RANK="0", WORLD_SIZE=world, LOCAL_RANK="0", MASTER_ADDR="localhost",
+                      MASTER_PORT=free_port())
+    t0 = time.monotonic()
+    try:
+        init_distributed_mode(**kw)
+        out[case] = "started"
+    except Exception as exc:
+        out[case] = [type(exc).__name__, str(exc)[:200], dist.is_initialized(),
+                     round(time.monotonic() - t0, 1)]
+print(json.dumps(out))
+"""
+
+
+def test_no_fallback_when_the_group_cannot_start(no_cuda):
+    """``init_distributed_mode`` does nothing without the launcher's
+    environment; with it, NCCL without a card raises, NCCL on the CPU
+    raises, and a world of 2 whose other rank never comes raises at its
+    timeout: nothing carries on at world 1 or on gloo unasked."""
+    import json
+
+    env = dict(os.environ, PYTHONPATH=str(ROOT))
+    for k in ("RANK", "WORLD_SIZE", "LOCAL_RANK", "MASTER_ADDR", "MASTER_PORT"):
+        env.pop(k, None)
+    out = subprocess.run([sys.executable, "-c", _NO_FALLBACK_PROBE], cwd=ROOT, env=env,
+                         capture_output=True, text=True, timeout=120)
+    assert out.returncode == 0, out.stderr
+    got = json.loads(out.stdout.strip().splitlines()[-1])
+    assert got["no_env"] is False
+    assert got["nccl"][0] == "RuntimeError" and "CUDA" in got["nccl"][1]
+    assert got["nccl_cpu"][0] == "ValueError" and "nccl" in got["nccl_cpu"][1]
+    assert got["world2"] != "started" and got["world2"][2] is False
+    assert got["world2"][3] < 60

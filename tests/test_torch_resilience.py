@@ -122,8 +122,8 @@ class TestMidEpochResume:
         uninterrupted run ends."""
         make_step = train_loop.make_train_step
 
-        def signalling_step(lam):
-            step, calls = make_step(lam), []
+        def signalling_step(lam, **kw):  # the Trainer passes its mesh too
+            step, calls = make_step(lam, **kw), []
 
             def wrapped(state, batch):
                 out = step(state, batch)

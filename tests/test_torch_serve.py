@@ -335,11 +335,15 @@ class TestConfig:
     @pytest.mark.parametrize("kw", [dict(mesh_shape=(4, 2)), dict(zero1=True),
                                     dict(sync_bn=False), dict(mesh_axes=("data", "model"))])
     def test_unported_flags_raise_on_the_serving_path(self, kw, served):
+        # ported: as in the JAX package, serving accepts the mesh flags and
+        # ignores them (the engine's mesh is its own argument)
         cfg = small_cfg(**kw)
-        with pytest.raises(NotImplementedError):
-            check_serving_supported(cfg)
-        with pytest.raises(NotImplementedError):
-            make_serving_fn(cfg, served[1], device="cpu")
+        check_serving_supported(cfg)
+        images = np.random.RandomState(0).randint(0, 256, (2, 64, 64, 1)).astype(np.uint8)
+        got = make_serving_fn(cfg, served[1], device="cpu")(images)
+        want = make_serving_fn(small_cfg(), served[1], device="cpu")(images)
+        for k in want:
+            np.testing.assert_array_equal(np.asarray(got[k]), np.asarray(want[k]), err_msg=k)
 
     @pytest.mark.parametrize("kw", [dict(), dict(loss_status=-1), dict(use_slot=False),
                                     dict(cal_area_size=True, lambda_value=2.0)])
