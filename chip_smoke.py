@@ -37,7 +37,17 @@ Phases (any failure exits non-zero; nothing is caught and passed over):
    instance misses its plain version on the same values), the same bits
    from run to run, its launches a call (graph nodes, held to the
    profiler's launch calls) held to its plan's, and its time in a CUDA
-   graph beside the f32 instance's;
+   graph beside the f32 instance's; then the forward's tiled route
+   (``csrc/xslot_fwd_tiled.cu``, where no cluster of 8 holds an element) at
+   (70, 784, 30), (16, 784, 30) with hist and (16, 196, 1000) with hist (f32,
+   and bf16 inputs at the last): its plan (cluster 0; its own plan from the
+   C library held to ``tiled_fwd_plan``), upd, attn and hist against the
+   plain version at the cluster forward's bars (upd 1e-4; at S=1000 upd
+   1e-3, attn 2e-2), two calls bit for bit, its launches a call (graph
+   nodes, held to the profiler's launch calls) held to
+   ``TiledFwdPlan.launches``, its time, the plain version's and the bound;
+   and the backward's tiled route on those hist shapes' residuals against
+   ``xslot_bwd_ref``, its launches held to its plan;
 4. serve flagship resnest26d + xSlot (f32, seeded random weights) through
    ``InferenceEngine`` (requests from several threads) and the HTTP server
    (``.npy`` bodies, one with ``?maps=1``, and ``/healthz``), counting the
@@ -45,7 +55,9 @@ Phases (any failure exits non-zero; nothing is caught and passed over):
 5. the same weights on the card and on the CPU: logits within 1e-3;
 6. serving throughput of ``make_serving_fn`` at batch 70, f32 and bf16, the
    bf16 model's BatchNorm tensors f32 and its uint8 slot maps' largest level
-   difference from f32's;
+   difference from f32's; then ``examples/torch_bench.py``'s main for a few
+   calls: img/s, achieved TFLOP/s and ``mfu`` against the card's published
+   dense peak for f32 and bf16 (each in (0, 1]);
 7. train the flagship through ``scouter_tpu_torch.train.cli.main`` on the
    synthetic ImageNet stand-in for two epochs, then resume for a third:
    finite metrics, the reference's checkpoint names, K1's hist launches and
@@ -75,6 +87,11 @@ Phases (any failure exits non-zero; nothing is caught and passed over):
    in bf16 and in f32 within 0.08 x max(1, |f32 loss|)
    (tests/test_train.py:139-150); bf16 and f32 train img/s at batch 16 on
    one repeated batch, whose loss must fall, with f32 state after the steps;
+   then the CUB recipe at 448 px (N=196, S=1000: past K1's cluster reach
+   both ways) through the train CLI for one epoch of the stand-in, K1's
+   counts zeroed just before and read just after (every forward on the
+   tiled route: 16 with hist, 8 without; the tiled backward 16; a cluster
+   never), finite metrics;
 11. images on disk, from the fixtures committed in ``tests/torch_fixtures``:
    each JPEG decoded by nvJPEG and staged to 260 px on the card against
    Pillow's staged pixels (max, 99.9th percentile and mean level difference;
@@ -93,7 +110,12 @@ Phases (any failure exits non-zero; nothing is caught and passed over):
    the explain CLI on the tree's checkpoint and a val JPEG (K1 once,
    hist-free; 401 PNGs read back); the HTTP server answering a JPEG body
    and a PNG body, whose logits equal a ``.npy`` body's of the same staged
-   pixels; Pillow never imported (phases 12-14 run before phase 11);
+   pixels; Pillow never imported (phases 12-14 run before phase 11); the
+   four-component fixtures (CMYK, and YCCK under an Adobe transform of 2)
+   through ``FolderDataset.gather`` on the card, nvJPEG's planes then the
+   CMYK kernel (counted once an image), staged to 260 px against Pillow's
+   (mean within JPEG_MEAN_LEVEL_BAR), and the kernel on nvJPEG's own planes
+   bit for bit with its plain version, with its time and bound;
 12. a bf16 slot head (``--compute_dtype bfloat16 --slot_head_dtype
    compute``) through the train CLI: the flagship for 3 epochs at batch 70
    (K1's backward on a cluster with bf16 residuals once a train step, 9,
@@ -131,8 +153,12 @@ Phases (any failure exits non-zero; nothing is caught and passed over):
    backward on its tiled route once and held to its plain version on the
    step's own residuals, and its launches a call (graph nodes, held to the
    profiler's launch calls) held to its plan;
-   at output stride 8 (N=784) the slot model's K1 forward raises
-   ValueError (its documented reach, ROADMAP Queue C); the phase's
+   and at output stride 8 (N=784, past K1's cluster reach): served card vs
+   CPU at batch 2 and at batch 70 on the card (one tiled forward a call,
+   held to its plain version and its plan's launches), serving img/s, a
+   train step at batch 4 card vs CPU (the tiled forward with hist and the
+   tiled backward once each; the forward's call held to its plain
+   version) and train img/s at batch 70 with its peak memory; the phase's
    seconds.
 16. the XAI baseline suite at the width README.md:96-97 documents
    (resnest26d, backbone only, 260 px, 10 classes): a no-slot model trained
@@ -860,6 +886,132 @@ def phase_kernel_grad_tiled(entry):
             "launches_per_call": cub["launches_per_call"], "by_shape": times}
 
 
+# K1's forward past a cluster's reach (its tiled route): resnet50 + xSlot at
+# output stride 8, 224 px (N=784) serving at batch 70 and training at 16
+# with hist, and the CUB recipe at 448 px (N=196, S=1000) training at 16;
+# bars as the cluster forward's (bench.py:85-86, its S=1000 bars)
+FWD_TILED_SHAPES = (((70, 784, 30), False, 1e-4, 1e-4), ((16, 784, 30), True, 1e-4, 1e-4),
+                    ((16, 196, 1000), True, 1e-3, 2e-2))
+
+
+def check_fwd_tiled_plan(b, n, s, d, hist, bf16=False):
+    """The forward's tiled plan from the C library against
+    ``slot_kernel.tiled_fwd_plan``, its Python copy; returns it."""
+    import torch
+
+    from scouter_tpu_torch.ops import slot_kernel
+
+    sms = torch.cuda.get_device_properties(0).multi_processor_count
+    plan = slot_kernel.launch_tiled_fwd_plan(b, n, s, d, torch.device("cuda"), hist, bf16)
+    py = slot_kernel.tiled_fwd_plan(b, n, s, d, sms, hist, bf16)
+    if plan != py:
+        fail(f"the forward's tiled plan at B={b} N={n} S={s} d={d} is {plan} in the C "
+             f"library and {py} in slot_kernel.tiled_fwd_plan")
+    return plan
+
+
+def phase_kernel_fwd_tiled():
+    """K1's forward on its tiled route (``csrc/xslot_fwd_tiled.cu``) at
+    ``FWD_TILED_SHAPES``, where no cluster of 8 holds an element: the plan
+    (cluster 0, and the route's own plan from the C library held to its
+    Python copy), upd, attn and hist against the plain version at the
+    cluster forward's bars, with bf16 inputs too at (16, 196, 1000), two
+    calls equal bit for bit, the launches of one call (``profiled_launches``)
+    held to ``TiledFwdPlan.launches``, its time in a CUDA graph, the plain
+    version's and the bound; then the backward's tiled route on the hist
+    shapes' residuals against ``xslot_bwd_ref`` (chip_smoke's gradient bar)
+    and its launches held to its plan. Returns the route's kernels-line
+    entry (its ``launches`` filled in by the main path's phases)."""
+    import torch
+
+    from scouter_tpu_torch.ops import slot_kernel
+
+    d, worst, by_shape = 64, 0.0, {}
+    names = ("k", "v", "initial_slots", "w_ih", "w_hh", "b_ih", "b_hh")
+    cases = [(shape, hist, bu, ba, torch.float32) for shape, hist, bu, ba in FWD_TILED_SHAPES]
+    cases.append(((16, 196, 1000), True, 1e-3, 2e-2, torch.bfloat16))
+    for (b, n, s), hist, bar_upd, bar_attn, dtype in cases:
+        bf16 = dtype == torch.bfloat16
+        label = f"{b},{n},{s}" + (",hist" if hist else "") + (",bf16" if bf16 else "")
+        args = [a.to(dtype) for a in xslot_inputs(b, n, s, d, "cuda")]
+        if not check_plan("fwd", b, n, s, d, args[0].device, bf16).tiled:
+            fail(f"xslot_fwd planned a cluster at {label}, past its reach")
+        plan = check_fwd_tiled_plan(b, n, s, d, hist, bf16)
+        call = lambda: slot_kernel._launch(*args, 3, emit_hist=hist)
+        with torch.no_grad():
+            before = slot_kernel.xslot_iterations_fused.fwd_tiled_launches
+            got, again = call(), call()
+            counted = slot_kernel.xslot_iterations_fused.fwd_tiled_launches - before
+            want = slot_kernel.xslot_fwd_ref(*args, emit_hist=hist)
+        torch.cuda.synchronize()
+        e_upd = max((g - w).abs().max().item() for g, w in zip(got[::2], want[::2]))
+        e_attn = (got[1] - want[1]).abs().max().item()
+        same = all(torch.equal(x, y) for x, y in zip(got, again))
+        print(f"xslot_fwd tiled route B={b} N={n} S={s} {str(dtype)[6:]} inputs"
+              f"{' with hist' if hist else ''}: max|d upd{', hist' if hist else ''}| "
+              f"{e_upd:.3e} (bar {bar_upd:g}), max|d attn| {e_attn:.3e} (bar {bar_attn:g}); "
+              f"two calls {'equal bit for bit' if same else 'DIFFER'}; counted {counted}",
+              flush=True)
+        if not (e_upd < bar_upd and e_attn < bar_attn and same and counted == 2):
+            fail(f"xslot_fwd's tiled route disagrees with its plain version, or with "
+                 f"itself, or was not counted, at {label}")
+        if bar_upd == 1e-4:
+            worst = max(worst, e_upd, e_attn)
+        with torch.no_grad():
+            per_call = profiled_launches(call)
+            ms = graph_ms(call, reps=10, iters=10)
+            plain_ms = cuda_ms(lambda: slot_kernel.xslot_fwd_ref(*args, emit_hist=hist), 5, 2)
+        bound_ms, bound_by = xslot_bound(b, n, s, d, hist_iters=3 if hist else 0)
+        print(f"xslot_fwd tiled route B={b} N={n} S={s}: {per_call} launches a call "
+              f"(TiledFwdPlan.launches {plan.launches(3)}), {ms:.5f} ms in a CUDA graph, "
+              f"plain {plain_ms:.4f} ms, bound {bound_ms:.5f} ms ({bound_by}); products "
+              + ", ".join(f"{k} {p.rows} rows x {p.tile_cols}-column tiles"
+                          for k, p in plan.products.items()), flush=True)
+        if per_call != plan.launches(3):
+            fail(f"the forward's tiled route made {per_call} launches at {label}, its plan "
+                 f"says {plan.launches(3)}")
+        by_shape[label] = dict(ms=ms, plain_ms=plain_ms, bound_ms=bound_ms, bound_by=bound_by,
+                               launches_per_call=per_call, max_abs_err=max(e_upd, e_attn))
+        if not hist or bf16:
+            continue
+        # the backward's tiled route on this forward's residuals
+        bplan = check_plan("bwd", b, n, s, d, args[0].device)
+        if not bplan.tiled:
+            fail(f"xslot_bwd planned a cluster at {label}")
+        args64 = [a.double() for a in args]
+        with torch.no_grad():
+            upd64, attn64 = slot_kernel.xslot_iterations_ref(*args64)
+        cot64 = (2 * upd64, torch.ones_like(attn64))
+        cot = tuple(t.float() for t in cot64)
+        res = (args[0], args[1], args[3], args[4], args[5], args[6], got[2])
+        with torch.no_grad():
+            grads = slot_kernel._launch_bwd(*res, *cot)
+            ref_grads = slot_kernel.xslot_bwd_ref(*res, *cot)
+            exact = slot_kernel.xslot_bwd_ref(*(t.double() for t in res), *cot64)
+        check_grads("xslot_bwd tiled route on the tiled forward's hist vs xslot_bwd_ref,", b,
+                    n, s, names, grads, ref_grads, exact)
+        want_count = check_tiled_plans(((b, n, s, d),))[f"{b},{n},{s},d={d}"].launches(3)
+        with torch.no_grad():
+            count = profiled_launches(lambda: slot_kernel._launch_bwd(*res, *cot))
+            bwd_ms = graph_ms(lambda: slot_kernel._launch_bwd(*res, *cot), reps=5, iters=5)
+        bwd_bound, _ = xslot_bwd_bound(b, n, s, d)
+        print(f"xslot_bwd tiled route B={b} N={n} S={s}: {count} launches a call (TiledPlan."
+              f"launches {want_count}), {bwd_ms:.5f} ms in a CUDA graph, bound {bwd_bound:.5f}"
+              " ms", flush=True)
+        if count != want_count:
+            fail(f"the backward's tiled route made {count} launches at {label}, its plan "
+                 f"says {want_count}")
+        by_shape[label]["bwd_ms"], by_shape[label]["bwd_bound_ms"] = bwd_ms, bwd_bound
+    cub = by_shape["16,196,1000,hist"]
+    return {"name": "xslot_fwd_tiled", "route": "cuda",
+            "source": "scouter_tpu_torch/csrc/xslot_fwd_tiled.cu",
+            "replaces": "scouter_tpu/ops/slot_pallas.py:107", "max_abs_err": worst,
+            "ms": cub["ms"], "plain_ms": cub["plain_ms"], "bound_ms": cub["bound_ms"],
+            "bound_by": cub["bound_by"], "library_ms": None,
+            "launches_per_call": cub["launches_per_call"], "launches": 0,
+            "by_shape": by_shape}
+
+
 BF16_ULP = 2.0 ** -7  # one bf16 ulp at 1.0 (8 bits of significand)
 # K1's backward with bf16 residuals: the cluster route's shapes (the
 # flagship's train batch, a batch of 16 and (16, 81, 125)) and the tiled
@@ -1160,6 +1312,27 @@ def phase_throughput(cfg, state_dict, card: str):
     return rates
 
 
+def phase_bench_utilisation(tmp: str):
+    """``examples/torch_bench.py``'s main for a few calls: the flagship's
+    serving img/s in f32 and bf16 with its achieved TFLOP/s and ``mfu``
+    against the card's published dense peak for each dtype. Each ``mfu``
+    must be a number in (0, 1]. Returns the records."""
+    import os
+
+    sys.path.insert(0, str(ROOT / "examples"))
+    import torch_bench
+
+    out = os.path.join(tmp, "torch_bench.jsonl")
+    if torch_bench.main(["--iters", "5", "--out", out]) != 0:
+        fail("examples/torch_bench.py failed")
+    with open(out) as f:
+        rows = [json.loads(line) for line in f]
+    for row in rows:
+        if not (isinstance(row["mfu"], float) and 0 < row["mfu"] <= 1):
+            fail(f"examples/torch_bench.py reported mfu {row['mfu']} ({row['mfu_basis']})")
+    return rows
+
+
 def run_cli(main, flags):
     """``main(flags)`` with its output echoed; returns (its result, the
     printed lines)."""
@@ -1294,6 +1467,47 @@ def cub_flags(tmp: str):
             "--img_size", "260", "--compute_dtype", "bfloat16", "--batch_size", "16",
             "--epochs", "1", "--pre_trained", "false",
             "--dataset_dir", os.path.join(tmp, "no_dataset"), "--output_dir", tmp]
+
+
+CUB448_SIZE = 448  # the usual resolution for fine-grained birds: N = 14 x 14 = 196
+
+
+def phase_cub448_train(tmp: str):
+    """The CUB-200 recipe at 448 px (train.py:132's ``--img_size``; N=196 and
+    S=1000, past K1's cluster reach both ways) in bf16 through the train CLI
+    for one epoch of the stand-in, K1's counts zeroed just before and read
+    just after: the forward on its tiled route for every train step (with
+    hist) and val batch, the backward on its tiled route for every train
+    step, a cluster never; finite metrics. Returns the tiled forward's and
+    backward's launches."""
+    import math
+
+    import torch
+
+    from scouter_tpu_torch.train import cli
+
+    train_steps, val_batches = 256 // 16, 128 // 16  # the synthetic stand-in
+    flags = cub_flags(tmp)
+    flags[flags.index("--img_size") + 1] = str(CUB448_SIZE)
+    k1_counts(reset=True)
+    t0 = time.monotonic()
+    _, lines = run_cli(cli.main, flags)
+    torch.cuda.synchronize()
+    seconds = time.monotonic() - t0
+    counts = k1_counts()
+    metrics = logged_metrics(lines)
+    values = [v for vs in metrics.values() for v in vs]
+    print(f"CUB bf16 train at {CUB448_SIZE} px: 1 epoch, {train_steps} train steps and "
+          f"{val_batches} val batches in {seconds:.2f} s with data, eval and the checkpoint; "
+          f"K1 {json.dumps(counts)}; metrics {json.dumps(metrics)}", flush=True)
+    if len(metrics["train loss:"]) != 1 or not all(map(math.isfinite, values)):
+        fail(f"CUB at {CUB448_SIZE} px: logged metrics {metrics}")
+    want = dict(launches=train_steps + val_batches, hist_launches=train_steps,
+                fwd_tiled_launches=train_steps + val_batches, bwd_tiled_launches=train_steps,
+                bwd_launches=0)
+    if any(counts[k] != v for k, v in want.items()):
+        fail(f"CUB at {CUB448_SIZE} px: K1 counts {counts}, expected {want}")
+    return counts["fwd_tiled_launches"], counts["bwd_tiled_launches"]
 
 
 def check_f32_state(what, model_sd, opt_state):
@@ -1441,8 +1655,8 @@ def phase_cub_dtypes(cfg, state_dict, card: str):
 
 
 # K1's counters (slot_kernel.xslot_iterations_fused's attributes)
-K1_COUNTERS = ("launches", "hist_launches", "bwd_launches", "bwd_tiled_launches",
-               "bwd_bf16_launches", "bwd_tiled_bf16_launches")
+K1_COUNTERS = ("launches", "hist_launches", "fwd_tiled_launches", "bwd_launches",
+               "bwd_tiled_launches", "bwd_bf16_launches", "bwd_tiled_bf16_launches")
 BF16_HEAD = ["--compute_dtype", "bfloat16", "--slot_head_dtype", "compute"]
 
 
@@ -1918,6 +2132,79 @@ def phase_folder_decode(card: str):
           flush=True)
     if "PIL" in sys.modules:
         fail("Pillow was imported on the card's decode path")
+
+
+CMYK_JPEGS = ("cmyk_400x300.jpg", "ycck_400x300.jpg")
+
+
+def cmyk_bound(hw: int):
+    """(bound ms, what bounds it) of the CMYK conversion over ``hw`` pixels:
+    four plane bytes read and three RGB bytes written a pixel over HBM,
+    against ~20 integer operations a pixel over the card's f32 rate."""
+    t_bytes, t_ops = 7 * hw / HBM_BYTES_PER_S, 20 * hw / F32_PEAK_FLOPS
+    return max(t_ops, t_bytes) * 1e3, ("operations" if t_ops >= t_bytes else "bytes")
+
+
+def phase_cmyk(card: str):
+    """Four-component JPEGs on the card: the CMYK and YCCK fixtures through
+    ``FolderDataset.gather`` (nvJPEG's planes, then the conversion kernel),
+    staged to 260 px, against Pillow's staged pixels (max, 99.9th percentile
+    and mean level difference; the mean within JPEG_MEAN_LEVEL_BAR), the
+    kernel counted once an image; then the kernel on nvJPEG's own planes
+    against its plain version ``cmyk_to_rgb_ref`` bit for bit, its time,
+    the plain version's and its bound. Returns its kernels-line entry."""
+    import numpy as np
+    import torch
+
+    from scouter_tpu_torch.data import FolderDataset
+    from scouter_tpu_torch.data import _decode
+
+    pillow = np.load(FIXTURES / "staged_cmyk_260.npz")
+    items = [(str(FIXTURES / name), i) for i, name in enumerate(CMYK_JPEGS)]
+    _decode.cmyk_to_rgb.launches = 0
+    decodes = _decode.decode_jpeg.decodes
+    got = FolderDataset(items, 260, "ImageNet", device="cuda").gather([0, 1])
+    torch.cuda.synchronize()
+    launches = _decode.cmyk_to_rgb.launches
+    if launches != 2 or _decode.decode_jpeg.decodes - decodes != 2:
+        fail(f"the CMYK fixtures took the conversion kernel {launches} times and nvJPEG "
+             f"{_decode.decode_jpeg.decodes - decodes} times, expected 2 and 2")
+    by_file, worst = {}, 0
+    for i, name in enumerate(CMYK_JPEGS):
+        diff = np.abs(got[i].cpu().numpy().astype(int) - pillow[name].astype(int))
+        by_file[name] = dict(max=int(diff.max()), p999=float(np.percentile(diff, 99.9)),
+                             mean=float(diff.mean()))
+        print(f"{name} on the card vs Pillow, staged to 260 px: max {diff.max()}, 99.9th "
+              f"percentile {by_file[name]['p999']:g}, mean {diff.mean():.4f} levels (bar "
+              f"{JPEG_MEAN_LEVEL_BAR} on the mean)", flush=True)
+        if not diff.mean() < JPEG_MEAN_LEVEL_BAR:
+            fail(f"{name}: the card's decode lies {diff.mean():.3f} levels from Pillow's")
+        data = (FIXTURES / name).read_bytes()
+        ycck = _decode.adobe_transform(data) == 2
+        with torch.cuda.device(0):
+            planes = _decode._nvjpeg_instance().planes(data, torch.device("cuda"))
+        rgb = _decode.cmyk_to_rgb(planes, ycck)
+        ref = _decode.cmyk_to_rgb_ref(planes, ycck)
+        off = int((rgb != ref).sum())
+        worst = max(worst, int((rgb.int() - ref.int()).abs().max()))
+        ms = cuda_ms(lambda: _decode.cmyk_to_rgb(planes, ycck), 100)
+        plain_ms = cuda_ms(lambda: _decode.cmyk_to_rgb_ref(planes, ycck), 20)
+        bound_ms, bound_by = cmyk_bound(planes.shape[1] * planes.shape[2])
+        print(f"cmyk_to_rgb kernel on nvJPEG's planes of {name} ({'YCCK' if ycck else 'CMYK'}, "
+              f"{tuple(planes.shape)}): {off} values off its plain version (bar 0); "
+              f"{ms:.5f} ms, plain {plain_ms:.4f} ms, bound {bound_ms:.6f} ms ({bound_by})",
+              flush=True)
+        if off:
+            fail(f"the CMYK conversion kernel differs from its plain version on {name}")
+        by_file[name].update(ms=ms, plain_ms=plain_ms, bound_ms=bound_ms, bound_by=bound_by)
+    top = by_file[CMYK_JPEGS[0]]
+    return {"name": "cmyk_to_rgb", "route": "cuda",
+            "source": "scouter_tpu_torch/csrc/jpeg_decode.cu",
+            "replaces": "scouter_tpu/data/streaming.py:105",
+            "replaces_note": "Pillow's convert('RGB') on the host; no Pallas kernel",
+            "max_abs_err": worst, "ms": top["ms"], "plain_ms": top["plain_ms"],
+            "bound_ms": top["bound_ms"], "bound_by": top["bound_by"], "library_ms": None,
+            "launches": launches, "by_file": by_file}
 
 
 def phase_folder_train(tmp: str, card: str):
@@ -2808,26 +3095,140 @@ def phase_zoo_os16(cfg):
     return counts, per_call
 
 
-def phase_zoo_os8_limit(cfg):
-    """The slot model at output stride 8 reaches N = 28 x 28 = 784 at 224 px,
-    past K1's forward reach at S=30 (N=343, ROADMAP Queue C): on the card
-    its forward raises ValueError, where JAX's trains on the jnp path. The
-    backbone itself runs at OS8 (phase 15's zoo)."""
+OS8 = {"output_stride": 8}  # resnet50's map at 224 px: 28 x 28, N = 784
+OS8_TRAIN_BATCH = 70  # one f32 step of it peaks at 13.4 GiB on an H100 80GB
+
+
+def phase_zoo_os8(cfg, card: str):
+    """``cfg``'s slot model at output stride 8 (N = 28 x 28 = 784 at 224 px),
+    past K1's cluster reach, on its tiled forward: served through
+    ``make_serving_fn(backbone_kwargs=OS8)`` card vs CPU at
+    batch 2 (logits within phase 5's 1e-3, maps); served at batch 70 with
+    K1's counts zeroed just before one call and read just after (one
+    forward, on the tiled route, hist-free), that call held to its plain
+    version on its own inputs (``check_grads``' bar, as ``hold_k1_calls``
+    holds a step's calls: the model's features are not bench.py's
+    magnitudes) and its launches
+    (``profiled_launches``) held to ``TiledFwdPlan.launches``, serving img/s;
+    one train step at batch 4 card vs CPU through ``phase_step_grads``
+    (phase 15's bars; K1: the tiled forward with hist and the tiled backward
+    once each) with the tiled forward's call in it held to its plain
+    version; train img/s at batch ``OS8_TRAIN_BATCH`` (K1 at (70, 784, 30))
+    with the peak memory. Returns the tiled forward's launches in the
+    serving call and the steps."""
+    import numpy as np
     import torch
 
+    from scouter_tpu_torch.data import _synthetic_folder, preprocess_batch
     from scouter_tpu_torch.models import build_slot_model
+    from scouter_tpu_torch.ops import slot_kernel
+    from scouter_tpu_torch.serve import make_serving_fn
+    from scouter_tpu_torch.train import create_train_state, make_train_step
 
-    model = build_slot_model(cfg.replace(batch_size=1), fused_slot=True, device="cuda",
-                             backbone_kwargs={"output_stride": 8})
-    x = torch.zeros(1, 3, cfg.img_size, cfg.img_size, device="cuda")
-    try:
-        with torch.no_grad():
-            model(x)
-    except ValueError as exc:
-        print(f"{cfg.model} output_stride 8 slot model (N=784): K1 raises as documented: "
-              f"{exc}", flush=True)
-        return
-    fail(f"{cfg.model} at output stride 8 (N=784) ran K1's forward past its documented reach")
+    s, d = cfg.slots_per_class * cfg.num_classes, cfg.hidden_dim
+    init = build_slot_model(cfg, device="cpu", backbone_kwargs=OS8).state_dict()
+    images = np.random.RandomState(2).randint(0, 256, (2, cfg.img_size, cfg.img_size, 3),
+                                              np.uint8)
+    gpu, cpu = (make_serving_fn(cfg, init, device=dev, backbone_kwargs=OS8)(images)
+                for dev in ("cuda", "cpu"))
+    lg, lc = gpu["logits"].cpu().numpy(), cpu["logits"].numpy()
+    maps = np.abs(gpu["slot_maps"].cpu().numpy().astype(int) - cpu["slot_maps"].numpy()).max()
+    print(f"gpu vs cpu {cfg.model} at output stride 8: slot maps "
+          f"{tuple(gpu['slot_maps'].shape)}, max|d logits| {np.abs(lg - lc).max():.3e} (bar "
+          f"rtol/atol 1e-3), max|d slot_maps| {maps}", flush=True)
+    if gpu["slot_maps"].shape[-1] != 28 or not np.allclose(lg, lc, rtol=1e-3, atol=1e-3):
+        fail(f"{cfg.model} at output stride 8: logits or maps differ between card and CPU")
+
+    fn = make_serving_fn(cfg, init, device="cuda", backbone_kwargs=OS8)
+    batch = torch.from_numpy(np.random.RandomState(3).randint(
+        0, 256, (cfg.batch_size, cfg.img_size, cfg.img_size, 3), np.uint8)).cuda()
+    fwd_calls = []
+    fn(batch)
+    torch.cuda.synchronize()
+    k1_counts(reset=True)
+    with recorded_k1(fwd_calls, []):
+        out = fn(batch)
+        torch.cuda.synchronize()
+    serve_counts = k1_counts()
+    if (serve_counts["launches"], serve_counts["hist_launches"],
+            serve_counts["fwd_tiled_launches"]) != (1, 0, 1) or len(fwd_calls) != 1:
+        fail(f"serving {cfg.model} at output stride 8: K1 counts {serve_counts}, expected "
+             "one hist-free forward on the tiled route")
+    ((fargs, fout),) = fwd_calls
+    tensors = fargs[:7]
+    if tuple(tensors[0].shape) != (cfg.batch_size, 784, d):
+        fail(f"serving at output stride 8 gave K1 k {tuple(tensors[0].shape)}")
+    with torch.no_grad():
+        want = slot_kernel.xslot_fwd_ref(*tensors)
+        exact = slot_kernel.xslot_fwd_ref(*(t.double() for t in tensors))
+        per_call = profiled_launches(lambda: slot_kernel._launch(*tensors, 3, False))
+    check_grads("xslot_fwd tiled route in OS8 serving vs xslot_fwd_ref,", cfg.batch_size, 784,
+                s, ("upd", "attn"), fout, want, exact)
+    sms = torch.cuda.get_device_properties(0).multi_processor_count
+    plan = slot_kernel.tiled_fwd_plan(cfg.batch_size, 784, s, d, sms)
+    print(f"xslot_fwd tiled route in serving at ({cfg.batch_size}, 784, {s}): {per_call} "
+          f"launches a call (TiledFwdPlan.launches {plan.launches(3)})", flush=True)
+    if per_call != plan.launches(3):
+        fail("the OS8 serving call's tiled forward made other launches than its plan's")
+    if not torch.isfinite(out["logits"]).all():
+        fail(f"non-finite logits serving {cfg.model} at output stride 8")
+    iters = 10
+    t0 = time.perf_counter()
+    for _ in range(iters):
+        fn(batch)
+    torch.cuda.synchronize()
+    serve_rate = cfg.batch_size * iters / (time.perf_counter() - t0)
+    print(f"throughput serving {cfg.model} output stride 8 bs={cfg.batch_size} f32: "
+          f"{serve_rate:.1f} img/s on {card}", flush=True)
+
+    counts, step_fwd, _ = phase_step_grads(cfg, 4, 28, seed=23, backbone_kwargs=OS8)
+    if (counts["hist_launches"], counts["fwd_tiled_launches"], counts["bwd_tiled_launches"],
+            counts["bwd_launches"]) != (1, 1, 1, 0):
+        fail(f"the OS8 train step's K1 counts {counts}: expected the tiled forward with "
+             "hist once, the tiled backward once, a cluster never")
+    # the step's forward with hist (phase_step_grads' own eval forward after
+    # it is recorded too, hist-free)
+    ((fargs, fout),) = [call for call in step_fwd if len(call[1]) == 3]
+    with torch.no_grad():
+        want = slot_kernel.xslot_fwd_ref(*fargs[:7], emit_hist=True)
+        exact = slot_kernel.xslot_fwd_ref(*(t.double() for t in fargs[:7]), emit_hist=True)
+    check_grads("xslot_fwd tiled route in the OS8 step vs xslot_fwd_ref,", 4, 784, s,
+                ("upd", "attn", "hist"), fout, want, exact)
+
+    b = OS8_TRAIN_BATCH
+    cfgb = cfg.replace(batch_size=b)
+    ds = _synthetic_folder(cfg.dataset, cfg.num_classes, cfg.img_size, train=True)
+    x = preprocess_batch(torch.from_numpy(ds.images[:b]).cuda(), dataset=cfg.dataset,
+                         img_size=cfg.img_size).permute(0, 3, 1, 2).contiguous()
+    tb = {"image": x, "label": torch.from_numpy(ds.labels[:b]).long().cuda()}
+    state = create_train_state(build_slot_model(cfgb, fused_slot=True, device="cuda",
+                                                backbone_kwargs=OS8), cfg.lr)
+    step = make_train_step(cfg.lambda_value)
+    torch.cuda.reset_peak_memory_stats()
+    k1_counts(reset=True)
+    losses = []
+    for _ in range(2):
+        state, m = step(state, tb)
+        losses.append(m["loss"])
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    for _ in range(iters):
+        state, m = step(state, tb)
+        losses.append(m["loss"])
+    torch.cuda.synchronize()
+    train_rate = b * iters / (time.perf_counter() - t0)
+    steps = k1_counts()
+    losses = torch.stack(losses).tolist()
+    peak = torch.cuda.max_memory_allocated() / 2 ** 30
+    print(f"train throughput {cfg.model} output stride 8 f32 bs={b}: {train_rate:.1f} img/s, "
+          f"peak {peak:.2f} GiB, loss {losses[0]:.4f} -> {losses[-1]:.4f} on {card}; K1 in "
+          f"the {2 + iters} steps {json.dumps(steps)}", flush=True)
+    if not losses[-1] < losses[0] or steps["fwd_tiled_launches"] != 2 + iters:
+        fail(f"{cfg.model} at output stride 8: the loss did not fall, or the steps did not "
+             "take K1's tiled forward")
+    return dict(serve_launches=serve_counts["fwd_tiled_launches"],
+                step_launches=counts["fwd_tiled_launches"] + steps["fwd_tiled_launches"],
+                serve_img_per_s=serve_rate, train_img_per_s=train_rate, train_peak_gib=peak)
 
 
 def phase_zoo(card: str):
@@ -2855,17 +3256,19 @@ def phase_zoo(card: str):
         explain_launches = phase_zoo_explain(tmp, cfg)
     train_rate = phase_train_throughput(cfg, card)
     os16_counts, os16_per_call = phase_zoo_os16(cfg)
-    phase_zoo_os8_limit(cfg)
+    os8 = phase_zoo_os8(cfg, card)
     seconds = time.monotonic() - t0
     summary = dict(zoo_max_rel_err=max(max(e.values()) for e in zoo.values()),
-                   serve_img_per_s=serve_rates, train_img_per_s=train_rate)
+                   serve_img_per_s=serve_rates, train_img_per_s=train_rate,
+                   os8={k: v for k, v in os8.items() if not k.endswith("launches")})
     print(json.dumps({"resnet50_xslot": summary}), flush=True)
     print(f"phase 15 (zoo, resnet50 + xSlot) took {seconds:.1f} s", flush=True)
     return dict(serve_launches=serve_launches, train_launches=launches,
                 bwd_launches=bwd_launches, explain_launches=explain_launches,
                 os16_tiled_launches=os16_counts["bwd_tiled_launches"],
                 os16_hist_launches=os16_counts["hist_launches"],
-                os16_launches_per_call=os16_per_call)
+                os16_launches_per_call=os16_per_call,
+                os8_serve_launches=os8["serve_launches"], os8_step_launches=os8["step_launches"])
 
 
 # phase 16: the XAI baseline suite at the width README.md:96-97 documents
@@ -4539,12 +4942,15 @@ def main() -> int:
     bwd_entry = phase_kernel_grad(entry)
     tiled_entry = phase_kernel_grad_tiled(entry)
     bf16_entry, tiled_bf16_entry = phase_kernel_grad_bf16()
+    fwd_tiled_entry = phase_kernel_fwd_tiled()
 
     cfg = ScouterConfig(**FLAGSHIP)
     state_dict = build_slot_model(cfg, device="cpu").state_dict()
     entry["serve_launches"] = phase_serve(cfg, state_dict)
     phase_gpu_vs_cpu(cfg, state_dict)
     phase_throughput(cfg, state_dict, card)
+    with tempfile.TemporaryDirectory() as tmp:
+        phase_bench_utilisation(tmp)
     with tempfile.TemporaryDirectory() as tmp:
         entry["launches"], bwd_entry["launches"] = phase_train(tmp)
         explain = phase_explain(tmp)
@@ -4559,12 +4965,16 @@ def main() -> int:
         tiled_entry["cub_val_loss"], tiled_entry["cub_train_img_per_s"] = phase_cub_dtypes(
             cub_cfg, cub_sd, card)
     with tempfile.TemporaryDirectory() as tmp:
+        fwd_tiled_entry["cub448_launches"], tiled_entry["cub448_launches"] = (
+            phase_cub448_train(tmp))
+    with tempfile.TemporaryDirectory() as tmp:
         summary = phase_bf16_head_and_export(tmp, card)
     entry["artifact_launches"] = summary.pop("artifact_launches")
     bf16_entry["launches"] = summary["flagship_k1_counts"]["bwd_bf16_launches"]
     tiled_bf16_entry["launches"] = summary["cub_k1_counts"]["bwd_tiled_bf16_launches"]
     print(json.dumps({"bf16_head_and_export": summary}), flush=True)
     phase_folder_decode(card)
+    cmyk_entry = phase_cmyk(card)
     with tempfile.TemporaryDirectory() as tmp:
         tree, out, entry["tree_launches"], tiled_entry["tree_launches"] = phase_folder_train(
             tmp, card)
@@ -4579,6 +4989,10 @@ def main() -> int:
     bwd_entry["resnet50_launches"] = zoo["bwd_launches"]
     tiled_entry["os16_launches"] = zoo["os16_tiled_launches"]
     tiled_entry["os16_launches_per_call"] = zoo["os16_launches_per_call"]
+    fwd_tiled_entry["os8_serve_launches"] = zoo["os8_serve_launches"]
+    fwd_tiled_entry["os8_step_launches"] = zoo["os8_step_launches"]
+    fwd_tiled_entry["launches"] = (fwd_tiled_entry["cub448_launches"]
+                                   + zoo["os8_serve_launches"] + zoo["os8_step_launches"])
     entry["xai_launches"] = render_entry["xai_launches"] = phase_xai(card)
     zoo2 = phase_zoo2(card)
     entry["effnet_b2_launches"] = zoo2["train_launches"]
@@ -4615,7 +5029,7 @@ def main() -> int:
           flush=True)
 
     print(json.dumps({"kernels": [entry, bwd_entry, tiled_entry, bf16_entry, tiled_bf16_entry,
-                                  render_entry]}), flush=True)
+                                  render_entry, fwd_tiled_entry, cmyk_entry]}), flush=True)
     print(json.dumps({"ok": True, "device": {"platform": "gpu",
                                              "kind": torch.cuda.get_device_name(0),
                                              "count": torch.cuda.device_count()}}), flush=True)

@@ -5,8 +5,12 @@ folder reader, the eager list loader and the server share.
 - JPEG: on the card, nvJPEG (``csrc/jpeg_decode.cu``) writes the pixels
   straight into a CUDA tensor; on the CPU, Pillow decodes them, as the JAX
   package does (``scouter_tpu/data/streaming.py::FolderDataset._decode``). A
-  CUDA device never falls back to Pillow or the CPU: a JPEG that nvJPEG
-  cannot take raises (CMYK, 12-bit samples).
+  four-component JPEG (CMYK, or YCCK under an Adobe marker's transform 2)
+  is decoded into its planes and converted to RGB as Pillow converts it
+  (``cmyk_to_rgb``: the kernel on the card, ``cmyk_to_rgb_ref`` its plain
+  version). A CUDA device never falls back to Pillow or the CPU: a JPEG
+  that nvJPEG cannot take raises (12-bit samples, which Pillow refuses
+  too; a four-component JPEG with subsampled components).
 - Staging: Pillow's bilinear resize of each plane
   (``explain/_imaging.py::resize_bilinear_u8``, bit for bit), on the device.
 
@@ -28,7 +32,8 @@ import torch
 from ..core.device import resolve_device
 from ..core.png import decode_png, luma
 
-__all__ = ["decode_file", "decode_image", "decode_jpeg", "jpeg_frame", "stage"]
+__all__ = ["adobe_transform", "cmyk_to_rgb", "cmyk_to_rgb_ref", "decode_file", "decode_image",
+           "decode_jpeg", "jpeg_frame", "stage"]
 
 PNG_MAGIC = b"\x89PNG\r\n\x1a\n"
 JPEG_MAGIC = b"\xff\xd8"
@@ -37,8 +42,8 @@ _NVJPEG_RGBI, _NVJPEG_Y = 5, 2  # nvjpegOutputFormat_t
 _SOF = {0xC0, 0xC1, 0xC2, 0xC3, 0xC5, 0xC6, 0xC7, 0xC9, 0xCA, 0xCB, 0xCD, 0xCE, 0xCF}
 
 
-def jpeg_frame(data: bytes):
-    """(precision, height, width, components) from a JPEG's frame header."""
+def _segments(data: bytes):
+    """(marker, payload) of each marker segment before the first scan."""
     pos = 2
     while pos + 4 <= len(data):
         if data[pos] != 0xFF:
@@ -50,11 +55,80 @@ def jpeg_frame(data: bytes):
         if marker == 0x01 or 0xD0 <= marker <= 0xD7:  # markers without a length
             pos += 2
             continue
+        if marker == 0xDA:  # start of scan
+            return
         (length,) = struct.unpack(">H", data[pos + 2:pos + 4])
-        if marker in _SOF:
-            return struct.unpack(">BHHB", data[pos + 4:pos + 10])
+        yield marker, data[pos + 4:pos + 2 + length]
         pos += 2 + length
+
+
+def jpeg_frame(data: bytes):
+    """(precision, height, width, components) from a JPEG's frame header."""
+    for marker, payload in _segments(data):
+        if marker in _SOF:
+            return struct.unpack(">BHHB", payload[:6])
     raise ValueError("JPEG: no frame header")
+
+
+def adobe_transform(data: bytes):
+    """The transform byte of a JPEG's Adobe APP14 marker (0: none, 1: YCbCr,
+    2: YCCK), or None without one; libjpeg reads it as Pillow's decoder
+    does (jdmarker.c::examine_app14, the last such marker counting)."""
+    transform = None
+    for marker, payload in _segments(data):
+        if marker == 0xEE and len(payload) >= 12 and payload.startswith(b"Adobe"):
+            transform = payload[11]
+    return transform
+
+
+def _fix(x: float) -> int:
+    return int(x * 65536 + 0.5)  # libjpeg's FIX at SCALEBITS 16
+
+
+def cmyk_to_rgb_ref(planes: torch.Tensor, ycck: bool) -> torch.Tensor:
+    """Plain version of ``csrc/jpeg_decode.cu``'s cmyk_to_rgb_kernel: a
+    four-component JPEG's planes as stored, (4, H, W) uint8, to the (H, W,
+    3) uint8 pixels Pillow's ``convert("RGB")`` gives. YCCK becomes CMYK as
+    libjpeg's ``ycck_cmyk_convert`` computes it; Pillow reads the result
+    inverted ("CMYK;I", Adobe's convention) and applies ``cmyk2rgb``:
+    nk = 255 - k, out = clip(nk - MULDIV255(c, nk)). Integer arithmetic, bit
+    for bit with Pillow."""
+    p = planes.to(torch.int32)
+    c, m, y, k = p[0], p[1], p[2], p[3]
+    if ycck:
+        cb, cr, one_half = m - 128, y - 128, 1 << 15
+        c = (255 - (p[0] + ((_fix(1.402) * cr + one_half) >> 16))).clamp(0, 255)
+        m = (255 - (p[0] + ((-_fix(0.34414) * cb + one_half - _fix(0.71414) * cr) >> 16))
+             ).clamp(0, 255)
+        y = (255 - (p[0] + ((_fix(1.772) * cb + one_half) >> 16))).clamp(0, 255)
+    nk = k  # 255 - the inverted K
+    t = (255 - torch.stack([c, m, y], dim=-1)) * nk[..., None] + 128
+    return (nk[..., None] - ((t + (t >> 8)) >> 8)).clamp(0, 255).to(torch.uint8)
+
+
+def cmyk_to_rgb(planes: torch.Tensor, ycck: bool) -> torch.Tensor:
+    """``cmyk_to_rgb_ref``'s function: on a CUDA tensor the kernel
+    (``cmyk_to_rgb.launches`` counts it), on a CPU tensor the plain
+    version."""
+    if planes.device.type != "cuda":
+        return cmyk_to_rgb_ref(planes, ycck)
+    if planes.dtype != torch.uint8 or planes.dim() != 3 or planes.shape[0] != 4:
+        raise ValueError(f"cmyk_to_rgb takes (4, H, W) uint8 planes, got {planes.dtype} "
+                         f"{tuple(planes.shape)}")
+    planes = planes.contiguous()
+    _, h, w = planes.shape
+    out = torch.empty((h, w, 3), dtype=torch.uint8, device=planes.device)
+    lib = _nvjpeg_instance().lib
+    with torch.cuda.device(planes.device):
+        err = lib.jpeg_cmyk_to_rgb(planes.data_ptr(), h * w, int(ycck), out.data_ptr(),
+                                   torch.cuda.current_stream(planes.device).cuda_stream)
+    if err:
+        raise RuntimeError(f"cmyk_to_rgb_kernel launch failed: CUDA error {err}")
+    cmyk_to_rgb.launches += 1
+    return out
+
+
+cmyk_to_rgb.launches = 0
 
 
 class _NvJpeg:
@@ -70,8 +144,10 @@ class _NvJpeg:
         lib.jpeg_state_create.argtypes = [p, ctypes.POINTER(p)]
         lib.jpeg_image_info.argtypes = [p, ctypes.c_char_p, sz, pi, pi, pi, pi]
         lib.jpeg_decode.argtypes = [p, p, ctypes.c_char_p, sz, i, p, sz, p]
+        lib.jpeg_decode_planes.argtypes = [p, p, ctypes.c_char_p, sz, p, i, i, p]
+        lib.jpeg_cmyk_to_rgb.argtypes = [p, i, i, p, p]
         for fn in (lib.jpeg_handle_create, lib.jpeg_state_create, lib.jpeg_image_info,
-                   lib.jpeg_decode):
+                   lib.jpeg_decode, lib.jpeg_decode_planes, lib.jpeg_cmyk_to_rgb):
             fn.restype = i
         self.handle = p()
         self._check(lib.jpeg_handle_create(ctypes.byref(self.handle)), "nvjpegCreateSimple")
@@ -92,18 +168,40 @@ class _NvJpeg:
             self._local.state = state
         return state
 
-    def decode(self, data: bytes, device: torch.device) -> torch.Tensor:
-        comps, css, w, h = (ctypes.c_int() for _ in range(4))
+    def info(self, data: bytes):
+        """(components, [(width, height)] of each component)."""
+        comps, css = ctypes.c_int(), ctypes.c_int()
+        widths, heights = (ctypes.c_int * 4)(), (ctypes.c_int * 4)()
         self._check(self.lib.jpeg_image_info(self.handle, data, len(data), ctypes.byref(comps),
-                                             ctypes.byref(css), ctypes.byref(w),
-                                             ctypes.byref(h)), "nvjpegGetImageInfo")
-        gray = comps.value == 1
-        out = torch.empty((h.value, w.value) if gray else (h.value, w.value, 3),
-                          dtype=torch.uint8, device=device)
+                                             ctypes.byref(css), widths, heights),
+                    "nvjpegGetImageInfo")
+        return comps.value, list(zip(widths, heights))[:comps.value]
+
+    def planes(self, data: bytes, device: torch.device) -> torch.Tensor:
+        """A four-component JPEG's planes as stored, (4, H, W) uint8 on
+        ``device``; components of another size than the image's raise."""
+        comps, sizes = self.info(data)
+        if comps != 4 or len(set(sizes)) != 1:
+            raise ValueError(f"JPEG: {comps} components of sizes {sizes}; the plane decode "
+                             "takes four components of the image's size (no subsampling)")
+        w, h = sizes[0]
+        out = torch.empty((4, h, w), dtype=torch.uint8, device=device)
+        self._check(self.lib.jpeg_decode_planes(
+            self.handle, self._state(), data, len(data), out.data_ptr(), w, h,
+            torch.cuda.current_stream(device).cuda_stream), "nvjpegDecode")
+        return out
+
+    def decode(self, data: bytes, device: torch.device) -> torch.Tensor:
+        comps, sizes = self.info(data)
+        if comps == 4:
+            return cmyk_to_rgb(self.planes(data, device), adobe_transform(data) not in (None, 0))
+        gray = comps == 1
+        w, h = sizes[0]
+        out = torch.empty((h, w) if gray else (h, w, 3), dtype=torch.uint8, device=device)
         stream = torch.cuda.current_stream(device).cuda_stream
         self._check(self.lib.jpeg_decode(self.handle, self._state(), data, len(data),
                                          _NVJPEG_Y if gray else _NVJPEG_RGBI, out.data_ptr(),
-                                         w.value if gray else 3 * w.value, stream),
+                                         w if gray else 3 * w, stream),
                     "nvjpegDecode")
         return out[..., None].expand(-1, -1, 3) if gray else out
 
@@ -112,11 +210,18 @@ _nvjpeg = None
 _nvjpeg_lock = threading.Lock()
 
 
+def _nvjpeg_instance() -> _NvJpeg:
+    global _nvjpeg
+    with _nvjpeg_lock:
+        if _nvjpeg is None:
+            _nvjpeg = _NvJpeg()
+        return _nvjpeg
+
+
 def decode_jpeg(data: bytes, device) -> torch.Tensor:
     """A JPEG's pixels as Pillow's ``convert("RGB")`` gives them: (H, W, 3)
     uint8 on ``device``. The card decodes with nvJPEG (gray replicated to
-    RGB), the CPU with Pillow."""
-    global _nvjpeg
+    RGB; CMYK and YCCK through ``cmyk_to_rgb``), the CPU with Pillow."""
     device = resolve_device(device)
     if device.type != "cuda":
         from PIL import Image
@@ -125,15 +230,14 @@ def decode_jpeg(data: bytes, device) -> torch.Tensor:
             return torch.from_numpy(np.asarray(im.convert("RGB"), np.uint8).copy())
     precision, _, _, components = jpeg_frame(data)
     if precision != 8:
-        raise ValueError(f"JPEG: {precision}-bit samples; nvJPEG decodes 8-bit JPEGs only")
-    if components not in (1, 3):
-        raise ValueError(f"JPEG: {components} components (CMYK?); nvJPEG decodes gray and "
-                         "YCbCr JPEGs only")
-    with _nvjpeg_lock:
-        if _nvjpeg is None:
-            _nvjpeg = _NvJpeg()
+        raise ValueError(f"JPEG: {precision}-bit samples; nvJPEG decodes 8-bit JPEGs only "
+                         "(Pillow refuses them too)")
+    if components not in (1, 3, 4):
+        raise ValueError(f"JPEG: {components} components; the decode takes gray, YCbCr and "
+                         "CMYK/YCCK JPEGs")
+    nvjpeg = _nvjpeg_instance()
     with torch.cuda.device(device):
-        out = _nvjpeg.decode(data, device)
+        out = nvjpeg.decode(data, device)
     with _nvjpeg_lock:
         decode_jpeg.decodes += 1
     return out

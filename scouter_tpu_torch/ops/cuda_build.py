@@ -31,7 +31,7 @@ CSRC = Path(__file__).resolve().parents[1] / "csrc"
 BUILD_DIR = Path(__file__).resolve().parents[2] / "build" / "kernels"
 NVCC_FLAGS = ("-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17", "-O3",
               "-shared", "-Xcompiler", "-fPIC")
-SOURCES = ("xslot_fwd", "xslot_bwd", "render_heatmaps", "jpeg_decode")
+SOURCES = ("xslot_fwd", "xslot_fwd_tiled", "xslot_bwd", "render_heatmaps", "jpeg_decode")
 # per source: the toolkit libraries it links
 LIBS = {"jpeg_decode": ("nvjpeg",)}
 

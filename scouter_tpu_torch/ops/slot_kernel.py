@@ -31,12 +31,15 @@ plain version, and its fake implementation gives the outputs' shapes and
 dtypes, so ``torch.export`` traces the slot head (ctypes it cannot trace).
 
 Each batch element runs on one thread-block cluster of ``c`` CTAs that split
-its slots; ``_plan`` chooses ``c``. Where the backward's share of an element
-does not fit in a cluster of 8 (S=1000 at N=81, N=196 at S=30), it takes its
-tiled route instead: each iteration a chain of launches over the batch, with
-its intermediates in device memory. The wrapper takes the plain versions only
-for tensors on the CPU; for CUDA tensors it launches the kernels or raises,
-with or without grad.
+its slots; ``_plan`` chooses ``c``. Where an element's share does not fit in a
+cluster of 8, the kernel takes its tiled route instead: each iteration a chain
+of launches over the batch, with its intermediates in device memory. The
+backward does so at S=1000 at N=81 and N=196 at S=30
+(``csrc/xslot_bwd.cu``), the forward at N=784 at S=30 (output stride 8) and
+S=1000 at N=196 (the CUB recipe at 448 px; ``csrc/xslot_fwd_tiled.cu``).
+The route is chosen by shape alone, never after a launch failed. The wrapper
+takes the plain versions only for tensors on the CPU; for CUDA tensors it
+launches the kernels or raises, with or without grad.
 """
 
 from __future__ import annotations
@@ -49,8 +52,8 @@ import torch
 
 from .gru import GRUParams
 
-__all__ = ["Plan", "TiledPlan", "TiledProduct", "tiled_plan", "xslot_bwd_ref", "xslot_fwd_ref",
-           "xslot_iterations_fused", "xslot_iterations_ref"]
+__all__ = ["Plan", "TiledFwdPlan", "TiledPlan", "TiledProduct", "tiled_fwd_plan", "tiled_plan",
+           "xslot_bwd_ref", "xslot_fwd_ref", "xslot_iterations_fused", "xslot_iterations_ref"]
 
 # csrc/xslot_common.cuh: threads per CTA, columns per staged GRU weight tile
 # and the portable cluster limit; csrc/xslot_bwd.cu: the most 4 x 4 tiles
@@ -170,8 +173,8 @@ class Plan(NamedTuple):
     ``smem_bytes`` of dynamic shared memory; ``resident``: all of the GRU
     weights in shared memory (else they stream through it in tiles);
     ``clusters``: how many such clusters the card holds at once, and
-    ``ctas_per_sm`` the CTAs that makes on one SM when it is full. The
-    backward's tiled route is ``cluster`` 0 (``TILED``)."""
+    ``ctas_per_sm`` the CTAs that makes on one SM when it is full. A tiled
+    route is ``cluster`` 0 (``TILED``)."""
 
     cluster: int
     slots_per_cta: int
@@ -187,9 +190,11 @@ class Plan(NamedTuple):
     def launches(self, kind: str) -> int:
         """Launches of one call on this cluster plan: the forward's kernel,
         or the backward's gradient kernel and its fixed-order sum. The tiled
-        route's count is ``TiledPlan.launches``."""
+        routes' counts are ``TiledFwdPlan.launches`` and
+        ``TiledPlan.launches``."""
         if self.tiled:
-            raise ValueError("the tiled route's launches are TiledPlan.launches")
+            raise ValueError("the tiled routes' launches are TiledFwdPlan.launches and "
+                             "TiledPlan.launches")
         return 1 if kind == "fwd" else 2
 
 
@@ -228,8 +233,8 @@ def _plan(b: int, n: int, s: int, d: int, kind: str, max_smem: int, sms: int, sm
     ``c`` <= S. The forward keeps the GRU weights resident where they fit
     beside its share; the backward always does, and holds dk and dv in
     registers, ``_KV_TILES`` 4 x 4 tiles of each a thread at most. Where 8
-    CTAs cannot hold the shares (or a thread dk and dv) the backward takes
-    its tiled route (``TILED``) and the forward raises ``ValueError``."""
+    CTAs cannot hold the shares (or a thread dk and dv) the kernel takes its
+    tiled route (``TILED``)."""
     top = min(_MAX_CLUSTER, s)
     kv_fits = kind == "fwd" or -(-n // 4) * (d // 4) <= _KV_TILES * _THREADS
 
@@ -246,13 +251,8 @@ def _plan(b: int, n: int, s: int, d: int, kind: str, max_smem: int, sms: int, sm
         return active(c, share(c), resident) if nbytes <= max_smem and kv_fits else 0
 
     fits = [c for c in range(1, top + 1) if clusters(c) > 0]
-    if not fits and kind == "bwd":
-        return TILED
     if not fits:
-        raise ValueError(
-            f"xslot {kind} kernel: S={s}, N={n}, d={d} needs {footprint(top)[0]} bytes of "
-            f"shared memory per CTA even split over a cluster of {top} CTAs; the card "
-            f"allows {max_smem} and a portable cluster at most {_MAX_CLUSTER} CTAs")
+        return TILED
     c = fits[0]
     while c < top and b <= clusters(c + 1):
         c += 1
@@ -304,6 +304,33 @@ class TiledPlan(NamedTuple):
                 + int(self.bf16))
 
 
+class TiledFwdPlan(NamedTuple):
+    """The forward's tiled route at one shape (``csrc/xslot_fwd_tiled.cu``):
+    its products by name (``TILED_FWD_PRODUCTS``: the dots, the update x and
+    the GRU's gates gi|gh), whether the dots' row sums ride in their
+    product's epilogue (``fused``: N <= the tile's width), the scratch in
+    floats, whether hist is written and whether the inputs are bf16."""
+
+    products: Dict[str, TiledProduct]
+    fused: bool
+    scratch_floats: int
+    hist: bool = False
+    bf16: bool = False
+
+    def launches(self, iters: int) -> int:
+        """The launches ``tiled_fwd`` makes in one call of ``iters``
+        iterations: per iteration the dots (and their row pass where the
+        epilogue cannot take it), the attention pass and x; per GRU gi|gh and
+        the gate pass; the copy of the initial slots into hist[:, 0] where
+        hist is written; with bf16 inputs the pass that converts them first.
+        ``chip_smoke.py`` holds it to the count of one call on the card."""
+        return (iters * (3 if self.fused else 4) + 2 * (iters - 1) + int(self.hist)
+                + int(self.bf16))
+
+
+TILED_FWD_PRODUCTS = ("dots", "x", "gates")
+
+
 def _cdiv(a: int, b: int) -> int:
     return -(-a // b)
 
@@ -347,10 +374,33 @@ def tiled_plan(b: int, n: int, s: int, d: int, sms: int, bf16: bool = False) -> 
     return TiledPlan(products, fused, scratch, bf16)
 
 
+def _up4(x: int) -> int:
+    return -(-x // 4) * 4
+
+
+def tiled_fwd_plan(b: int, n: int, s: int, d: int, sms: int, hist: bool = False,
+                   bf16: bool = False) -> TiledFwdPlan:
+    """The forward's tiled route at (B, N, S, d) on a card of ``sms`` SMs, as
+    ``fwd_plan`` of csrc/xslot_fwd_tiled.cu has it: the backward's products
+    of the same shapes; ``chip_smoke.py`` holds this copy to the library's
+    ``xslot_fwd_tiled_plan`` and scratch size."""
+    bs = b * s
+    shapes = dict(dots=(s, n, d, b, 1, False), x=(s, d, n, b, 1, False),
+                  gates=(bs, 3 * d, d, 1, 2, False))
+    products = {name: _plan_product(*shape, sms) for name, shape in shapes.items()}
+    # dots (B, S, N), rs (B, S), gi and gh (B, S, 3d), without hist the slots
+    # of two iterations, with bf16 inputs their f32 copies
+    scratch = (_up4(bs * n) + _up4(bs) + 6 * bs * d + (0 if hist else 2 * bs * d)
+               + (2 * b * n * d + s * d + 6 * d * d + 6 * d if bf16 else 0))
+    return TiledFwdPlan(products, n <= products["dots"].tile_cols, scratch, hist, bf16)
+
+
 _FWD_SIGNATURE = ([ctypes.c_void_p] * 10 + [ctypes.c_int] * 5
                   + [ctypes.c_float] + [ctypes.c_int] * 3 + [ctypes.c_void_p])
 _BWD_SIGNATURE = ([ctypes.c_void_p] * 17 + [ctypes.c_int] * 5
                   + [ctypes.c_float, ctypes.c_int, ctypes.c_int, ctypes.c_void_p])
+_FWD_TILED_SIGNATURE = ([ctypes.c_void_p] * 11 + [ctypes.c_int] * 5
+                        + [ctypes.c_float, ctypes.c_int, ctypes.c_void_p])
 
 
 def _library(name: str):
@@ -358,7 +408,13 @@ def _library(name: str):
 
     lib = load(name)
     fn = getattr(lib, name)
-    if fn.argtypes is None:
+    if fn.argtypes is None and name == "xslot_fwd_tiled":
+        fn.argtypes, fn.restype = _FWD_TILED_SIGNATURE, ctypes.c_int
+        lib.xslot_fwd_tiled_scratch_floats.argtypes = [ctypes.c_int] * 6
+        lib.xslot_fwd_tiled_scratch_floats.restype = ctypes.c_size_t
+        lib.xslot_fwd_tiled_plan.argtypes = [ctypes.c_int] * 4 + [ctypes.POINTER(ctypes.c_int)]
+        lib.xslot_fwd_tiled_plan.restype = ctypes.c_int
+    elif fn.argtypes is None:
         fn.argtypes = _FWD_SIGNATURE if name == "xslot_fwd" else _BWD_SIGNATURE
         fn.restype = ctypes.c_int
         smem = getattr(lib, f"{name}_smem_bytes")
@@ -409,9 +465,7 @@ def _check_dim(d):
 def launch_plan(kind: str, b: int, n: int, s: int, d: int, device, bf16: bool = False) -> Plan:
     """``_plan`` for the card that holds ``device``, with its own count of
     the clusters it holds at once for the instance of f32 or bf16 inputs
-    (the shared memory is the same: both stage f32). The backward plans
-    where the forward does (it reads the forward's hist): past the
-    forward's limit its tiled route raises the forward's ``ValueError``."""
+    (the shared memory is the same: both stage f32)."""
     dev = device.index if device.index is not None else torch.cuda.current_device()
     return _device_plan(kind, b, n, s, d, dev, bf16)
 
@@ -433,10 +487,7 @@ def _device_plan(kind, b, n, s, d, dev, bf16):
             _raise_on(lib, -got, f"xslot {kind} occupancy query")
         return got
 
-    plan = _plan(b, n, s, d, kind, lib.xslot_max_smem(dev), sms, smem, active)
-    if plan.tiled:
-        _device_plan("fwd", b, n, s, d, dev, bf16)
-    return plan
+    return _plan(b, n, s, d, kind, lib.xslot_max_smem(dev), sms, smem, active)
 
 
 def launch_tiled_plan(b: int, n: int, s: int, d: int, device, bf16: bool = False) -> TiledPlan:
@@ -452,6 +503,22 @@ def launch_tiled_plan(b: int, n: int, s: int, d: int, device, bf16: bool = False
     products = {name: TiledProduct(*out[3 * i:3 * i + 3])
                 for i, name in enumerate(TILED_PRODUCTS)}
     return TiledPlan(products, n <= products["dots"].tile_cols, scratch, bf16)
+
+
+def launch_tiled_fwd_plan(b: int, n: int, s: int, d: int, device, hist: bool = False,
+                          bf16: bool = False) -> TiledFwdPlan:
+    """The forward's tiled route's plan as the C library makes it on the card
+    that holds ``device`` (``xslot_fwd_tiled_plan`` and
+    ``xslot_fwd_tiled_scratch_floats``)."""
+    lib = _library("xslot_fwd_tiled")
+    out = (ctypes.c_int * (3 * len(TILED_FWD_PRODUCTS)))()
+    with torch.cuda.device(device):
+        err = lib.xslot_fwd_tiled_plan(b, n, s, d, out)
+        scratch = lib.xslot_fwd_tiled_scratch_floats(b, n, s, d, int(hist), int(bf16))
+    _raise_on(lib, -err, "xslot forward tiled plan")
+    products = {name: TiledProduct(*out[3 * i:3 * i + 3])
+                for i, name in enumerate(TILED_FWD_PRODUCTS)}
+    return TiledFwdPlan(products, n <= products["dots"].tile_cols, scratch, hist, bf16)
 
 
 def _raise_on(lib, err, what):
@@ -481,21 +548,47 @@ def _launch(k, v, initial_slots, w_ih, w_hh, b_ih, b_hh, iters, emit_hist):
     outs = (upd, attn, hist) if emit_hist else (upd, attn)
     if b == 0:
         return outs
-    lib = _library("xslot_fwd")
-    with torch.cuda.device(k.device):
-        stream = torch.cuda.current_stream(k.device).cuda_stream
-        err = lib.xslot_fwd(k.data_ptr(), v.data_ptr(), initial_slots.data_ptr(),
-                            w_ih.data_ptr(), w_hh.data_ptr(), b_ih.data_ptr(), b_hh.data_ptr(),
-                            upd.data_ptr(), attn.data_ptr(),
-                            hist.data_ptr() if emit_hist else None,
-                            b, n, s, d, iters, float(d) ** -0.5,
-                            int(dtype == torch.bfloat16), plan.cluster, int(plan.resident),
-                            stream)
-    _raise_on(lib, err, "xslot forward kernel")
+    if plan.tiled:
+        _launch_tiled(k, v, initial_slots, w_ih, w_hh, b_ih, b_hh, iters, outs)
+    else:
+        lib = _library("xslot_fwd")
+        with torch.cuda.device(k.device):
+            stream = torch.cuda.current_stream(k.device).cuda_stream
+            err = lib.xslot_fwd(k.data_ptr(), v.data_ptr(), initial_slots.data_ptr(),
+                                w_ih.data_ptr(), w_hh.data_ptr(), b_ih.data_ptr(),
+                                b_hh.data_ptr(), upd.data_ptr(), attn.data_ptr(),
+                                hist.data_ptr() if emit_hist else None,
+                                b, n, s, d, iters, float(d) ** -0.5,
+                                int(dtype == torch.bfloat16), plan.cluster, int(plan.resident),
+                                stream)
+        _raise_on(lib, err, "xslot forward kernel")
     xslot_iterations_fused.launches += 1
     if emit_hist:
         xslot_iterations_fused.hist_launches += 1
     return outs
+
+
+def _launch_tiled(k, v, initial_slots, w_ih, w_hh, b_ih, b_hh, iters, outs):
+    """Run ``csrc/xslot_fwd_tiled.cu`` into ``outs`` (upd, attn[, hist]) on
+    checked CUDA tensors: the forward where no cluster of 8 holds an
+    element."""
+    b, n, d = k.shape
+    s = initial_slots.shape[0]
+    hist = outs[2] if len(outs) == 3 else None
+    bf16 = k.dtype == torch.bfloat16
+    lib = _library("xslot_fwd_tiled")
+    with torch.cuda.device(k.device):
+        scratch = torch.empty(
+            lib.xslot_fwd_tiled_scratch_floats(b, n, s, d, int(hist is not None), int(bf16)),
+            dtype=torch.float32, device=k.device)
+        stream = torch.cuda.current_stream(k.device).cuda_stream
+        err = lib.xslot_fwd_tiled(*(t.data_ptr() for t in (k, v, initial_slots, w_ih, w_hh,
+                                                            b_ih, b_hh, outs[0], outs[1])),
+                                  hist.data_ptr() if hist is not None else None,
+                                  scratch.data_ptr(), b, n, s, d, iters, float(d) ** -0.5,
+                                  int(bf16), stream)
+    _raise_on(lib, err, "xslot forward tiled route")
+    xslot_iterations_fused.fwd_tiled_launches += 1
 
 
 def _launch_bwd(k, v, w_ih, w_hh, b_ih, b_hh, hist, du, dattn):
@@ -651,15 +744,15 @@ def xslot_iterations_fused(k, v, initial_slots, w_ih, w_hh, b_ih, b_hh, iters: i
     the inputs' dtype; otherwise the forward kernel runs without hist. CPU
     tensors take the plain versions either way.
 
-    Limits of the CUDA kernels, each raising ``ValueError``: d a multiple of
-    4 up to 1024; each CTA of a cluster of at most 8 holds all of k and v
-    and its share of the slots in shared memory, so at d=64 the forward runs
-    up to N=343 at S=30 and S=1024 at N=81 (S=416 at N=196). The backward
-    runs wherever the forward does: on a cluster where its share fits beside
-    the whole of the GRU weights and each thread holds its part of dk and dv
-    (N/4 * d/4 <= 768, N rounded up): at d=64 up to N=192 at S=30 and
-    S=192 at N=81, and up to d=84 at N=49. Elsewhere it runs on its tiled
-    route.
+    Limits of the CUDA kernels: d a multiple of 4 up to 1024 (else
+    ``ValueError``). The forward runs on a cluster where each of at most 8
+    CTAs holds all of k and v and its share of the slots in shared memory:
+    at d=64 up to N=343 at S=30 and S=1024 at N=81 (S=416 at N=196). The
+    backward runs on a cluster where its share fits beside the whole of the
+    GRU weights and each thread holds its part of dk and dv (N/4 * d/4 <=
+    768, N rounded up): at d=64 up to N=192 at S=30 and S=192 at N=81, and
+    up to d=84 at N=49. Past those, each takes its tiled route, which any
+    (B, N, S) the card's memory holds.
     """
     args = (k, v, initial_slots, w_ih, w_hh, b_ih, b_hh)
     if torch.is_grad_enabled() and any(t.requires_grad for t in args):
@@ -668,13 +761,15 @@ def xslot_iterations_fused(k, v, initial_slots, w_ih, w_hh, b_ih, b_hh, iters: i
 
 
 # Counts of the CUDA launches, kept where the kernels launch (a loaded export
-# artifact's calls count too; the CPU path does not count): launches of the
-# forward kernel, with and without hist, of those the launches that emitted
-# hist, calls of the backward kernel on a cluster (each one gradient launch
-# and its fixed-order sum) and calls of its tiled route (each its chain of
-# launches), and of these two the calls with bfloat16 residuals
+# artifact's calls count too; the CPU path does not count): calls of the
+# forward, with and without hist, on either route, of those the calls that
+# emitted hist and the calls of its tiled route (each its chain of launches),
+# calls of the backward kernel on a cluster (each one gradient launch and its
+# fixed-order sum) and calls of its tiled route, and of these two the calls
+# with bfloat16 residuals
 xslot_iterations_fused.launches = 0
 xslot_iterations_fused.hist_launches = 0
+xslot_iterations_fused.fwd_tiled_launches = 0
 xslot_iterations_fused.bwd_launches = 0
 xslot_iterations_fused.bwd_tiled_launches = 0
 xslot_iterations_fused.bwd_bf16_launches = 0

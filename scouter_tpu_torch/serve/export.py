@@ -94,7 +94,8 @@ class ServingModule(nn.Module):
 
 
 def _serving_module(cfg, state_dict, compute_dtype, include_maps, dev,
-                    quant: Optional[str] = None) -> ServingModule:
+                    quant: Optional[str] = None,
+                    backbone_kwargs: Optional[dict] = None) -> ServingModule:
     """The eval-mode ``ServingModule`` with ``state_dict``'s weights on
     ``dev``, its parameters out of autograd, the ``quant`` policy on it."""
     from ..core.config import check_serving_supported
@@ -104,7 +105,8 @@ def _serving_module(cfg, state_dict, compute_dtype, include_maps, dev,
 
     check_serving_supported(cfg)
     policy = policy_of(quant) if quant else None
-    model = build_slot_model(cfg, fused_slot=True, compute_dtype=compute_dtype, device=dev)
+    model = build_slot_model(cfg, fused_slot=True, compute_dtype=compute_dtype, device=dev,
+                             backbone_kwargs=backbone_kwargs)
     model.load_state_dict(state_dict)
     model.requires_grad_(False)
     if policy is not None and set_conv_policy(model, policy) == 0:
@@ -119,7 +121,8 @@ def _as_images(images_u8, dev) -> torch.Tensor:
 
 def make_serving_fn(cfg, state_dict: Mapping[str, torch.Tensor], *,
                     compute_dtype: Optional[torch.dtype] = None, include_maps: bool = True,
-                    quant: Optional[str] = None, device="cuda"):
+                    quant: Optional[str] = None, device="cuda",
+                    backbone_kwargs: Optional[dict] = None):
     """Build ``fn(images_u8) -> dict`` with the weights of ``state_dict``
     (the reference's names; ``models.convert.variables_to_state_dict`` makes
     one from JAX variables) loaded on ``device``.
@@ -131,11 +134,14 @@ def make_serving_fn(cfg, state_dict: Mapping[str, torch.Tensor], *,
     torch.bfloat16) is the backbone's, computed over f32 parameters and
     BatchNorm statistics as in the JAX package; the slot head computes in
     f32 unless ``cfg.slot_head_dtype == 'compute'``. ``quant='int8'`` runs
-    the backbone's pointwise convs in int8 (``serve/quant.py``)."""
+    the backbone's pointwise convs in int8 (``serve/quant.py``).
+    ``backbone_kwargs`` go to ``build_slot_model`` (e.g. ``{"output_stride":
+    8}`` or ``{"s2d_stem": True}``), which the config does not name."""
     from ..core.device import resolve_device
 
     dev = resolve_device(device)
-    module = _serving_module(cfg, state_dict, compute_dtype, include_maps, dev, quant)
+    module = _serving_module(cfg, state_dict, compute_dtype, include_maps, dev, quant,
+                             backbone_kwargs)
 
     def fn(images_u8):
         # inference_mode is thread-local: entered here, in the calling thread

@@ -1,9 +1,9 @@
 """The port stands alone and runs on the card by default:
 
 - importing every ``scouter_tpu_torch`` module, ``chip_smoke`` and
-  ``examples/torch_profile_{serve,train}`` loads neither JAX, flax nor the JAX
-  package (checked in a fresh interpreter,
-  since this test process has JAX loaded already);
+  ``examples/torch_profile_{serve,train}``, and every ``examples/torch_*.py``,
+  loads neither JAX, flax nor the JAX package (checked in a fresh
+  interpreter, since this test process has JAX loaded already);
 - the entry points, with their default arguments, raise on a host without
   CUDA instead of running on the CPU;
 - under grad the xSlot kernel's wrapper goes through its checkpointed
@@ -47,6 +47,29 @@ def test_port_imports_no_jax_and_no_jax_package():
     assert out.returncode == 0, out.stderr
     n_modules, bad = out.stdout.split(" ", 1)
     assert int(n_modules) >= 15
+    assert bad.strip() == "[]", bad
+
+
+_EXAMPLES_PROBE = r"""
+import importlib, pathlib, sys
+sys.path.insert(0, "examples")
+names = sorted(p.stem for p in pathlib.Path("examples").glob("torch_*.py"))
+for name in names:
+    importlib.import_module(name)
+bad = sorted(m for m in sys.modules
+             if m.split(".")[0] in ("jax", "jaxlib", "flax", "scouter_tpu"))
+print(len(names), bad)
+"""
+
+
+def test_example_scripts_import_no_jax_and_no_jax_package():
+    # every examples/torch_*.py, the measuring and recipe scripts included
+    env = dict(os.environ, PYTHONPATH=str(ROOT))
+    out = subprocess.run([sys.executable, "-c", _EXAMPLES_PROBE], cwd=ROOT, env=env,
+                         capture_output=True, text=True, timeout=300)
+    assert out.returncode == 0, out.stderr
+    n_scripts, bad = out.stdout.split(" ", 1)
+    assert int(n_scripts) >= 14
     assert bad.strip() == "[]", bad
 
 

@@ -29,8 +29,7 @@ def h100_plan(b, n, s, kind, d=64):
     """``launch_plan`` on a model of the H100: ``_plan`` with the kernels'
     shared-memory layouts, and for cudaOccupancyMaxActiveClusters the CTAs
     per SM that shared memory, 2048 threads and registers allow, over all
-    SMs (it ignores how the SMs group into GPCs); the backward's tiled route
-    plans the forward too, as ``launch_plan`` does, raising past its limit."""
+    SMs (it ignores how the SMs group into GPCs)."""
     def smem(s_cta, resident):
         return _smem_bytes(kind, n, s_cta, d, resident)
 
@@ -39,10 +38,7 @@ def h100_plan(b, n, s, kind, d=64):
                      2048 // 256, REG_CTAS[kind, resident])
         return H100_SMS * per_sm // c
 
-    plan = _plan(b, n, s, d, kind, H100_SMEM, H100_SMS, smem, active)
-    if plan.tiled:
-        h100_plan(b, n, s, "fwd", d)
-    return plan
+    return _plan(b, n, s, d, kind, H100_SMEM, H100_SMS, smem, active)
 
 
 def k1_inputs(seed, b, n, s, d=64, magnitudes="tests"):
@@ -259,9 +255,10 @@ def test_cluster_plan_counts_its_launches(kind, launches):
 
 @pytest.mark.parametrize("kind,s", [("fwd", 2000), ("bwd", 2000)])
 def test_plan_past_eight_ctas_raises(kind, s):
-    # past the forward's limit (S=1024 at N=81) the backward raises its error
-    with pytest.raises(ValueError, match="cluster of 8"):
-        h100_plan(16, 81, s, kind)
+    # past the forward's cluster reach (S=1024 at N=81) both take their tiled
+    # routes, where the forward raised ValueError before it had one
+    plan = h100_plan(16, 81, s, kind)
+    assert plan.tiled and plan.cluster == 0
 
 
 @pytest.mark.parametrize("b,n,s", [(16, 81, 1000), (64, 81, 1000), (70, 196, 30)])
@@ -382,5 +379,7 @@ def test_plan_takes_the_cards_footprint_and_occupancy():
     assert (plan.cluster, plan.slots_per_cta, plan.smem_bytes, plan.clusters) == (4, 8, 80, 6)
     assert plan.ctas_per_sm == 1 and plan.resident
     assert all(r for _, _, r in seen)  # the backward asks only for resident weights
-    with pytest.raises(ValueError, match="cluster of 8"):
-        _plan(4, 49, 30, 64, "fwd", 1000, 132, lambda s_cta, resident: 1001, active)
+    # a footprint past the card's shared memory: the tiled route, which
+    # raised ValueError for the forward before it had one
+    assert _plan(4, 49, 30, 64, "fwd", 1000, 132, lambda s_cta, resident: 1001,
+                 active).tiled

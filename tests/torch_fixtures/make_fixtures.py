@@ -12,7 +12,13 @@ The images are made from a seed with numpy and written with Pillow:
   ``palette_trns_240x180.png`` (palette with ``tRNS``), ``gray_alpha_200x150.png``
   and ``rgba_220x160.png`` (Pillow's encoder, which picks its own filters);
 - ``staged_260.npz``: Pillow's ``convert("RGB").resize((260, 260), BILINEAR)``
-  of each JPEG, the pixels that nvJPEG's decode is held to on the card.
+  of each JPEG, the pixels that nvJPEG's decode is held to on the card;
+- four-component JPEGs: ``cmyk_400x300.jpg``, CMYK as Pillow writes it
+  (inverted, under an Adobe marker with transform 0), and
+  ``ycck_400x300.jpg``, the same file with the marker's transform set to 2,
+  which makes its stored planes YCCK to every decoder (Pillow cannot write
+  YCCK, and this host has no ``cjpeg``); ``staged_cmyk_260.npz`` holds
+  Pillow's staged 260 px of both.
 
 A CPU test regenerates ``staged_260.npz`` with Pillow and checks it.
 """
@@ -82,6 +88,29 @@ def staged(path):
         return np.asarray(im.convert("RGB").resize((STAGE, STAGE), Image.BILINEAR))
 
 
+CMYK_JPEGS = ("cmyk_400x300.jpg", "ycck_400x300.jpg")
+
+
+def write_cmyk():
+    """The four-component fixtures and their staged pixels."""
+    rgb = scene(400, 300, 20).astype(np.int32)
+    cmy = 255 - rgb
+    k = (cmy.min(axis=-1) * 3) // 4  # a black plane that varies over the scene
+    cmyk = np.dstack([cmy - k[..., None], k]).astype(np.uint8)
+    buf = io.BytesIO()
+    Image.fromarray(cmyk, "CMYK").save(buf, "JPEG", quality=90)
+    data = buf.getvalue()
+    at = data.index(b"Adobe") + 11  # the APP14 payload's transform byte
+    if data[at] != 0:
+        raise ValueError("Pillow wrote a CMYK JPEG without Adobe transform 0")
+    ycck = data[:at] + b"\x02" + data[at + 1:]
+    for name, blob in zip(CMYK_JPEGS, (data, ycck)):
+        with open(os.path.join(HERE, name), "wb") as f:
+            f.write(blob)
+    np.savez_compressed(os.path.join(HERE, "staged_cmyk_260.npz"),
+                        **{name: staged(os.path.join(HERE, name)) for name in CMYK_JPEGS})
+
+
 def main():
     rgb = {name: scene(w, h, seed) for seed, (name, w, h) in enumerate(
         (("a", 500, 375), ("b", 375, 500), ("c", 500, 333), ("d", 500, 375)))}
@@ -100,6 +129,7 @@ def main():
 
     np.savez_compressed(os.path.join(HERE, "staged_260.npz"),
                         **{name: staged(os.path.join(HERE, name)) for name in JPEGS})
+    write_cmyk()
 
 
 if __name__ == "__main__":
