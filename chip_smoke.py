@@ -38,16 +38,21 @@ Phases (any failure exits non-zero; nothing is caught and passed over):
    from run to run, its launches a call (graph nodes, held to the
    profiler's launch calls) held to its plan's, and its time in a CUDA
    graph beside the f32 instance's; then the forward's tiled route
-   (``csrc/xslot_fwd_tiled.cu``, where no cluster of 8 holds an element) at
-   (70, 784, 30), (16, 784, 30) with hist and (16, 196, 1000) with hist (f32,
-   and bf16 inputs at the last): its plan (cluster 0; its own plan from the
-   C library held to ``tiled_fwd_plan``), upd, attn and hist against the
+   (``csrc/xslot_fwd_tiled.cu``, one launch a call: a cluster of up to 16
+   CTAs an element, where no cluster of 8 holds one) at (70, 784, 30), (16,
+   784, 30) with hist and (16, 196, 1000) with hist (f32, and bf16 inputs
+   at the last): its plan (cluster 0; its own plan on the card held to
+   ``split_fwd_plan``, its Python copy), upd, attn and hist against the
    plain version at the cluster forward's bars (upd 1e-4; at S=1000 upd
    1e-3, attn 2e-2), two calls bit for bit, its launches a call (graph
    nodes, held to the profiler's launch calls) held to
-   ``TiledFwdPlan.launches``, its time, the plain version's and the bound;
-   and the backward's tiled route on those hist shapes' residuals against
-   ``xslot_bwd_ref``, its launches held to its plan;
+   ``SplitFwdPlan.launches`` and to at most 2, its time beside the chain of
+   launches it replaced, the plain version's and the bound; and the
+   backward's tiled route on those hist shapes' residuals against
+   ``xslot_bwd_ref``, its launches held to its plan; then K1 at slot widths
+   30 and 1100 (zero-padded by the wrapper: cluster routes at (70, 49, 30),
+   tiled routes at (4, 49, 30)) both ways against the plain version, and a
+   flagship train step at ``--hidden_dim 1100`` card vs CPU;
 4. serve flagship resnest26d + xSlot (f32, seeded random weights) through
    ``InferenceEngine`` (requests from several threads) and the HTTP server
    (``.npy`` bodies, one with ``?maps=1``, and ``/healthz``), counting the
@@ -111,9 +116,10 @@ Phases (any failure exits non-zero; nothing is caught and passed over):
    hist-free; 401 PNGs read back); the HTTP server answering a JPEG body
    and a PNG body, whose logits equal a ``.npy`` body's of the same staged
    pixels; Pillow never imported (phases 12-14 run before phase 11); the
-   four-component fixtures (CMYK, and YCCK under an Adobe transform of 2)
-   through ``FolderDataset.gather`` on the card, nvJPEG's planes then the
-   CMYK kernel (counted once an image), staged to 260 px against Pillow's
+   four-component fixtures (CMYK, YCCK under an Adobe transform of 2, and
+   CMYK with three components subsampled 2x2 and 2x1) through
+   ``FolderDataset.gather`` on the card, nvJPEG's planes then the CMYK
+   kernel (counted once an image), staged to 260 px against Pillow's
    (mean within JPEG_MEAN_LEVEL_BAR), and the kernel on nvJPEG's own planes
    bit for bit with its plain version, with its time and bound;
 12. a bf16 slot head (``--compute_dtype bfloat16 --slot_head_dtype
@@ -128,7 +134,10 @@ Phases (any failure exits non-zero; nothing is caught and passed over):
    in bf16, each verified by the CLI itself; loaded here and run at batches
    1, 4 and 70 against the live ``make_serving_fn``: logits within the
    CLI's tolerances, maps within 1 level, K1 launched once a call through
-   the artifact; int8 serving at batch 70 within 0.05 of f32's logit scale
+   the artifact; an artifact for both device kinds (one program each, one
+   file) loaded on the card and on the CPU, each within the CLI's f32
+   tolerances of the live function there, and a cpu-only artifact refused
+   on the card; int8 serving at batch 70 within 0.05 of f32's logit scale
    with the decisive top-1 equal (tests/test_serve.py:394-418);
 14. img/s at batch 70 of the live function in f32, bf16 and int8 (f32 and
    bf16 compute) and of both artifacts, and the train img/s of the bf16 and
@@ -892,36 +901,63 @@ def phase_kernel_grad_tiled(entry):
 # bars as the cluster forward's (bench.py:85-86, its S=1000 bars)
 FWD_TILED_SHAPES = (((70, 784, 30), False, 1e-4, 1e-4), ((16, 784, 30), True, 1e-4, 1e-4),
                     ((16, 196, 1000), True, 1e-3, 2e-2))
+# PR 17's chain of launches that the route replaced, as this script timed it
+# then in a CUDA graph (NVIDIA H100 80GB HBM3 at 700.00 W; PERF.md's kernel
+# table): printed beside the route's time for the reader, neither held nor
+# part of the kernels line, since no run can measure the chain any more
+FWD_TILED_CHAIN_MS = {"70,784,30": 0.36363, "16,784,30,hist": 0.25037,
+                      "16,196,1000,hist": 0.34172, "16,196,1000,hist,bf16": 0.34378}
 
 
-def check_fwd_tiled_plan(b, n, s, d, hist, bf16=False):
-    """The forward's tiled plan from the C library against
-    ``slot_kernel.tiled_fwd_plan``, its Python copy; returns it."""
+def check_fwd_tiled_plan(b, n, s, d, bf16=False):
+    """The forward's tiled plan on the card (``launch_split_fwd_plan``: the C
+    library's shared memory, scratch and the card's occupancy) against
+    ``split_fwd_plan`` with the Python layout (``_split_smem_bytes``,
+    ``_split_scratch_floats``) on the same occupancy; returns it."""
     import torch
 
     from scouter_tpu_torch.ops import slot_kernel
 
+    plan = slot_kernel.launch_split_fwd_plan(b, n, s, d, torch.device("cuda"), bf16)
+    lib = slot_kernel._library("xslot_fwd_tiled")
     sms = torch.cuda.get_device_properties(0).multi_processor_count
-    plan = slot_kernel.launch_tiled_fwd_plan(b, n, s, d, torch.device("cuda"), hist, bf16)
-    py = slot_kernel.tiled_fwd_plan(b, n, s, d, sms, hist, bf16)
+
+    def smem(cs, cn, tile, streamed, spill):
+        return slot_kernel._split_smem_bytes(n, s, d, cs, cn, tile, streamed, spill)
+
+    def occupancy(query):
+        return lambda cs, cn, tile, streamed, spill: query(n, s, d, cs, cn, tile, int(streamed),
+                                                           int(spill), int(bf16))
+
+    py = slot_kernel.split_fwd_plan(b, n, s, d, lib.xslot_max_smem(0), sms, smem,
+                                    occupancy(lib.xslot_fwd_tiled_max_clusters),
+                                    occupancy(lib.xslot_fwd_tiled_max_ctas))
+    unit = "a grid (one cooperative launch)" if plan.grid else "clusters"
+    print(f"xslot_fwd tiled plan B={b} N={n} S={s} d={d}{' bf16' if bf16 else ''}: {unit} of "
+          f"{plan.slot_groups} slot groups x {plan.position_groups} position shares, tiles of "
+          f"{plan.tile} positions, k and v {'streamed' if plan.streamed else 'resident'}, slot "
+          f"buffers {'in scratch' if plan.spill else 'in shared memory'}, {plan.smem_bytes} bytes "
+          f"a CTA, {plan.clusters} {'elements' if plan.grid else 'clusters'} at once, "
+          f"{plan.scratch_floats} floats of scratch", flush=True)
     if plan != py:
-        fail(f"the forward's tiled plan at B={b} N={n} S={s} d={d} is {plan} in the C "
-             f"library and {py} in slot_kernel.tiled_fwd_plan")
+        fail(f"the forward's tiled plan at B={b} N={n} S={s} d={d} is {plan} on the card and "
+             f"{py} in slot_kernel.split_fwd_plan")
     return plan
 
 
 def phase_kernel_fwd_tiled():
     """K1's forward on its tiled route (``csrc/xslot_fwd_tiled.cu``) at
     ``FWD_TILED_SHAPES``, where no cluster of 8 holds an element: the plan
-    (cluster 0, and the route's own plan from the C library held to its
-    Python copy), upd, attn and hist against the plain version at the
-    cluster forward's bars, with bf16 inputs too at (16, 196, 1000), two
-    calls equal bit for bit, the launches of one call (``profiled_launches``)
-    held to ``TiledFwdPlan.launches``, its time in a CUDA graph, the plain
-    version's and the bound; then the backward's tiled route on the hist
-    shapes' residuals against ``xslot_bwd_ref`` (chip_smoke's gradient bar)
-    and its launches held to its plan. Returns the route's kernels-line
-    entry (its ``launches`` filled in by the main path's phases)."""
+    (cluster 0; the route's own plan on the card held to its Python copy),
+    upd, attn and hist against the plain version at the cluster forward's
+    bars, with bf16 inputs too at (16, 196, 1000), two calls equal bit for
+    bit, the launches of one call (``profiled_launches``) held to
+    ``SplitFwdPlan.launches`` and to at most 2, its time in a CUDA graph
+    beside the chain's it replaced, the plain version's and the bound; then
+    the backward's tiled route on the hist shapes' residuals against
+    ``xslot_bwd_ref`` (chip_smoke's gradient bar) and its launches held to
+    its plan. Returns the route's kernels-line entry (its ``launches`` filled
+    in by the main path's phases)."""
     import torch
 
     from scouter_tpu_torch.ops import slot_kernel
@@ -936,7 +972,7 @@ def phase_kernel_fwd_tiled():
         args = [a.to(dtype) for a in xslot_inputs(b, n, s, d, "cuda")]
         if not check_plan("fwd", b, n, s, d, args[0].device, bf16).tiled:
             fail(f"xslot_fwd planned a cluster at {label}, past its reach")
-        plan = check_fwd_tiled_plan(b, n, s, d, hist, bf16)
+        plan = check_fwd_tiled_plan(b, n, s, d, bf16)
         call = lambda: slot_kernel._launch(*args, 3, emit_hist=hist)
         with torch.no_grad():
             before = slot_kernel.xslot_iterations_fused.fwd_tiled_launches
@@ -962,16 +998,20 @@ def phase_kernel_fwd_tiled():
             ms = graph_ms(call, reps=10, iters=10)
             plain_ms = cuda_ms(lambda: slot_kernel.xslot_fwd_ref(*args, emit_hist=hist), 5, 2)
         bound_ms, bound_by = xslot_bound(b, n, s, d, hist_iters=3 if hist else 0)
+        chain = FWD_TILED_CHAIN_MS[label]
         print(f"xslot_fwd tiled route B={b} N={n} S={s}: {per_call} launches a call "
-              f"(TiledFwdPlan.launches {plan.launches(3)}), {ms:.5f} ms in a CUDA graph, "
-              f"plain {plain_ms:.4f} ms, bound {bound_ms:.5f} ms ({bound_by}); products "
-              + ", ".join(f"{k} {p.rows} rows x {p.tile_cols}-column tiles"
-                          for k, p in plan.products.items()), flush=True)
-        if per_call != plan.launches(3):
+              f"(SplitFwdPlan.launches {plan.launches(3)}, bar 2), {ms:.5f} ms in a CUDA graph "
+              f"(PR 17's chain it replaced: {chain} ms then; {chain / ms:.2f}x), plain "
+              f"{plain_ms:.4f} ms, bound {bound_ms:.5f} ms ({bound_by}), {bound_ms / ms:.3f} of "
+              "it", flush=True)
+        if per_call != plan.launches(3) or per_call > 2:
             fail(f"the forward's tiled route made {per_call} launches at {label}, its plan "
-                 f"says {plan.launches(3)}")
-        by_shape[label] = dict(ms=ms, plain_ms=plain_ms, bound_ms=bound_ms, bound_by=bound_by,
-                               launches_per_call=per_call, max_abs_err=max(e_upd, e_attn))
+                 f"says {plan.launches(3)}, the bar is 2")
+        by_shape[label] = dict(ms=ms, plain_ms=plain_ms, bound_ms=bound_ms,
+                               bound_by=bound_by, launches_per_call=per_call,
+                               max_abs_err=max(e_upd, e_attn),
+                               plan=[plan.slot_groups, plan.position_groups, plan.tile,
+                                     plan.streamed, plan.spill, plan.grid])
         if not hist or bf16:
             continue
         # the backward's tiled route on this forward's residuals
@@ -1010,6 +1050,114 @@ def phase_kernel_fwd_tiled():
             "bound_by": cub["bound_by"], "library_ms": None,
             "launches_per_call": cub["launches_per_call"], "launches": 0,
             "by_shape": by_shape}
+
+
+# slot widths the card once refused, each on the routes it takes: 30
+# (padded to 32) on the flagship's shape, cluster routes both ways, and 1100
+# (past 1024, not a power of two) on the tiled routes both ways
+WIDTH_CASES = ((70, 49, 30, 30), (4, 49, 30, 1100))
+
+
+def phase_kernel_widths(card: str):
+    """K1 at slot widths that are not a multiple of 4 or pass 1024
+    (``WIDTH_CASES``), zero-padded by the wrapper: the forward with hist
+    against its plain version (``check_grads``' bar, as a step's forward
+    calls are held: 1e-4, else at most twice the plain f32 version's
+    distance from float64) and equal bit for bit across two calls, its time;
+    the plain version's time and the bound beside it; the backward against
+    ``xslot_bwd_ref`` and the op's gradient through autograd against the
+    plain version's (``check_grads``); then a flagship train step at
+    ``--hidden_dim 1100`` on resnet50 + xSlot, card vs CPU
+    (``phase_step_grads``: every gradient within STEP_GRAD_NORM_BAR in
+    norm), K1 counted in it and its two
+    calls held to their plain versions (``check_grads``): the slot model's
+    sine position embedding takes widths divisible by 4 (as the reference's
+    and the JAX package's, scouter_tpu/ops/position.py:55-61), so 1100 is
+    the width a model reaches that the card refused, and 30 is reached only
+    by the op. Returns the figures."""
+    import torch
+
+    from scouter_tpu_torch.core import ScouterConfig
+    from scouter_tpu_torch.ops import slot_kernel
+
+    names = ("k", "v", "initial_slots", "w_ih", "w_hh", "b_ih", "b_hh")
+    fused, ref = slot_kernel.xslot_iterations_fused, slot_kernel.xslot_iterations_ref
+    out = {}
+    for b, n, s, d in WIDTH_CASES:
+        d4 = -(-d // 4) * 4
+        label = f"{b},{n},{s},d={d}"
+        args = xslot_inputs(b, n, s, d, "cuda")
+        fplan = check_plan("fwd", b, n, s, d4, args[0].device)
+        bplan = check_plan("bwd", b, n, s, d4, args[0].device)
+        if fplan.tiled:
+            check_fwd_tiled_plan(b, n, s, d4)
+        call = lambda: slot_kernel._launch(*args, 3, emit_hist=True)
+        with torch.no_grad():
+            got, again = call(), call()
+            want = slot_kernel.xslot_fwd_ref(*args, emit_hist=True)
+            exact = slot_kernel.xslot_fwd_ref(*(a.double() for a in args), emit_hist=True)
+        torch.cuda.synchronize()
+        if tuple(got[0].shape) != (b, s, d) or tuple(got[2].shape) != (b, 3, s, d):
+            fail(f"xslot_fwd at {label} returned {[tuple(t.shape) for t in got]}")
+        same = all(torch.equal(x, y) for x, y in zip(got, again))
+        err = check_grads(f"xslot_fwd+hist ({'tiled route' if fplan.tiled else 'cluster'}) "
+                          f"at d={d} vs xslot_fwd_ref", b, n, s, ("upd", "attn", "hist"), got,
+                          want, exact)
+        if not same:
+            fail(f"xslot_fwd is not deterministic at {label}")
+        args64 = [a.double() for a in args]
+        with torch.no_grad():
+            upd64, attn64 = ref(*args64)
+        cot64 = (2 * upd64, torch.ones_like(attn64))
+        cot = tuple(t.float() for t in cot64)
+        res = (args[0], args[1], args[3], args[4], args[5], args[6], got[2])
+        with torch.no_grad():
+            grads = slot_kernel._launch_bwd(*res, *cot)
+            ref_grads = slot_kernel.xslot_bwd_ref(*res, *cot)
+            exact_g = slot_kernel.xslot_bwd_ref(*(t.double() for t in res), *cot64)
+        route = "tiled route" if bplan.tiled else f"cluster {bplan.cluster}"
+        check_grads(f"xslot_bwd ({route}) at d={d} vs xslot_bwd_ref", b, n, s, names, grads,
+                    ref_grads, exact_g)
+        if tuple(grads[3].shape) != (3 * d, d) or tuple(grads[5].shape) != (1, 3 * d):
+            fail(f"xslot_bwd at {label} returned {[tuple(g.shape) for g in grads]}")
+        check_grads(f"xslot grad at d={d}", b, n, s, names, xslot_grads(fused, args, cot),
+                    xslot_grads(ref, args, cot), xslot_grads(ref, args64, cot64))
+        with torch.no_grad():
+            ms = graph_ms(call, reps=5, iters=5)
+            plain_ms = cuda_ms(lambda: slot_kernel.xslot_fwd_ref(*args, emit_hist=True), 5, 2)
+        bound_ms, bound_by = xslot_bound(b, n, s, d, hist_iters=3)
+        print(f"xslot_fwd+hist at {label}: {ms:.5f} ms in a CUDA graph on {card}; the plain "
+              f"version {plain_ms:.5f} ms (the kernel {plain_ms / ms:.3f}x its speed), bound "
+              f"{bound_ms:.6f} ms ({bound_by}, at the true width)", flush=True)
+        out[label] = dict(fwd_route=route if fplan.tiled else f"cluster {fplan.cluster}",
+                          bwd_route=route, max_abs_err=err, fwd_ms=ms, plain_ms=plain_ms,
+                          bound_ms=bound_ms, bound_by=bound_by)
+    # resnet50 + xSlot (the output-stride-8 phase's model): its convolutions
+    # before a train-mode BatchNorm have no bias, whose gradient would be zero
+    # in exact arithmetic and f32 noise on both sides, so every gradient is
+    # held to the bar
+    cfg = ScouterConfig(**dict(FLAGSHIP, model="resnet50", hidden_dim=1100))
+    counts, fwd_calls, bwd_calls = phase_step_grads(cfg, 4, 7, seed=31)
+    print(f"--model resnet50 --hidden_dim 1100 train step card vs CPU: K1 "
+          f"{json.dumps(counts)}", flush=True)
+    # the step's own K1 calls, on the features and cotangents it gave them
+    ((fargs, fout),) = [call for call in fwd_calls if len(call[1]) == 3]
+    ((bargs, bout),) = bwd_calls
+    with torch.no_grad():
+        want = slot_kernel.xslot_fwd_ref(*fargs[:7], emit_hist=True)
+        exact = slot_kernel.xslot_fwd_ref(*(t.double() for t in fargs[:7]), emit_hist=True)
+        want_g = slot_kernel.xslot_bwd_ref(*bargs)
+        exact_g = slot_kernel.xslot_bwd_ref(*(t.double() for t in bargs))
+    check_grads("xslot_fwd tiled route in the d=1100 step vs xslot_fwd_ref,", 4, 49, 30,
+                ("upd", "attn", "hist"), fout, want, exact)
+    check_grads("xslot_bwd tiled route in the d=1100 step vs xslot_bwd_ref,", 4, 49, 30, names,
+                bout, want_g, exact_g)
+    if (counts["hist_launches"], counts["fwd_tiled_launches"], counts["bwd_tiled_launches"]) \
+            != (1, 1, 1):
+        fail(f"the --hidden_dim 1100 step's K1 counts {counts}: expected the tiled forward "
+             "with hist and the tiled backward once each")
+    out["hidden_dim_1100_step_k1"] = counts
+    return out
 
 
 BF16_ULP = 2.0 ** -7  # one bf16 ulp at 1.0 (8 bits of significand)
@@ -1987,6 +2135,53 @@ def phase_export_check(cfg, state_dict, paths):
     return calls, lives, int8, images, launches
 
 
+def phase_export_two_kinds(cfg, state_dict, tmp: str):
+    """An artifact for both device kinds (``export_serving(platforms=("cuda",
+    "cpu"))``, one program each, in one file): each program loaded on its
+    device and held to the live serving function there at batch 2 within
+    the export CLI's f32 tolerances (rtol/atol 2e-5), maps within 1 level;
+    a device kind the file holds no program for, refused. Returns the
+    largest logit difference by kind."""
+    import os
+
+    import numpy as np
+    import torch
+
+    from scouter_tpu_torch.serve import export_serving, load_artifact, make_serving_fn, \
+        save_artifact
+    from scouter_tpu_torch.serve.export import artifact_platforms
+
+    path = os.path.join(tmp, "flagship_cuda_cpu.pt2")
+    size = save_artifact(export_serving(cfg, state_dict, platforms=("cuda", "cpu")), path)
+    kinds = artifact_platforms(path)
+    if kinds != ("cuda", "cpu"):
+        fail(f"the two-kind artifact holds programs for {kinds}")
+    images = np.random.RandomState(12).randint(0, 256, (2, cfg.img_size, cfg.img_size, 3),
+                                               np.uint8)
+    errs = {}
+    for kind in kinds:
+        got = load_artifact(path, device=kind)(images)
+        want = make_serving_fn(cfg, state_dict, device=kind)(images)
+        lg, lw = got["logits"].float().cpu().numpy(), want["logits"].float().cpu().numpy()
+        maps = int(np.abs(got["slot_maps"].cpu().numpy().astype(int)
+                          - want["slot_maps"].cpu().numpy().astype(int)).max())
+        errs[kind] = float(np.abs(lg - lw).max())
+        print(f"two-kind artifact ({size / 1e6:.1f} MB) on {kind}: max|d logits| from the live "
+              f"function {errs[kind]:.3e} (bar rtol/atol 2e-5), max|d maps| {maps} (bar 1)",
+              flush=True)
+        if not np.allclose(lg, lw, rtol=2e-5, atol=2e-5) or maps > 1:
+            fail(f"the two-kind artifact's {kind} program differs from the live function")
+    one = os.path.join(tmp, "flagship_cpu_only.pt2")
+    save_artifact(export_serving(cfg, state_dict, platforms=("cpu",)), one)
+    try:
+        load_artifact(one, device="cuda")
+    except ValueError as exc:
+        print(f"a cpu-only artifact on cuda refused: {exc}", flush=True)
+    else:
+        fail("a cpu-only artifact loaded on cuda")
+    return errs
+
+
 def phase_serving_rates(calls, lives, int8, images, card: str):
     """Serving img/s at batch 70 of the live function in f32, bf16 and int8
     (f32 and bf16 compute), and of the loaded f32 and bf16 artifacts."""
@@ -2025,12 +2220,14 @@ def phase_bf16_head_and_export(tmp: str, card: str):
                 proc.kill()
                 proc.wait()
     calls, lives, int8, images, artifact_launches = phase_export_check(cfg, state_dict, paths)
+    two_kinds = phase_export_two_kinds(cfg, state_dict, tmp)
     rates = phase_serving_rates(calls, lives, int8, images, card)
     return {"flagship_k1_counts": flag_counts, "cub_k1_counts": cub_counts,
             "flagship_val_loss": flag_val, "cub_val_loss": cub_val,
             "flagship_train_img_per_s": head_train_rates("flagship", cfg, flag_datasets, card),
             "cub_train_img_per_s": head_train_rates("CUB", cub_cfg, cub_datasets, card),
             "serving_img_per_s": rates, "artifact_launches": artifact_launches,
+            "two_kind_artifact_max_abs_err": two_kinds,
             "int8": {k: {f: v[f] for f in ("convs", "rel_err", "decisive", "top1_agree")}
                      for k, v in int8.items()}}
 
@@ -2134,25 +2331,31 @@ def phase_folder_decode(card: str):
         fail("Pillow was imported on the card's decode path")
 
 
-CMYK_JPEGS = ("cmyk_400x300.jpg", "ycck_400x300.jpg")
+CMYK_JPEGS = ("cmyk_400x300.jpg", "ycck_400x300.jpg", "cmyk420_160x120.jpg",
+              "cmyk422_160x120.jpg")
 
 
-def cmyk_bound(hw: int):
-    """(bound ms, what bounds it) of the CMYK conversion over ``hw`` pixels:
-    four plane bytes read and three RGB bytes written a pixel over HBM,
-    against ~20 integer operations a pixel over the card's f32 rate."""
-    t_bytes, t_ops = 7 * hw / HBM_BYTES_PER_S, 20 * hw / F32_PEAK_FLOPS
+def cmyk_bound(stored: int, hw: int):
+    """(bound ms, what bounds it) of the CMYK conversion over ``hw`` pixels
+    from ``stored`` plane bytes: those read once and three RGB bytes a pixel
+    written over HBM, against ~20 integer operations a pixel (~30 more for
+    a subsampled component's filter) over the card's f32 rate."""
+    t_bytes = (stored + 3 * hw) / HBM_BYTES_PER_S
+    t_ops = (20 * hw + (30 * hw if stored < 4 * hw else 0)) / F32_PEAK_FLOPS
     return max(t_ops, t_bytes) * 1e3, ("operations" if t_ops >= t_bytes else "bytes")
 
 
 def phase_cmyk(card: str):
-    """Four-component JPEGs on the card: the CMYK and YCCK fixtures through
-    ``FolderDataset.gather`` (nvJPEG's planes, then the conversion kernel),
-    staged to 260 px, against Pillow's staged pixels (max, 99.9th percentile
-    and mean level difference; the mean within JPEG_MEAN_LEVEL_BAR), the
-    kernel counted once an image; then the kernel on nvJPEG's own planes
-    against its plain version ``cmyk_to_rgb_ref`` bit for bit, its time,
-    the plain version's and its bound. Returns its kernels-line entry."""
+    """Four-component JPEGs on the card: the CMYK and YCCK fixtures and the
+    CMYK ones whose last three components are subsampled 2x2 and 2x1
+    through ``FolderDataset.gather`` (nvJPEG's planes, each component at its
+    own size, then the conversion kernel, which upsamples them), staged to
+    260 px (the 160 x 120 ones to 120), against Pillow's staged pixels
+    (max, 99.9th percentile and mean
+    level difference; the mean within JPEG_MEAN_LEVEL_BAR), the kernel
+    counted once an image; then the kernel on nvJPEG's own planes against
+    its plain version ``cmyk_to_rgb_ref`` bit for bit, its time, the plain
+    version's and its bound. Returns its kernels-line entry."""
     import numpy as np
     import torch
 
@@ -2160,21 +2363,26 @@ def phase_cmyk(card: str):
     from scouter_tpu_torch.data import _decode
 
     pillow = np.load(FIXTURES / "staged_cmyk_260.npz")
-    items = [(str(FIXTURES / name), i) for i, name in enumerate(CMYK_JPEGS)]
     _decode.cmyk_to_rgb.launches = 0
     decodes = _decode.decode_jpeg.decodes
-    got = FolderDataset(items, 260, "ImageNet", device="cuda").gather([0, 1])
+    got = {}
+    for size, names in ((260, CMYK_JPEGS[:2]), (120, CMYK_JPEGS[2:])):
+        items = [(str(FIXTURES / name), i) for i, name in enumerate(names)]
+        staged = FolderDataset(items, size, "ImageNet", device="cuda").gather([0, 1])
+        got.update({name: (size, staged[i]) for i, name in enumerate(names)})
     torch.cuda.synchronize()
     launches = _decode.cmyk_to_rgb.launches
-    if launches != 2 or _decode.decode_jpeg.decodes - decodes != 2:
+    if launches != len(got) or _decode.decode_jpeg.decodes - decodes != len(got):
         fail(f"the CMYK fixtures took the conversion kernel {launches} times and nvJPEG "
-             f"{_decode.decode_jpeg.decodes - decodes} times, expected 2 and 2")
+             f"{_decode.decode_jpeg.decodes - decodes} times, expected {len(got)} and "
+             f"{len(got)}")
     by_file, worst = {}, 0
-    for i, name in enumerate(CMYK_JPEGS):
-        diff = np.abs(got[i].cpu().numpy().astype(int) - pillow[name].astype(int))
+    for name in CMYK_JPEGS:
+        size, pixels = got[name]
+        diff = np.abs(pixels.cpu().numpy().astype(int) - pillow[name].astype(int))
         by_file[name] = dict(max=int(diff.max()), p999=float(np.percentile(diff, 99.9)),
                              mean=float(diff.mean()))
-        print(f"{name} on the card vs Pillow, staged to 260 px: max {diff.max()}, 99.9th "
+        print(f"{name} on the card vs Pillow, staged to {size} px: max {diff.max()}, 99.9th "
               f"percentile {by_file[name]['p999']:g}, mean {diff.mean():.4f} levels (bar "
               f"{JPEG_MEAN_LEVEL_BAR} on the mean)", flush=True)
         if not diff.mean() < JPEG_MEAN_LEVEL_BAR:
@@ -2189,9 +2397,11 @@ def phase_cmyk(card: str):
         worst = max(worst, int((rgb.int() - ref.int()).abs().max()))
         ms = cuda_ms(lambda: _decode.cmyk_to_rgb(planes, ycck), 100)
         plain_ms = cuda_ms(lambda: _decode.cmyk_to_rgb_ref(planes, ycck), 20)
-        bound_ms, bound_by = cmyk_bound(planes.shape[1] * planes.shape[2])
+        height, width = planes.size
+        bound_ms, bound_by = cmyk_bound(planes.flat.numel(), height * width)
+        sizes = list(zip(planes.heights, planes.widths))
         print(f"cmyk_to_rgb kernel on nvJPEG's planes of {name} ({'YCCK' if ycck else 'CMYK'}, "
-              f"{tuple(planes.shape)}): {off} values off its plain version (bar 0); "
+              f"components {sizes}): {off} values off its plain version (bar 0); "
               f"{ms:.5f} ms, plain {plain_ms:.4f} ms, bound {bound_ms:.6f} ms ({bound_by})",
               flush=True)
         if off:
@@ -3109,7 +3319,7 @@ def phase_zoo_os8(cfg, card: str):
     version on its own inputs (``check_grads``' bar, as ``hold_k1_calls``
     holds a step's calls: the model's features are not bench.py's
     magnitudes) and its launches
-    (``profiled_launches``) held to ``TiledFwdPlan.launches``, serving img/s;
+    (``profiled_launches``) held to ``SplitFwdPlan.launches``, serving img/s;
     one train step at batch 4 card vs CPU through ``phase_step_grads``
     (phase 15's bars; K1: the tiled forward with hist and the tiled backward
     once each) with the tiled forward's call in it held to its plain
@@ -3164,10 +3374,9 @@ def phase_zoo_os8(cfg, card: str):
         per_call = profiled_launches(lambda: slot_kernel._launch(*tensors, 3, False))
     check_grads("xslot_fwd tiled route in OS8 serving vs xslot_fwd_ref,", cfg.batch_size, 784,
                 s, ("upd", "attn"), fout, want, exact)
-    sms = torch.cuda.get_device_properties(0).multi_processor_count
-    plan = slot_kernel.tiled_fwd_plan(cfg.batch_size, 784, s, d, sms)
+    plan = slot_kernel.launch_split_fwd_plan(cfg.batch_size, 784, s, d, torch.device("cuda"))
     print(f"xslot_fwd tiled route in serving at ({cfg.batch_size}, 784, {s}): {per_call} "
-          f"launches a call (TiledFwdPlan.launches {plan.launches(3)})", flush=True)
+          f"launches a call (SplitFwdPlan.launches {plan.launches(3)})", flush=True)
     if per_call != plan.launches(3):
         fail("the OS8 serving call's tiled forward made other launches than its plan's")
     if not torch.isfinite(out["logits"]).all():
@@ -4943,6 +5152,7 @@ def main() -> int:
     tiled_entry = phase_kernel_grad_tiled(entry)
     bf16_entry, tiled_bf16_entry = phase_kernel_grad_bf16()
     fwd_tiled_entry = phase_kernel_fwd_tiled()
+    fwd_tiled_entry["widths"] = phase_kernel_widths(card)
 
     cfg = ScouterConfig(**FLAGSHIP)
     state_dict = build_slot_model(cfg, device="cpu").state_dict()

@@ -2,7 +2,7 @@
 iteration, so two trees can be compared in one run on one card.
 
     python examples/torch_k1_bench.py [--root DIR] [--out FILE]
-        [--tiled | --cluster | --stamps]
+        [--tiled | --cluster | --stamps | --fwd-stamps]
 
 ``--root`` is the directory holding the ``scouter_tpu_torch`` package to
 time (default: this checkout). For B = 1, 4, 16 and 70 at the flagship's
@@ -25,8 +25,15 @@ builds the root's ``csrc/xslot_bwd.cu`` with ``-DXSLOT_STAMPS`` (its
 cluster kernel then records ``clock64()`` at the end of each phase) and
 prints each phase's SM cycles (mean and max over
 the CTAs) at (70, 49, 30) and (16, 49, 30), beside the stamped call's time
-and the fixed-order sum's time alone. Prints one JSON line with the card's name
-and power limit; ``--out`` also appends it to a file.
+and the fixed-order sum's time alone. With ``--fwd-stamps`` it builds the
+root's ``csrc/xslot_fwd_tiled.cu`` with ``-DXSLOT_STAMPS`` and prints, for
+the forward's tiled route at (70, 784, 30), (16, 784, 30) with hist and (16,
+196, 1000) with hist on each shape's plan, each phase's SM cycles (mean over
+the first 160 CTAs: the loads, k's column sums, and per iteration the row
+sums and total, the first tile's dots, attention and update, the other
+tiles, the summed update, the GRU and the exchange) beside the unstamped
+call's time in a CUDA graph. Prints one JSON line with the card's name and
+power limit; ``--out`` also appends it to a file.
 """
 
 from __future__ import annotations
@@ -49,6 +56,7 @@ def main(argv=None) -> int:
     mode.add_argument("--tiled", action="store_true")
     mode.add_argument("--cluster", action="store_true")
     mode.add_argument("--stamps", action="store_true")
+    mode.add_argument("--fwd-stamps", action="store_true")
     args = parser.parse_args(argv)
     sys.path.insert(0, str(HERE))
     from chip_smoke import cuda_ms, graph_ms, xslot_inputs
@@ -73,6 +81,9 @@ def main(argv=None) -> int:
     if args.stamps:
         record = {"root": args.root, "card": card, **stamped_backward(slot_kernel)}
         return emit(record, args.out)
+    if args.fwd_stamps:
+        record = {"root": args.root, "card": card, **stamped_tiled_forward(slot_kernel)}
+        return emit(record, args.out)
     fused = slot_kernel.xslot_iterations_fused
     n, s, d = 49, 30, 64
     record = {"root": args.root, "card": card, "forward_device_ms": {}}
@@ -89,6 +100,67 @@ def main(argv=None) -> int:
                     50, warmup) for warmup in (300, 5, 5, 5, 5)]
     record.update(autograd_bwd_ms=statistics.median(runs), autograd_bwd_ms_runs=runs)
     return emit(record, args.out)
+
+
+FWD_PHASES = ["load", "ksum"] + [f"it{i}:{phase}" for i in range(3)
+                                  for phase in ("total", "dots0", "attn0", "upd0", "tiles",
+                                                "x", "gru", "exchange")]
+
+
+def stamped_tiled_forward(slot_kernel) -> dict:
+    """The forward's tiled route built with -DXSLOT_STAMPS: each phase's SM
+    cycles at each shape on its plan, beside the unstamped call's time."""
+    import ctypes
+
+    import torch
+
+    from chip_smoke import graph_ms, xslot_inputs
+    from scouter_tpu_torch.ops import cuda_build
+
+    source = cuda_build.CSRC / "xslot_fwd_tiled.cu"
+    lib_path = cuda_build.BUILD_DIR / "libxslot_fwd_tiled_stamped.so"
+    lib_path.parent.mkdir(parents=True, exist_ok=True)
+    subprocess.run([cuda_build._nvcc(), *cuda_build.NVCC_FLAGS, "-DXSLOT_STAMPS", "-o",
+                    str(lib_path), str(source)], check=True)
+    lib = ctypes.CDLL(str(lib_path))
+    lib.xslot_fwd_tiled.argtypes = slot_kernel._FWD_TILED_SIGNATURE
+    lib.xslot_fwd_tiled_stamps.argtypes = [ctypes.c_void_p, ctypes.c_int]
+    per_cta, ctas = 32, 160
+    raw = (ctypes.c_longlong * (ctas * per_cta))()
+    out = {"stamps_source": str(source), "fwd_stamps": {}}
+    for b, n, s, hist in ((70, 784, 30, False), (16, 784, 30, True), (16, 196, 1000, True)):
+        d = 64
+        args = xslot_inputs(b, n, s, d, "cuda")
+        plan = slot_kernel.launch_split_fwd_plan(b, n, s, d, args[0].device)
+        with torch.no_grad():
+            ms = graph_ms(lambda: slot_kernel._launch(*args, 3, emit_hist=hist), reps=20,
+                          iters=10)
+        outs = [torch.empty((b, s, d), device="cuda"), torch.empty((b, s, n), device="cuda")]
+        hist_t = torch.empty((b, 3, s, d), device="cuda") if hist else None
+        scratch = (torch.empty(plan.scratch_floats, device="cuda") if plan.scratch_floats
+                   else None)
+        lib.xslot_fwd_tiled_stamps(raw, ctas * per_cta)  # zero them
+        err = lib.xslot_fwd_tiled(*(t.data_ptr() for t in args + outs),
+                                  hist_t.data_ptr() if hist else None,
+                                  scratch.data_ptr() if scratch is not None else None,
+                                  b, n, s, d, 3, float(d) ** -0.5, float(d), 0, plan.slot_groups,
+                                  plan.position_groups, plan.tile, int(plan.streamed),
+                                  int(plan.spill), int(plan.grid),
+                                  torch.cuda.current_stream().cuda_stream)
+        torch.cuda.synchronize()
+        if err or lib.xslot_fwd_tiled_stamps(raw, ctas * per_cta):
+            raise RuntimeError(f"the stamped tiled forward failed: error {err}")
+        rows = min(ctas, b * plan.cluster)
+        phases = {}
+        for k, name in enumerate(FWD_PHASES, start=1):
+            vals = [raw[i * per_cta + k] - raw[i * per_cta + k - 1] for i in range(rows)
+                    if raw[i * per_cta + k] and raw[i * per_cta + k - 1]]
+            phases[name] = statistics.mean(vals) if vals else 0.0
+        out["fwd_stamps"][f"{b},{n},{s}" + (",hist" if hist else "")] = {
+            "plan": [plan.slot_groups, plan.position_groups, plan.tile, plan.streamed,
+                     plan.spill, plan.grid],
+            "clusters": plan.clusters, "ms": ms, "cycles": phases}
+    return out
 
 
 def emit(record, out) -> int:
@@ -230,7 +302,7 @@ def stamped_backward(slot_kernel):
             stream = torch.cuda.current_stream().cuda_stream
             err = lib.xslot_bwd(*(t.data_ptr() for t in res + cot),
                                 *(g.data_ptr() for g in grads), scratch.data_ptr(), b, n, s, d,
-                                iters, float(d) ** -0.5, 0, plan.cluster, stream)
+                                iters, float(d) ** -0.5, float(d), 0, plan.cluster, stream)
             if err:
                 raise RuntimeError(f"stamped xslot_bwd failed: error {err}")
 

@@ -16,14 +16,16 @@
 // process, as the loaded libraries do.
 //
 // Four-component JPEGs (CMYK, or YCCK: Adobe transform 2) are decoded into
-// their planes as stored (NVJPEG_OUTPUT_UNCHANGED); cmyk_to_rgb_kernel then
-// gives the pixels Pillow gives them. Pillow (JpegImagePlugin) reads every
+// their planes as stored, each component at its own size
+// (NVJPEG_OUTPUT_UNCHANGED); cmyk_to_rgb_kernel then upsamples each as
+// libjpeg does under Pillow and gives the pixels Pillow gives them. Pillow (JpegImagePlugin) reads every
 // four-layer JPEG with the raw mode "CMYK;I", inverted as Adobe writes it,
 // after libjpeg turned YCCK into CMYK (jdcolor.c's ycck_cmyk_convert), and
 // convert("RGB") applies Convert.c's cmyk2rgb. That conversion replaces no
 // Pallas kernel either: it is Pillow's host arithmetic, moved to the card
 // beside the decode, and data/_decode.py::cmyk_to_rgb_ref is its plain
-// version. One byte in and at most one out a sample: bytes bound it.
+// version. One byte in a stored sample and three out a pixel: bytes bound
+// it.
 
 #include <cuda_runtime.h>
 #include <nvjpeg.h>
@@ -38,24 +40,72 @@ constexpr int kFixCrR = 91881, kFixCbB = 116130, kFixCrG = 46802, kFixCbG = 2255
 
 __device__ __forceinline__ int clip8(int x) { return x < 0 ? 0 : (x > 255 ? 255 : x); }
 
-// Per pixel of planes (4, hw) uint8: YCCK to CMYK where `ycck` (libjpeg),
-// the Adobe inversion (Pillow's "CMYK;I"), then cmyk2rgb of Pillow >= 9.1:
-// nk = 255 - k; out = clip(nk - MULDIV255(c, nk)) with MULDIV255(a, b) =
-// (t + (t >> 8)) >> 8, t = a b + 128. rgb (hw, 3) uint8.
-__global__ void cmyk_to_rgb_kernel(const unsigned char* __restrict__ planes, int hw, int ycck,
+// Each component's size and its offset in the planes' buffer; the image's
+// size is the largest.
+struct PlaneSizes {
+  int h[4], w[4];
+  long long off[4];
+};
+
+// Sample (y, x) of the image from a component of (hc, wc) stored samples at
+// p, upsampled as libjpeg-turbo upsamples it under Pillow (jdsample.c,
+// do_fancy_upsampling on): the triangle filter for 2x horizontal
+// (h2v1_fancy_upsample, where the component is wider than 2 samples), 2x
+// vertical (h1v2_fancy_upsample) and both (h2v2_fancy_upsample, wider than
+// 2), with the edge sample repeated as libjpeg's context rows repeat it;
+// replication otherwise (h2v1_upsample, h2v2_upsample, int_upsample).
+__device__ __forceinline__ int upsampled(const unsigned char* __restrict__ p, int hc, int wc,
+                                         int vx, int hx, int y, int x) {
+  if (hx == 1 && vx == 1) return p[(long long)y * wc + x];
+  if (hx == 2 && vx == 1 && wc > 2) {
+    const int i = x >> 1, odd = x & 1;
+    const int n = odd ? min(i + 1, wc - 1) : max(i - 1, 0);
+    const unsigned char* row = p + (long long)y * wc;
+    return (3 * row[i] + row[n] + 1 + odd) >> 2;
+  }
+  if (hx == 1 && vx == 2) {
+    const int j = y >> 1, odd = y & 1, jn = odd ? min(j + 1, hc - 1) : max(j - 1, 0);
+    return (3 * p[(long long)j * wc + x] + p[(long long)jn * wc + x] + 1 + odd) >> 2;
+  }
+  if (hx == 2 && vx == 2 && wc > 2) {
+    const int j = y >> 1, jn = (y & 1) ? min(j + 1, hc - 1) : max(j - 1, 0);
+    const unsigned char* r0 = p + (long long)j * wc;
+    const unsigned char* r1 = p + (long long)jn * wc;
+    const int i = x >> 1, odd = x & 1, n = odd ? min(i + 1, wc - 1) : max(i - 1, 0);
+    const int cs = 3 * r0[i] + r1[i], cn = 3 * r0[n] + r1[n];
+    return (3 * cs + cn + 8 - odd) >> 4;
+  }
+  return p[(long long)(y / vx) * wc + x / hx];
+}
+
+// Per pixel of the image: each component upsampled to the image's size,
+// then YCCK to CMYK where `ycck` (libjpeg), the Adobe inversion (Pillow's
+// "CMYK;I") and cmyk2rgb of Pillow >= 9.1: nk = 255 - k; out = clip(nk -
+// MULDIV255(c, nk)) with MULDIV255(a, b) = (t + (t >> 8)) >> 8, t = a b +
+// 128. rgb (height, width, 3) uint8.
+__global__ void cmyk_to_rgb_kernel(const unsigned char* __restrict__ planes, PlaneSizes sz,
+                                   int height, int width, int ycck,
                                    unsigned char* __restrict__ rgb) {
-  const int i = blockIdx.x * blockDim.x + threadIdx.x;
-  if (i >= hw) return;
-  int c = planes[i], m = planes[hw + i], y = planes[2 * hw + i];
-  const int k = planes[3 * hw + i];
+  const long long i = blockIdx.x * (long long)blockDim.x + threadIdx.x;
+  if (i >= (long long)height * width) return;
+  const int y = (int)(i / width), x = (int)(i - (long long)y * width);
+  int v[4];
+#pragma unroll
+  for (int q = 0; q < 4; ++q) {
+    const int hc = sz.h[q], wc = sz.w[q];
+    v[q] = upsampled(planes + sz.off[q], hc, wc, (height + hc - 1) / hc, (width + wc - 1) / wc,
+                     y, x);
+  }
+  int c = v[0], m = v[1], yy = v[2];
+  const int k = v[3];
   if (ycck) {
-    const int luma = c, cb = m - 128, cr = y - 128;
+    const int luma = c, cb = m - 128, cr = yy - 128;
     c = clip8(255 - (luma + ((kFixCrR * cr + kOneHalf) >> kScaleBits)));
     m = clip8(255 - (luma + ((-kFixCbG * cb + kOneHalf - kFixCrG * cr) >> kScaleBits)));
-    y = clip8(255 - (luma + ((kFixCbB * cb + kOneHalf) >> kScaleBits)));
+    yy = clip8(255 - (luma + ((kFixCbB * cb + kOneHalf) >> kScaleBits)));
   }
   const int nk = k;  // 255 - (255 - k): the inverted K
-  const int cmy[3] = {255 - c, 255 - m, 255 - y};
+  const int cmy[3] = {255 - c, 255 - m, 255 - yy};
 #pragma unroll
   for (int q = 0; q < 3; ++q) {
     const int t = cmy[q] * nk + 128;
@@ -105,15 +155,18 @@ int jpeg_decode(void* handle, void* state, const unsigned char* data, size_t len
     return err == cudaSuccess ? 0 : 100 + static_cast<int>(err);
 }
 
-// Decode a four-component JPEG whose components all have the image's size
-// into its planes as stored, `out` (4, height, width) uint8
-// (NVJPEG_OUTPUT_UNCHANGED). Returns as jpeg_decode.
+// Decode a four-component JPEG into its planes as stored, each component at
+// its own size (NVJPEG_OUTPUT_UNCHANGED): component c, heights[c] x
+// widths[c] uint8, at out + the sizes of the components before it. Returns
+// as jpeg_decode.
 int jpeg_decode_planes(void* handle, void* state, const unsigned char* data, size_t length,
-                       unsigned char* out, int width, int height, void* stream) {
+                       unsigned char* out, const int* widths, const int* heights, void* stream) {
     nvjpegImage_t dst = {};
+    size_t off = 0;
     for (int c = 0; c < 4; ++c) {
-        dst.channel[c] = out + (size_t)c * width * height;
-        dst.pitch[c] = width;
+        dst.channel[c] = out + off;
+        dst.pitch[c] = widths[c];
+        off += (size_t)widths[c] * heights[c];
     }
     nvjpegStatus_t st = nvjpegDecode(static_cast<nvjpegHandle_t>(handle),
                                      static_cast<nvjpegJpegState_t>(state), data, length,
@@ -124,13 +177,27 @@ int jpeg_decode_planes(void* handle, void* state, const unsigned char* data, siz
     return err == cudaSuccess ? 0 : 100 + static_cast<int>(err);
 }
 
-// cmyk_to_rgb_kernel on `stream` over `hw` pixels; returns 0 or the CUDA
-// error.
-int jpeg_cmyk_to_rgb(const unsigned char* planes, int hw, int ycck, unsigned char* rgb,
-                     void* stream) {
+// cmyk_to_rgb_kernel on `stream`: planes as jpeg_decode_planes lays them
+// out (component c heights[c] x widths[c]), rgb (height, width, 3) with the
+// image's size the largest component's; returns 0 or the CUDA error.
+int jpeg_cmyk_to_rgb(const unsigned char* planes, const int* widths, const int* heights,
+                     int ycck, unsigned char* rgb, void* stream) {
+    PlaneSizes sz;
+    long long off = 0;
+    int width = 0, height = 0;
+    for (int c = 0; c < 4; ++c) {
+        sz.w[c] = widths[c];
+        sz.h[c] = heights[c];
+        sz.off[c] = off;
+        off += (long long)widths[c] * heights[c];
+        width = widths[c] > width ? widths[c] : width;
+        height = heights[c] > height ? heights[c] : height;
+    }
+    const long long hw = (long long)width * height;
     if (hw == 0) return 0;
-    cmyk_to_rgb_kernel<<<(hw + 255) / 256, 256, 0, static_cast<cudaStream_t>(stream)>>>(
-        planes, hw, ycck, rgb);
+    cmyk_to_rgb_kernel<<<(unsigned)((hw + 255) / 256), 256, 0,
+                         static_cast<cudaStream_t>(stream)>>>(planes, sz, height, width, ycck,
+                                                              rgb);
     return static_cast<int>(cudaGetLastError());
 }
 

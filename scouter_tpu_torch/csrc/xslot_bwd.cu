@@ -524,7 +524,7 @@ xslot_bwd_kernel(const T* __restrict__ k, const T* __restrict__ v, const T* __re
                  const float* __restrict__ du, const float* __restrict__ dattn,
                  T* __restrict__ dk_out, T* __restrict__ dv_out,
                  float* __restrict__ partials, float* __restrict__ dslots0, int n, int s, int d,
-                 int iters, float scale) {
+                 int iters, float scale, float div) {
   extern __shared__ __align__(16) float smem[];
   cg::cluster_group cluster = cg::this_cluster();
   const int c = (int)cluster.num_blocks(), rank = (int)cluster.block_rank();
@@ -603,8 +603,7 @@ xslot_bwd_kernel(const T* __restrict__ k, const T* __restrict__ v, const T* __re
 
     if (!last) {
       // upd, the GRU's gates and their backward for cotangent g
-      rows_split<2>(RowsOp{xb, attn, np, np, 0, vs, ld, false}, none, 1, ld, sl, np, d,
-                    (float)d);
+      rows_split<2>(RowsOp{xb, attn, np, np, 0, vs, ld, false}, none, 1, ld, sl, np, d, div);
       __syncthreads();
       gru_gates(A, xb, h, w, bias, sl, d);
       __syncthreads();
@@ -620,14 +619,14 @@ xslot_bwd_kernel(const T* __restrict__ k, const T* __restrict__ v, const T* __re
     }
 
     // attention: dattn_tot and G in place of P; rg, q and their total
-    dot_rows(p, np, g, vs, ld, sl, n, d, 1.0f, (float)d,
+    dot_rows(p, np, g, vs, ld, sl, n, d, 1.0f, div,
              last ? dattn + (b * s + s0) * n : nullptr, n, attn);
     __syncthreads();
     row_totals(rg, qv, p, dots, rs, np, sl, n);
     XSLOT_STAMP(phase + 6);  // 6: P, G, rg
     slot_sum_arrive(cluster);
     // while the element's CTAs meet: dv, and the GRU's dW and db
-    cols_accumulate(dv_acc, attn, np, mq, g, ld, sl, d, (float)d);
+    cols_accumulate(dv_acc, attn, np, mq, g, ld, sl, d, div);
     if (!last) {
       weight_grads(partials + ((size_t)blockIdx.x * (iters - 1) + (iters - 2 - it)) * per_part,
                    A, xb, h, ld, sl, d);
@@ -1005,7 +1004,7 @@ int tiled_bwd(const T* k_in, const T* v_in, const T* w_ih_in, const T* w_hh_in,
               const T* b_ih_in, const T* b_hh_in, const float* hist, const float* du,
               const float* dattn, T* dk, T* dv, T* d_init, T* dw_ih, T* dw_hh, T* db_ih,
               T* db_hh, float* scratch, int batch, int n, int s, int d, int iters, float scale,
-              cudaStream_t stream) {
+              float div, cudaStream_t stream) {
   constexpr bool bf16 = !std::is_same<T, float>::value;
   int sms = 0;
   XSLOT_TRY(device_sms(&sms));
@@ -1075,7 +1074,7 @@ int tiled_bwd(const T* k_in, const T* v_in, const T* w_ih_in, const T* w_hh_in,
     if (!plan.fused) row_sum_kernel<<<row_blocks, kThreads, 0, stream>>>(dots, rows, n, rs);
     attn_kernel<<<pass_grid, kThreads, 0, stream>>>(dots, rs, s, n, attn);
     XSLOT_TRY(gemm(plan.prod[kX], prod(View{attn, sn, n, 1}, View{v, nd, d, 1}, x, sd, d, 1.0f,
-                                       (float)d),
+                                       div),
                    nullptr, d, n, s, batch, kStore, no_renorm, stream));
     const float* dupd = du;
     if (!last) {
@@ -1106,7 +1105,7 @@ int tiled_bwd(const T* k_in, const T* v_in, const T* w_ih_in, const T* w_hh_in,
       dupd = dx;
     }
     // attention: P = dattn_tot with the renorm's gradient, dD, dh, dv and dk
-    Prod p_p = prod(View{dupd, sd, d, 1}, View{v, nd, 1, d}, p, sn, n, 1.0f, (float)d);
+    Prod p_p = prod(View{dupd, sd, d, 1}, View{v, nd, 1, d}, p, sn, n, 1.0f, div);
     if (last) p_p.add = View{dattn, sn, n, 1};
     p_p.rz = s;
     XSLOT_TRY(gemm(plan.prod[kP], p_p, nullptr, n, d, s, batch, plan.fused ? kRenorm : kStore,
@@ -1120,7 +1119,7 @@ int tiled_bwd(const T* k_in, const T* v_in, const T* w_ih_in, const T* w_hh_in,
     XSLOT_TRY(gemm(plan.prod[kDH], dh_att, nullptr, d, n, s, batch, kStore, no_renorm, stream));
     // (f32 outputs only where kv is null)
     Prod dv_p = prod(View{attn, sn, 1, n}, View{dupd, sd, d, 1},
-                     kv ? kv : reinterpret_cast<float*>(dv), nd, d, 1.0f, (float)d);
+                     kv ? kv : reinterpret_cast<float*>(dv), nd, d, 1.0f, div);
     Prod dk_p = prod(View{p, sn, 1, n}, hv, kv ? kv + pkv * bnd : reinterpret_cast<float*>(dk),
                      nd, d);
     for (Prod* w : {&dv_p, &dk_p}) {
@@ -1147,7 +1146,7 @@ int cluster_bwd(const void* k, const void* v, const void* w_ih, const void* w_hh
                 const void* b_ih, const void* b_hh, const void* hist, const void* du,
                 const void* dattn, void* dk, void* dv, void* d_init, void* dw_ih, void* dw_hh,
                 void* db_ih, void* db_hh, void* scratch, int batch, int n, int s, int d,
-                int iters, float scale, int cluster, void* stream) {
+                int iters, float scale, float div, int cluster, void* stream) {
   const auto fn = bwd_kernel<T>(n, d);
   if (fn == nullptr) return (int)cudaErrorInvalidValue;  // the plan takes the tiled route
   cudaLaunchAttribute attr[1];
@@ -1161,7 +1160,7 @@ int cluster_bwd(const void* k, const void* v, const void* w_ih, const void* w_hh
   err = (int)cudaLaunchKernelEx(&config, fn, (const T*)k, (const T*)v, (const T*)w_ih,
                                 (const T*)w_hh, (const T*)b_ih, (const T*)b_hh,
                                 (const float*)hist, (const float*)du, (const float*)dattn,
-                                (T*)dk, (T*)dv, partials, dslots0, n, s, d, iters, scale);
+                                (T*)dk, (T*)dv, partials, dslots0, n, s, d, iters, scale, div);
   if (err != 0) return err;
   err = (int)cudaGetLastError();
   if (err != 0) return err;
@@ -1233,30 +1232,32 @@ int xslot_tiled_plan(int batch, int n, int s, int d, int* out) {
 // (bf16 == 1); hist (B,iters,S,d), du (B,S,d) and dattn (B,S,N), f32;
 // outputs dk, dv (B,N,d), d_init (S,d), dw_ih, dw_hh (3d,d), db_ih, db_hh
 // (3d) in the residuals' type; scratch of xslot_bwd_scratch_floats floats.
+// `div` is the update's divisor (the true slot width, where the wrapper
+// zero-padded d to a multiple of 4; `scale` is its d^-1/2).
 int xslot_bwd(const void* k, const void* v, const void* w_ih, const void* w_hh,
               const void* b_ih, const void* b_hh, const void* hist, const void* du,
               const void* dattn, void* dk, void* dv, void* d_init, void* dw_ih, void* dw_hh,
               void* db_ih, void* db_hh, void* scratch, int batch, int n, int s, int d, int iters,
-              float scale, int bf16, int cluster, void* stream) {
+              float scale, float div, int bf16, int cluster, void* stream) {
   using bf = __nv_bfloat16;
   if (cluster == 0 && bf16) {
     return tiled_bwd((const bf*)k, (const bf*)v, (const bf*)w_ih, (const bf*)w_hh,
                      (const bf*)b_ih, (const bf*)b_hh, (const float*)hist, (const float*)du,
                      (const float*)dattn, (bf*)dk, (bf*)dv, (bf*)d_init, (bf*)dw_ih,
                      (bf*)dw_hh, (bf*)db_ih, (bf*)db_hh, (float*)scratch, batch, n, s, d, iters,
-                     scale, (cudaStream_t)stream);
+                     scale, div, (cudaStream_t)stream);
   }
   if (cluster == 0) {
     return tiled_bwd((const float*)k, (const float*)v, (const float*)w_ih, (const float*)w_hh,
                      (const float*)b_ih, (const float*)b_hh, (const float*)hist,
                      (const float*)du, (const float*)dattn, (float*)dk, (float*)dv,
                      (float*)d_init, (float*)dw_ih, (float*)dw_hh, (float*)db_ih,
-                     (float*)db_hh, (float*)scratch, batch, n, s, d, iters, scale,
+                     (float*)db_hh, (float*)scratch, batch, n, s, d, iters, scale, div,
                      (cudaStream_t)stream);
   }
   return (bf16 ? cluster_bwd<bf> : cluster_bwd<float>)(
       k, v, w_ih, w_hh, b_ih, b_hh, hist, du, dattn, dk, dv, d_init, dw_ih, dw_hh, db_ih, db_hh,
-      scratch, batch, n, s, d, iters, scale, cluster, stream);
+      scratch, batch, n, s, d, iters, scale, div, cluster, stream);
 }
 
 #ifdef XSLOT_STAMPS

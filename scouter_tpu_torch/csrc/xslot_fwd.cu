@@ -45,7 +45,8 @@
 // - No tensor cores and no TF32: the parity bars (1e-4 absolute, the renorm
 //   has no epsilon) need full f32; 3xTF32 was not tried.
 // The order of operations follows _kernel (slot_pallas.py:59-78): `* scale`,
-// then `/ row_sum * total`, then `/ d`.
+// then `/ row_sum * total`, then `/ d` (`div`: the true d where the wrapper
+// zero-padded it to a multiple of 4; `scale` is its d^-1/2).
 //
 // Built with nvcc into a shared library with a plain C interface and loaded
 // with ctypes (scouter_tpu_torch/ops/cuda_build.py).
@@ -72,7 +73,8 @@ xslot_fwd_kernel(const T* __restrict__ k, const T* __restrict__ v, const T* __re
                  const T* __restrict__ w_ih, const T* __restrict__ w_hh,
                  const T* __restrict__ b_ih, const T* __restrict__ b_hh,
                  float* __restrict__ upd_out, float* __restrict__ attn_out,
-                 float* __restrict__ hist_out, int n, int s, int d, int iters, float scale) {
+                 float* __restrict__ hist_out, int n, int s, int d, int iters, float scale,
+                 float div) {
   extern __shared__ __align__(16) float smem[];
   cg::cluster_group cluster = cg::this_cluster();
   const int c = (int)cluster.num_blocks(), rank = (int)cluster.block_rank();
@@ -120,7 +122,7 @@ xslot_fwd_kernel(const T* __restrict__ k, const T* __restrict__ v, const T* __re
       attn[i] = sigmoid_f32(attn[i] / row_sum[i / n] * total);
     }
     __syncthreads();
-    rows_times(upd, ld, attn, n, vs, ld, sl, n, d, (float)d, false);
+    rows_times(upd, ld, attn, n, vs, ld, sl, n, d, div, false);
     __syncthreads();
     if (it + 1 == iters) break;
     if (kResident && it == 0) {
@@ -166,14 +168,14 @@ xslot_fwd_kernel(const T* __restrict__ k, const T* __restrict__ v, const T* __re
 template <typename T, bool kResident>
 int launch(const cudaLaunchConfig_t& config, const void* k, const void* v, const void* slots0,
            const void* w_ih, const void* w_hh, const void* b_ih, const void* b_hh, void* upd,
-           void* attn, void* hist, int n, int s, int d, int iters, float scale) {
+           void* attn, void* hist, int n, int s, int d, int iters, float scale, float div) {
   auto fn = xslot_fwd_kernel<T, kResident>;
   const int err = ensure_smem((const void*)fn, config.dynamicSmemBytes);
   if (err != 0) return err;
   return (int)cudaLaunchKernelEx(&config, fn, (const T*)k, (const T*)v, (const T*)slots0,
                                  (const T*)w_ih, (const T*)w_hh, (const T*)b_ih,
                                  (const T*)b_hh, (float*)upd, (float*)attn, (float*)hist, n, s,
-                                 d, iters, scale);
+                                 d, iters, scale, div);
 }
 
 const void* kernel_of(int bf16, int resident) {
@@ -210,11 +212,12 @@ int xslot_fwd_max_clusters(int n, int s_cta, int d, int resident, int bf16, int 
 // are contiguous device arrays: k, v (B,N,d); slots0 (S,d); w_ih, w_hh
 // (3d,d); b_ih, b_hh (3d), all f32 (bf16 == 0) or all bf16
 // (bf16 == 1); upd (B,S,d), attn (B,S,N) and hist (B,iters,S,d) or nullptr,
-// f32. d % 4 == 0 and d <= 4 * kThreads.
+// f32. d % 4 == 0 and d <= 4 * kThreads; `div` is the update's divisor (the
+// true slot width, where the wrapper zero-padded d to a multiple of 4).
 int xslot_fwd(const void* k, const void* v, const void* slots0, const void* w_ih,
               const void* w_hh, const void* b_ih, const void* b_hh, void* upd, void* attn,
-              void* hist, int batch, int n, int s, int d, int iters, float scale, int bf16,
-              int cluster, int resident, void* stream) {
+              void* hist, int batch, int n, int s, int d, int iters, float scale, float div,
+              int bf16, int cluster, int resident, void* stream) {
   cudaLaunchAttribute attr[1];
   const cudaLaunchConfig_t config =
       cluster_config(attr, batch, cluster,
@@ -222,10 +225,10 @@ int xslot_fwd(const void* k, const void* v, const void* slots0, const void* w_ih
   const int err =
       bf16 ? (resident ? launch<__nv_bfloat16, true> : launch<__nv_bfloat16, false>)(
                  config, k, v, slots0, w_ih, w_hh, b_ih, b_hh, upd, attn, hist, n, s, d, iters,
-                 scale)
+                 scale, div)
            : (resident ? launch<float, true> : launch<float, false>)(
                  config, k, v, slots0, w_ih, w_hh, b_ih, b_hh, upd, attn, hist, n, s, d, iters,
-                 scale);
+                 scale, div);
   if (err != 0) return err;
   return (int)cudaGetLastError();
 }

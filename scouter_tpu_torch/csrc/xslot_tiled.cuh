@@ -1,6 +1,5 @@
-// The tiled route's building blocks, shared by K1's backward (xslot_bwd.cu)
-// and its forward past a cluster's reach (xslot_fwd_tiled.cu), for Hopper
-// (sm_90a), f32 arithmetic throughout.
+// The building blocks of K1's backward on its tiled route (xslot_bwd.cu),
+// for Hopper (sm_90a), f32 arithmetic throughout.
 //
 // - tile_gemm, a register-tiled SIMT product over the batch: a CTA of 256
 //   threads computes a 128 x BN tile (BN 64 or 128, tile_cols picks per

@@ -6,11 +6,12 @@ folder reader, the eager list loader and the server share.
   straight into a CUDA tensor; on the CPU, Pillow decodes them, as the JAX
   package does (``scouter_tpu/data/streaming.py::FolderDataset._decode``). A
   four-component JPEG (CMYK, or YCCK under an Adobe marker's transform 2)
-  is decoded into its planes and converted to RGB as Pillow converts it
-  (``cmyk_to_rgb``: the kernel on the card, ``cmyk_to_rgb_ref`` its plain
-  version). A CUDA device never falls back to Pillow or the CPU: a JPEG
-  that nvJPEG cannot take raises (12-bit samples, which Pillow refuses
-  too; a four-component JPEG with subsampled components).
+  is decoded into its planes, each component at its own size, and
+  converted to RGB as Pillow converts it, subsampled components upsampled as
+  libjpeg upsamples them (``cmyk_to_rgb``: the kernel on the card,
+  ``cmyk_to_rgb_ref`` its plain version). A CUDA device never falls back to
+  Pillow or the CPU: a JPEG that nvJPEG cannot take raises (12-bit
+  samples, which Pillow refuses too).
 - Staging: Pillow's bilinear resize of each plane
   (``explain/_imaging.py::resize_bilinear_u8``, bit for bit), on the device.
 
@@ -25,6 +26,7 @@ import ctypes
 import io
 import struct
 import threading
+from typing import NamedTuple, Tuple
 
 import numpy as np
 import torch
@@ -32,8 +34,8 @@ import torch
 from ..core.device import resolve_device
 from ..core.png import decode_png, luma
 
-__all__ = ["adobe_transform", "cmyk_to_rgb", "cmyk_to_rgb_ref", "decode_file", "decode_image",
-           "decode_jpeg", "jpeg_frame", "stage"]
+__all__ = ["StoredPlanes", "adobe_transform", "cmyk_to_rgb", "cmyk_to_rgb_ref", "decode_file",
+           "decode_image", "decode_jpeg", "jpeg_frame", "stage", "upsample_ref"]
 
 PNG_MAGIC = b"\x89PNG\r\n\x1a\n"
 JPEG_MAGIC = b"\xff\xd8"
@@ -85,43 +87,116 @@ def _fix(x: float) -> int:
     return int(x * 65536 + 0.5)  # libjpeg's FIX at SCALEBITS 16
 
 
-def cmyk_to_rgb_ref(planes: torch.Tensor, ycck: bool) -> torch.Tensor:
+class StoredPlanes(NamedTuple):
+    """A four-component JPEG's planes as stored: ``flat`` holds the
+    components one after another, component c ``heights[c]`` x
+    ``widths[c]`` uint8; the image's size is the largest component's."""
+
+    flat: torch.Tensor
+    heights: Tuple[int, ...]
+    widths: Tuple[int, ...]
+
+    @property
+    def size(self) -> Tuple[int, int]:
+        return max(self.heights), max(self.widths)
+
+    def plane(self, c: int) -> torch.Tensor:
+        off = sum(h * w for h, w in zip(self.heights[:c], self.widths[:c]))
+        h, w = self.heights[c], self.widths[c]
+        return self.flat[off:off + h * w].view(h, w)
+
+
+def _stored(planes) -> StoredPlanes:
+    """``planes`` as ``StoredPlanes``: as they are, or a (4, H, W) tensor of
+    four components of the image's size."""
+    if isinstance(planes, StoredPlanes):
+        return planes
+    if planes.dim() != 3 or planes.shape[0] != 4:
+        raise ValueError(f"four-component planes are (4, H, W) or StoredPlanes, got "
+                         f"{tuple(planes.shape)}")
+    _, h, w = planes.shape
+    return StoredPlanes(planes.contiguous().reshape(-1), (h,) * 4, (w,) * 4)
+
+
+def upsample_ref(plane: torch.Tensor, height: int, width: int) -> torch.Tensor:
+    """A component's stored samples (hc, wc) uint8 at the image's size
+    (height, width), int32, as libjpeg-turbo upsamples them under Pillow
+    (jdsample.c, fancy upsampling on): the triangle filter for 2x
+    horizontal (where the component is wider than 2 samples), 2x vertical
+    and both (wider than 2), the edge sample repeated at the borders as
+    libjpeg's context rows repeat it; replication otherwise."""
+    hc, wc = plane.shape
+    x = plane.to(torch.int32)
+    hx, vx = -(-width // wc), -(-height // hc)
+
+    def shifted(t, dim, step):  # t[i + step] along dim, the edge sample repeated
+        n = t.shape[dim]
+        idx = (torch.arange(n, device=t.device) + step).clamp(0, n - 1)
+        return t.index_select(dim, idx)
+
+    if (hx, vx) == (1, 1):
+        out = x
+    elif (hx, vx) == (2, 1) and wc > 2:
+        even = (3 * x + shifted(x, 1, -1) + 1) >> 2
+        odd = (3 * x + shifted(x, 1, 1) + 2) >> 2
+        out = torch.stack([even, odd], dim=2).reshape(hc, 2 * wc)
+    elif (hx, vx) == (1, 2):
+        even = (3 * x + shifted(x, 0, -1) + 1) >> 2
+        odd = (3 * x + shifted(x, 0, 1) + 2) >> 2
+        out = torch.stack([even, odd], dim=1).reshape(2 * hc, wc)
+    elif (hx, vx) == (2, 2) and wc > 2:
+        rows = []
+        for sums in (3 * x + shifted(x, 0, -1), 3 * x + shifted(x, 0, 1)):
+            even = (3 * sums + shifted(sums, 1, -1) + 8) >> 4
+            odd = (3 * sums + shifted(sums, 1, 1) + 7) >> 4
+            rows.append(torch.stack([even, odd], dim=2).reshape(hc, 2 * wc))
+        out = torch.stack(rows, dim=1).reshape(2 * hc, 2 * wc)
+    else:
+        out = x.repeat_interleave(vx, dim=0).repeat_interleave(hx, dim=1)
+    return out[:height, :width]
+
+
+def cmyk_to_rgb_ref(planes, ycck: bool) -> torch.Tensor:
     """Plain version of ``csrc/jpeg_decode.cu``'s cmyk_to_rgb_kernel: a
-    four-component JPEG's planes as stored, (4, H, W) uint8, to the (H, W,
-    3) uint8 pixels Pillow's ``convert("RGB")`` gives. YCCK becomes CMYK as
-    libjpeg's ``ycck_cmyk_convert`` computes it; Pillow reads the result
-    inverted ("CMYK;I", Adobe's convention) and applies ``cmyk2rgb``:
-    nk = 255 - k, out = clip(nk - MULDIV255(c, nk)). Integer arithmetic, bit
-    for bit with Pillow."""
-    p = planes.to(torch.int32)
-    c, m, y, k = p[0], p[1], p[2], p[3]
+    four-component JPEG's planes as stored (``StoredPlanes``, or (4, H, W)
+    uint8 where no component is subsampled) to the (H, W, 3) uint8 pixels
+    Pillow's ``convert("RGB")`` gives. Each component is upsampled to the
+    image's size (``upsample_ref``); YCCK becomes CMYK as libjpeg's
+    ``ycck_cmyk_convert`` computes it; Pillow reads the result inverted
+    ("CMYK;I", Adobe's convention) and applies ``cmyk2rgb``: nk = 255 - k,
+    out = clip(nk - MULDIV255(c, nk)). Integer arithmetic, bit for bit with
+    Pillow's on the same planes."""
+    stored = _stored(planes)
+    height, width = stored.size
+    c, m, y, k = (upsample_ref(stored.plane(i), height, width) for i in range(4))
     if ycck:
-        cb, cr, one_half = m - 128, y - 128, 1 << 15
-        c = (255 - (p[0] + ((_fix(1.402) * cr + one_half) >> 16))).clamp(0, 255)
-        m = (255 - (p[0] + ((-_fix(0.34414) * cb + one_half - _fix(0.71414) * cr) >> 16))
+        luma, cb, cr, one_half = c, m - 128, y - 128, 1 << 15
+        c = (255 - (luma + ((_fix(1.402) * cr + one_half) >> 16))).clamp(0, 255)
+        m = (255 - (luma + ((-_fix(0.34414) * cb + one_half - _fix(0.71414) * cr) >> 16))
              ).clamp(0, 255)
-        y = (255 - (p[0] + ((_fix(1.772) * cb + one_half) >> 16))).clamp(0, 255)
+        y = (255 - (luma + ((_fix(1.772) * cb + one_half) >> 16))).clamp(0, 255)
     nk = k  # 255 - the inverted K
     t = (255 - torch.stack([c, m, y], dim=-1)) * nk[..., None] + 128
     return (nk[..., None] - ((t + (t >> 8)) >> 8)).clamp(0, 255).to(torch.uint8)
 
 
-def cmyk_to_rgb(planes: torch.Tensor, ycck: bool) -> torch.Tensor:
-    """``cmyk_to_rgb_ref``'s function: on a CUDA tensor the kernel
-    (``cmyk_to_rgb.launches`` counts it), on a CPU tensor the plain
+def cmyk_to_rgb(planes, ycck: bool) -> torch.Tensor:
+    """``cmyk_to_rgb_ref``'s function: on a CUDA tensor the kernel, one
+    launch (``cmyk_to_rgb.launches`` counts it), on a CPU tensor the plain
     version."""
-    if planes.device.type != "cuda":
-        return cmyk_to_rgb_ref(planes, ycck)
-    if planes.dtype != torch.uint8 or planes.dim() != 3 or planes.shape[0] != 4:
-        raise ValueError(f"cmyk_to_rgb takes (4, H, W) uint8 planes, got {planes.dtype} "
-                         f"{tuple(planes.shape)}")
-    planes = planes.contiguous()
-    _, h, w = planes.shape
-    out = torch.empty((h, w, 3), dtype=torch.uint8, device=planes.device)
+    stored = _stored(planes)
+    if stored.flat.device.type != "cuda":
+        return cmyk_to_rgb_ref(stored, ycck)
+    if stored.flat.dtype != torch.uint8 or not stored.flat.is_contiguous():
+        raise ValueError(f"cmyk_to_rgb takes contiguous uint8 planes, got {stored.flat.dtype}")
+    height, width = stored.size
+    out = torch.empty((height, width, 3), dtype=torch.uint8, device=stored.flat.device)
     lib = _nvjpeg_instance().lib
-    with torch.cuda.device(planes.device):
-        err = lib.jpeg_cmyk_to_rgb(planes.data_ptr(), h * w, int(ycck), out.data_ptr(),
-                                   torch.cuda.current_stream(planes.device).cuda_stream)
+    with torch.cuda.device(stored.flat.device):
+        err = lib.jpeg_cmyk_to_rgb(stored.flat.data_ptr(), (ctypes.c_int * 4)(*stored.widths),
+                                   (ctypes.c_int * 4)(*stored.heights), int(ycck),
+                                   out.data_ptr(),
+                                   torch.cuda.current_stream(stored.flat.device).cuda_stream)
     if err:
         raise RuntimeError(f"cmyk_to_rgb_kernel launch failed: CUDA error {err}")
     cmyk_to_rgb.launches += 1
@@ -144,8 +219,8 @@ class _NvJpeg:
         lib.jpeg_state_create.argtypes = [p, ctypes.POINTER(p)]
         lib.jpeg_image_info.argtypes = [p, ctypes.c_char_p, sz, pi, pi, pi, pi]
         lib.jpeg_decode.argtypes = [p, p, ctypes.c_char_p, sz, i, p, sz, p]
-        lib.jpeg_decode_planes.argtypes = [p, p, ctypes.c_char_p, sz, p, i, i, p]
-        lib.jpeg_cmyk_to_rgb.argtypes = [p, i, i, p, p]
+        lib.jpeg_decode_planes.argtypes = [p, p, ctypes.c_char_p, sz, p, pi, pi, p]
+        lib.jpeg_cmyk_to_rgb.argtypes = [p, pi, pi, i, p, p]
         for fn in (lib.jpeg_handle_create, lib.jpeg_state_create, lib.jpeg_image_info,
                    lib.jpeg_decode, lib.jpeg_decode_planes, lib.jpeg_cmyk_to_rgb):
             fn.restype = i
@@ -177,19 +252,19 @@ class _NvJpeg:
                     "nvjpegGetImageInfo")
         return comps.value, list(zip(widths, heights))[:comps.value]
 
-    def planes(self, data: bytes, device: torch.device) -> torch.Tensor:
-        """A four-component JPEG's planes as stored, (4, H, W) uint8 on
-        ``device``; components of another size than the image's raise."""
+    def planes(self, data: bytes, device: torch.device) -> StoredPlanes:
+        """A four-component JPEG's planes as stored, each component at its
+        own size, on ``device``."""
         comps, sizes = self.info(data)
-        if comps != 4 or len(set(sizes)) != 1:
-            raise ValueError(f"JPEG: {comps} components of sizes {sizes}; the plane decode "
-                             "takes four components of the image's size (no subsampling)")
-        w, h = sizes[0]
-        out = torch.empty((4, h, w), dtype=torch.uint8, device=device)
+        if comps != 4:
+            raise ValueError(f"JPEG: {comps} components; the plane decode takes four")
+        widths, heights = tuple(w for w, _ in sizes), tuple(h for _, h in sizes)
+        flat = torch.empty(sum(w * h for w, h in sizes), dtype=torch.uint8, device=device)
         self._check(self.lib.jpeg_decode_planes(
-            self.handle, self._state(), data, len(data), out.data_ptr(), w, h,
+            self.handle, self._state(), data, len(data), flat.data_ptr(),
+            (ctypes.c_int * 4)(*widths), (ctypes.c_int * 4)(*heights),
             torch.cuda.current_stream(device).cuda_stream), "nvjpegDecode")
-        return out
+        return StoredPlanes(flat, heights, widths)
 
     def decode(self, data: bytes, device: torch.device) -> torch.Tensor:
         comps, sizes = self.info(data)

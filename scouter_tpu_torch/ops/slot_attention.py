@@ -21,7 +21,7 @@ Numeric contract (reference ``sloter/utils/slot_attention.py:44-96``):
 from __future__ import annotations
 
 import dataclasses
-from typing import Any, Dict, List, Sequence, Tuple
+from typing import Any, Dict, List, Optional, Sequence, Tuple
 
 import torch
 
@@ -85,10 +85,12 @@ def xslot_iteration(
     values: torch.Tensor,
     gru: GRUParams,
     scale: float,
+    div: Optional[int] = None,
 ) -> Tuple[torch.Tensor, torch.Tensor, torch.Tensor]:
     """One xSlot iteration. Returns (new_slots, updates, attn).
 
-    slots: (B, S, d), k/values: (B, N, d).
+    slots: (B, S, d), k/values: (B, N, d). ``div``: the updates' divisor
+    where it is not d (the true width of zero-padded inputs).
     """
     b, s, d = slots.shape
     dots = torch.einsum("bid,bjd->bij", slots, k) * scale  # (B, S, N)
@@ -96,7 +98,7 @@ def xslot_iteration(
     total = dots.sum(dim=(1, 2), keepdim=True)
     dots = dots / row_sum * total
     attn = torch.sigmoid(dots)
-    updates = torch.einsum("bij,bjd->bid", attn, values) / d
+    updates = torch.einsum("bij,bjd->bid", attn, values) / (d if div is None else div)
     new_slots = gru_cell(gru, updates.reshape(b * s, d), slots.reshape(b * s, d))
     return new_slots.reshape(b, s, d), updates, attn
 

@@ -32,14 +32,17 @@ dtypes, so ``torch.export`` traces the slot head (ctypes it cannot trace).
 
 Each batch element runs on one thread-block cluster of ``c`` CTAs that split
 its slots; ``_plan`` chooses ``c``. Where an element's share does not fit in a
-cluster of 8, the kernel takes its tiled route instead: each iteration a chain
-of launches over the batch, with its intermediates in device memory. The
-backward does so at S=1000 at N=81 and N=196 at S=30
-(``csrc/xslot_bwd.cu``), the forward at N=784 at S=30 (output stride 8) and
-S=1000 at N=196 (the CUB recipe at 448 px; ``csrc/xslot_fwd_tiled.cu``).
-The route is chosen by shape alone, never after a launch failed. The wrapper
-takes the plain versions only for tensors on the CPU; for CUDA tensors it
-launches the kernels or raises, with or without grad.
+cluster of 8 (or d > 1024), each kernel takes its tiled route instead. The
+backward's is a chain of launches over the batch with its intermediates in
+device memory (``csrc/xslot_bwd.cu``: S=1000 at N=81, N=196 at S=30). The
+forward's is one launch of ``csrc/xslot_fwd_tiled.cu``: a cluster of up to
+16 CTAs an element that split its slots and its positions
+(``split_fwd_plan``), at N=784 at S=30 (output stride 8) and S=1000 at
+N=196 (the CUB recipe at 448 px). The route is chosen by shape alone, never
+after a launch failed. A slot width that is not a multiple of 4 runs
+zero-padded to one (``pad_slot_width``), exactly. The wrapper takes the
+plain versions only for tensors on the CPU; for CUDA tensors it launches the
+kernels or raises, with or without grad.
 """
 
 from __future__ import annotations
@@ -52,8 +55,9 @@ import torch
 
 from .gru import GRUParams
 
-__all__ = ["Plan", "TiledFwdPlan", "TiledPlan", "TiledProduct", "tiled_fwd_plan", "tiled_plan",
-           "xslot_bwd_ref", "xslot_fwd_ref", "xslot_iterations_fused", "xslot_iterations_ref"]
+__all__ = ["Plan", "SplitFwdPlan", "TiledPlan", "TiledProduct", "pad_slot_width",
+           "split_fwd_plan", "tiled_plan", "xslot_bwd_ref", "xslot_fwd_ref",
+           "xslot_iterations_fused", "xslot_iterations_ref"]
 
 # csrc/xslot_common.cuh: threads per CTA, columns per staged GRU weight tile
 # and the portable cluster limit; csrc/xslot_bwd.cu: the most 4 x 4 tiles
@@ -72,11 +76,14 @@ def _input_dtype(tensors):
     return dtypes.pop()
 
 
-def xslot_fwd_ref(k, v, initial_slots, w_ih, w_hh, b_ih, b_hh, *, iters=3, emit_hist=False):
+def xslot_fwd_ref(k, v, initial_slots, w_ih, w_hh, b_ih, b_hh, *, iters=3, emit_hist=False,
+                  dim=None):
     """Plain PyTorch version of the forward kernel: ``iters`` calls of
     ``xslot_iteration`` on the inputs, bfloat16 ones upcast to float32.
     Returns (upd, attn) or, with ``emit_hist``, (upd, attn, hist) where
-    hist[:, i] holds the slots entering iteration i."""
+    hist[:, i] holds the slots entering iteration i. ``dim``: the true slot
+    width of inputs zero-padded past it (``pad_slot_width``), which the
+    scale and the updates' divisor take."""
     from .slot_attention import xslot_iteration
 
     k, v, initial_slots, w_ih, w_hh, b_ih, b_hh = (
@@ -86,12 +93,13 @@ def xslot_fwd_ref(k, v, initial_slots, w_ih, w_hh, b_ih, b_hh, *, iters=3, emit_
     b = k.shape[0]
     s, d = initial_slots.shape
     slots = initial_slots[None].expand(b, s, d)
-    scale = float(d) ** -0.5
+    dim = d if dim is None else dim
+    scale = float(dim) ** -0.5
     hist = []
     updates = attn = None
     for _ in range(iters):
         hist.append(slots)
-        slots, updates, attn = xslot_iteration(slots, k, v, gru, scale)
+        slots, updates, attn = xslot_iteration(slots, k, v, gru, scale, dim)
     if emit_hist:
         return updates, attn, torch.stack(hist, dim=1)
     return updates, attn
@@ -102,7 +110,7 @@ def xslot_iterations_ref(k, v, initial_slots, w_ih, w_hh, b_ih, b_hh, *, iters=3
     return xslot_fwd_ref(k, v, initial_slots, w_ih, w_hh, b_ih, b_hh, iters=iters)
 
 
-def xslot_bwd_ref(k, v, w_ih, w_hh, b_ih, b_hh, hist, du, dattn):
+def xslot_bwd_ref(k, v, w_ih, w_hh, b_ih, b_hh, hist, du, dattn, *, dim=None):
     """Plain PyTorch version of the backward kernel, written out by hand.
 
     Given the residuals (k, v, the GRU weights and biases, hist (B, iters,
@@ -112,13 +120,15 @@ def xslot_bwd_ref(k, v, w_ih, w_hh, b_ih, b_hh, hist, du, dattn):
     last iteration and (dslots, 0, 0) before it. The last iteration's GRU
     output is unused, so its backward is skipped. bfloat16 residuals (with
     float32 hist and cotangents) are upcast, the arithmetic is float32, and
-    the gradients are cast back to bfloat16 once, at the end."""
+    the gradients are cast back to bfloat16 once, at the end. ``dim`` as
+    ``xslot_fwd_ref`` takes it."""
     if k.dtype == torch.bfloat16:
         grads = xslot_bwd_ref(*(t.float() for t in (k, v, w_ih, w_hh, b_ih, b_hh)), hist, du,
-                              dattn)
+                              dattn, dim=dim)
         return tuple(g.to(torch.bfloat16) for g in grads)
     b, iters, s, d = hist.shape
-    scale = float(d) ** -0.5
+    div = d if dim is None else dim
+    scale = float(div) ** -0.5
     bi, bh = b_ih[0], b_hh[0]
     dk, dv = torch.zeros_like(k), torch.zeros_like(v)
     dwi, dwh = torch.zeros_like(w_ih), torch.zeros_like(w_hh)
@@ -130,10 +140,10 @@ def xslot_bwd_ref(k, v, w_ih, w_hh, b_ih, b_hh, hist, du, dattn):
         rs = dots.sum(dim=2, keepdim=True)
         total = dots.sum(dim=(1, 2), keepdim=True)
         attn = torch.sigmoid(dots / rs * total)
-        upd = torch.einsum("bsn,bnd->bsd", attn, v) / d
+        upd = torch.einsum("bsn,bnd->bsd", attn, v) / div
         if i == iters - 1:
             dupd, dh = du, None
-            dattn_tot = dattn + torch.einsum("bsd,bnd->bsn", dupd, v) / d
+            dattn_tot = dattn + torch.einsum("bsd,bnd->bsn", dupd, v) / div
         else:
             # GRU: x = upd, h entering, g the cotangent of the new slots
             g = dslots
@@ -154,8 +164,8 @@ def xslot_bwd_ref(k, v, w_ih, w_hh, b_ih, b_hh, hist, du, dattn):
             dwh = dwh + torch.einsum("bsr,bsc->rc", dgh, h)
             dbi = dbi + dgi.sum(dim=(0, 1))[None]
             dbh = dbh + dgh.sum(dim=(0, 1))[None]
-            dattn_tot = torch.einsum("bsd,bnd->bsn", dupd, v) / d
-        dv = dv + torch.einsum("bsn,bsd->bnd", attn, dupd) / d
+            dattn_tot = torch.einsum("bsd,bnd->bsn", dupd, v) / div
+        dv = dv + torch.einsum("bsn,bsd->bnd", attn, dupd) / div
         # renorm x = dots * total / rs, with total the sum of all the dots
         grad_x = dattn_tot * attn * (1 - attn)
         rg = (grad_x * dots).sum(dim=2, keepdim=True)
@@ -190,10 +200,10 @@ class Plan(NamedTuple):
     def launches(self, kind: str) -> int:
         """Launches of one call on this cluster plan: the forward's kernel,
         or the backward's gradient kernel and its fixed-order sum. The tiled
-        routes' counts are ``TiledFwdPlan.launches`` and
+        routes' counts are ``SplitFwdPlan.launches`` and
         ``TiledPlan.launches``."""
         if self.tiled:
-            raise ValueError("the tiled routes' launches are TiledFwdPlan.launches and "
+            raise ValueError("the tiled routes' launches are SplitFwdPlan.launches and "
                              "TiledPlan.launches")
         return 1 if kind == "fwd" else 2
 
@@ -233,8 +243,11 @@ def _plan(b: int, n: int, s: int, d: int, kind: str, max_smem: int, sms: int, sm
     ``c`` <= S. The forward keeps the GRU weights resident where they fit
     beside its share; the backward always does, and holds dk and dv in
     registers, ``_KV_TILES`` 4 x 4 tiles of each a thread at most. Where 8
-    CTAs cannot hold the shares (or a thread dk and dv) the kernel takes its
-    tiled route (``TILED``)."""
+    CTAs cannot hold the shares (or a thread dk and dv), and past d=1024
+    (the GRU's thread tile gives each thread at most one column quad), the
+    kernel takes its tiled route (``TILED``)."""
+    if d > 4 * _THREADS:
+        return TILED
     top = min(_MAX_CLUSTER, s)
     kv_fits = kind == "fwd" or -(-n // 4) * (d // 4) <= _KV_TILES * _THREADS
 
@@ -304,31 +317,39 @@ class TiledPlan(NamedTuple):
                 + int(self.bf16))
 
 
-class TiledFwdPlan(NamedTuple):
+class SplitFwdPlan(NamedTuple):
     """The forward's tiled route at one shape (``csrc/xslot_fwd_tiled.cu``):
-    its products by name (``TILED_FWD_PRODUCTS``: the dots, the update x and
-    the GRU's gates gi|gh), whether the dots' row sums ride in their
-    product's epilogue (``fused``: N <= the tile's width), the scratch in
-    floats, whether hist is written and whether the inputs are bf16."""
+    one cluster of ``slot_groups`` x ``position_groups`` CTAs a batch element,
+    CTA (gs, gn) owning slot group gs and position share gn, which it walks
+    in tiles of ``tile`` positions (its share of k and v resident in shared
+    memory, or ``streamed`` through a ring of two tiles); ``spill``: the slot
+    buffers in device scratch (``scratch_floats``), past what shared memory
+    holds; ``smem_bytes`` a CTA and ``clusters`` the card holds at once.
+    With ``grid`` the element's CTAs (slot groups only) form no cluster: one
+    cooperative launch holds every element's at once, and they exchange the
+    groups' totals through the scratch and a grid barrier (``clusters`` is
+    then the batch)."""
 
-    products: Dict[str, TiledProduct]
-    fused: bool
+    slot_groups: int
+    position_groups: int
+    tile: int
+    streamed: bool
+    spill: bool
+    smem_bytes: int
+    clusters: int
     scratch_floats: int
-    hist: bool = False
-    bf16: bool = False
+    grid: bool = False
+
+    @property
+    def cluster(self) -> int:
+        return self.slot_groups * self.position_groups
 
     def launches(self, iters: int) -> int:
-        """The launches ``tiled_fwd`` makes in one call of ``iters``
-        iterations: per iteration the dots (and their row pass where the
-        epilogue cannot take it), the attention pass and x; per GRU gi|gh and
-        the gate pass; the copy of the initial slots into hist[:, 0] where
-        hist is written; with bf16 inputs the pass that converts them first.
-        ``chip_smoke.py`` holds it to the count of one call on the card."""
-        return (iters * (3 if self.fused else 4) + 2 * (iters - 1) + int(self.hist)
-                + int(self.bf16))
+        """One kernel a call, whatever ``iters``: it writes hist's first row
+        itself and converts bf16 inputs on load. ``chip_smoke.py`` holds it
+        to the count of one call on the card."""
+        return 1
 
-
-TILED_FWD_PRODUCTS = ("dots", "x", "gates")
 
 
 def _cdiv(a: int, b: int) -> int:
@@ -378,29 +399,139 @@ def _up4(x: int) -> int:
     return -(-x // 4) * 4
 
 
-def tiled_fwd_plan(b: int, n: int, s: int, d: int, sms: int, hist: bool = False,
-                   bf16: bool = False) -> TiledFwdPlan:
-    """The forward's tiled route at (B, N, S, d) on a card of ``sms`` SMs, as
-    ``fwd_plan`` of csrc/xslot_fwd_tiled.cu has it: the backward's products
-    of the same shapes; ``chip_smoke.py`` holds this copy to the library's
-    ``xslot_fwd_tiled_plan`` and scratch size."""
-    bs = b * s
-    shapes = dict(dots=(s, n, d, b, 1, False), x=(s, d, n, b, 1, False),
-                  gates=(bs, 3 * d, d, 1, 2, False))
-    products = {name: _plan_product(*shape, sms) for name, shape in shapes.items()}
-    # dots (B, S, N), rs (B, S), gi and gh (B, S, 3d), without hist the slots
-    # of two iterations, with bf16 inputs their f32 copies
-    scratch = (_up4(bs * n) + _up4(bs) + 6 * bs * d + (0 if hist else 2 * bs * d)
-               + (2 * b * n * d + s * d + 6 * d * d + 6 * d if bf16 else 0))
-    return TiledFwdPlan(products, n <= products["dots"].tile_cols, scratch, hist, bf16)
+# csrc/xslot_fwd_tiled.cu: the most CTAs of its cluster (non-portable past
+# 8), the tiles of positions the plan tries, largest first (at least 16
+# where k and v are resident, at most 32 a ring stage where they stream),
+# and its threads a CTA
+_MAX_SPLIT_CLUSTER = 16
+_TILES = (64, 32, 16, 8, 4, 2, 1)
+_SPLIT_THREADS = 512
+
+
+def _split_region_floats(s: int, d: int, cs: int, cn: int) -> int:
+    # slots, the update's partial sums, the summed update (the partial sums
+    # themselves where cn == 1), the next slots and the slots transposed,
+    # each (slp, d + 4)
+    return (5 if cn > 1 else 4) * _up4(_cdiv(s, cs)) * (d + 4)
+
+
+def _split_smem_bytes(n: int, s: int, d: int, cs: int, cn: int, tile: int, streamed: bool,
+                      spill: bool) -> int:
+    """One CTA's dynamic shared memory as ``smem_floats`` of
+    csrc/xslot_fwd_tiled.cu lays it out: the row sums of two iterations (f64)
+    and this one's, the block sum's scratch, the group's total of two
+    iterations, k's column sums (by stripe, then summed; f64), the GRU's
+    biases, the slot buffers unless they spill, k transposed and v (the CTA's share, or a
+    ring of two tiles each), the dots of a tile (rows of slp + 4) and two
+    chunks of the GRU's weight rows (8 columns, fewer where d is large). The
+    card's plan takes the library's ``xslot_fwd_tiled_smem_bytes``;
+    ``chip_smoke.py`` holds this copy to it."""
+    slp = _up4(_cdiv(s, cs))
+    share = _cdiv(n, cn)
+    kcols = _up4(tile if streamed else share)
+    positions = ((2 if streamed else 1) * d * kcols + (2 * tile if streamed else share) * (d + 4)
+                 + tile * (slp + 4))
+    chunk = min(8, max(1, 3264 // (6 * (d + 4))))  # the GRU's staged weight columns
+    floats = (5 * slp + 2 * (_SPLIT_THREADS // 32) + 4 + 2 * max(_SPLIT_THREADS, d) + 8 * d
+              + (0 if spill else _split_region_floats(s, d, cs, cn)) + positions
+              + 12 * chunk * (d + 4))
+    return 4 * floats
+
+
+def _split_scratch_floats(b: int, s: int, d: int, cs: int, cn: int, spill: bool,
+                          grid: bool = False) -> int:
+    if grid:
+        return 4 * b * cs * cn  # each CTA's group total of two iterations, f64
+    return b * cs * cn * _split_region_floats(s, d, cs, cn) if spill else 0
+
+
+def split_fwd_plan(b: int, n: int, s: int, d: int, max_smem: int, sms: int, smem,
+                   active, ctas=None) -> SplitFwdPlan:
+    """The tiled forward's plan at (B, N, S, d) on a card with ``max_smem``
+    bytes of opt-in shared memory a CTA and ``sms`` SMs. ``smem(cs, cn, tile,
+    streamed, spill)`` is one CTA's shared memory, ``active(cs, cn, tile,
+    streamed, spill)`` how many such clusters the card holds at once
+    (cudaOccupancyMaxActiveClusters) and ``ctas(cs, cn, tile, streamed,
+    spill)`` how many such CTAs it holds at once outside clusters. Every split
+    of at most 16 CTAs (cs <= S, cn <= N) is tried in its cheapest mode that
+    fits, with the largest tile that fits: k and v resident, else through a
+    ring, and only where no split holds its slot buffers, those in scratch.
+    The first mode that some split fits decides; among its splits the plan
+    takes the least ``ceil(B / clusters) x CTAs an SM x (1/c + 1/16)``: the
+    busiest SM's share of the elements' work, waves counted, with a
+    sixteenth of an element's for what each CTA does whatever c (the GRU's
+    rows, the sums across the cluster); then the smaller cluster, then fewer
+    slot groups. Where that takes more than one wave of clusters (the card
+    places a cluster within one GPC, so clusters of 10 to 16 CTAs fit only 7
+    at once on an H100) and ``ctas`` is given, a grid of slot groups (cn = 1,
+    no cluster, every element's CTAs at once) with a lesser cost, its one
+    wave counted the same way, takes its place."""
+    from fractions import Fraction
+
+    def fit(cs, cn, resident, spill):  # the largest tile that fits, and its bytes
+        share = _cdiv(n, cn)
+        tiles = (sorted({min(share, t) for t in _TILES[:3]}, reverse=True) if resident
+                 else [t for t in _TILES[1:] if t < share])
+        for tile in tiles:
+            nbytes = smem(cs, cn, tile, not resident, spill)
+            if nbytes <= max_smem:
+                return tile, nbytes
+        return None
+
+    for spill in (False, True):
+        for resident in (True, False):
+            best = None
+            for cs in range(1, min(_MAX_SPLIT_CLUSTER, s) + 1):
+                for cn in range(1, min(_MAX_SPLIT_CLUSTER // cs, n) + 1):
+                    fits = fit(cs, cn, resident, spill)
+                    if fits is None:
+                        continue
+                    clusters = active(cs, cn, fits[0], not resident, spill)
+                    if clusters <= 0:
+                        continue
+                    c = cs * cn
+                    per_sm = _cdiv(min(b, clusters) * c, sms)
+                    key = (Fraction(_cdiv(b, clusters) * per_sm * (16 + c), 16 * c), c, cs)
+                    if best is None or key < best[0]:
+                        best = (key, SplitFwdPlan(cs, cn, fits[0], not resident, spill, fits[1],
+                                                  clusters, 0))
+            if best is not None:
+                if ctas is not None and _cdiv(b, best[1].clusters) > 1:
+                    best = min([best] + _grid_plans(b, s, sms, fit, ctas), key=lambda kp: kp[0])
+                plan = best[1]
+                return plan._replace(scratch_floats=_split_scratch_floats(
+                    b, s, d, plan.slot_groups, plan.position_groups, plan.spill, plan.grid))
+    raise ValueError(f"xslot forward: no cluster of up to {_MAX_SPLIT_CLUSTER} CTAs holds an "
+                     f"element at B={b} N={n} S={s} d={d}")
+
+
+def _grid_plans(b, s, sms, fit, ctas):
+    """split_fwd_plan's grid candidates: cs slot groups an element (cn = 1),
+    the slot buffers in shared memory and k and v resident where they fit,
+    every element's CTAs at once; each with its cost key."""
+    from fractions import Fraction
+
+    out = []
+    for cs in range(2, min(_MAX_SPLIT_CLUSTER, s) + 1):
+        for resident in (True, False):
+            fits = fit(cs, 1, resident, False)
+            if fits is None:
+                continue
+            if b * cs <= ctas(cs, 1, fits[0], not resident, False):
+                per_sm = _cdiv(b * cs, sms)
+                key = (Fraction(per_sm * (16 + cs), 16 * cs), cs, cs)
+                out.append((key, SplitFwdPlan(cs, 1, fits[0], not resident, False, fits[1], b,
+                                              0, True)))
+            break
+    return out
 
 
 _FWD_SIGNATURE = ([ctypes.c_void_p] * 10 + [ctypes.c_int] * 5
-                  + [ctypes.c_float] + [ctypes.c_int] * 3 + [ctypes.c_void_p])
+                  + [ctypes.c_float] * 2 + [ctypes.c_int] * 3 + [ctypes.c_void_p])
 _BWD_SIGNATURE = ([ctypes.c_void_p] * 17 + [ctypes.c_int] * 5
-                  + [ctypes.c_float, ctypes.c_int, ctypes.c_int, ctypes.c_void_p])
+                  + [ctypes.c_float] * 2 + [ctypes.c_int, ctypes.c_int, ctypes.c_void_p])
 _FWD_TILED_SIGNATURE = ([ctypes.c_void_p] * 11 + [ctypes.c_int] * 5
-                        + [ctypes.c_float, ctypes.c_int, ctypes.c_void_p])
+                        + [ctypes.c_float] * 2 + [ctypes.c_int] * 7 + [ctypes.c_void_p])
 
 
 def _library(name: str):
@@ -410,10 +541,12 @@ def _library(name: str):
     fn = getattr(lib, name)
     if fn.argtypes is None and name == "xslot_fwd_tiled":
         fn.argtypes, fn.restype = _FWD_TILED_SIGNATURE, ctypes.c_int
-        lib.xslot_fwd_tiled_scratch_floats.argtypes = [ctypes.c_int] * 6
+        lib.xslot_fwd_tiled_smem_bytes.argtypes = [ctypes.c_int] * 8
+        lib.xslot_fwd_tiled_smem_bytes.restype = ctypes.c_size_t
+        lib.xslot_fwd_tiled_scratch_floats.argtypes = [ctypes.c_int] * 7
         lib.xslot_fwd_tiled_scratch_floats.restype = ctypes.c_size_t
-        lib.xslot_fwd_tiled_plan.argtypes = [ctypes.c_int] * 4 + [ctypes.POINTER(ctypes.c_int)]
-        lib.xslot_fwd_tiled_plan.restype = ctypes.c_int
+        for count in (lib.xslot_fwd_tiled_max_clusters, lib.xslot_fwd_tiled_max_ctas):
+            count.argtypes, count.restype = [ctypes.c_int] * 9, ctypes.c_int
     elif fn.argtypes is None:
         fn.argtypes = _FWD_SIGNATURE if name == "xslot_fwd" else _BWD_SIGNATURE
         fn.restype = ctypes.c_int
@@ -428,6 +561,7 @@ def _library(name: str):
             lib.xslot_bwd_scratch_floats.restype = ctypes.c_size_t
             lib.xslot_tiled_plan.argtypes = [ctypes.c_int] * 4 + [ctypes.POINTER(ctypes.c_int)]
             lib.xslot_tiled_plan.restype = ctypes.c_int
+    if lib.xslot_max_smem.argtypes is None:
         lib.xslot_max_smem.argtypes = [ctypes.c_int]
         lib.xslot_max_smem.restype = ctypes.c_int
         lib.xslot_error_string.argtypes = [ctypes.c_int]
@@ -456,10 +590,46 @@ def _check_cuda_inputs(named, want, dtype, float32=()):
 
 
 def _check_dim(d):
-    # rows are loaded four floats at a time, and the GRU's thread tile gives
-    # each of a CTA's threads at most one column quad
-    if d % 4 or not 4 <= d <= 4 * _THREADS:
-        raise ValueError(f"xslot kernel needs d a multiple of 4 up to {4 * _THREADS}, got d={d}")
+    if d < 1:
+        raise ValueError(f"xslot kernel needs a slot width d >= 1, got d={d}")
+
+
+def _pad_rows(t, d4):
+    """``t`` zero-padded along its last dimension to ``d4``."""
+    return torch.nn.functional.pad(t, (0, d4 - t.shape[-1])).contiguous()
+
+
+def _pad_gates(t, d, d4):
+    """A GRU weight (3d, d) or bias (1, 3d) with each gate block r, z, n
+    zero-padded to d4 rows (and a weight's columns to d4): (3 d4, d4) or
+    (1, 3 d4)."""
+    if t.dim() == 2 and t.shape[0] == 1:
+        return _pad_rows(t.reshape(3, d), d4).reshape(1, 3 * d4)
+    out = t.new_zeros((3, d4, d4))
+    out[:, :d, :d] = t.reshape(3, d, d)
+    return out.reshape(3 * d4, d4)
+
+
+def _unpad_gates(t, d, d4):
+    """The inverse of ``_pad_gates``: the true rows and columns, contiguous."""
+    if t.dim() == 2 and t.shape[0] == 1:
+        return t.reshape(3, d4)[:, :d].reshape(1, 3 * d)
+    return t.reshape(3, d4, d4)[:, :d, :d].reshape(3 * d, d)
+
+
+def pad_slot_width(k, v, initial_slots, w_ih, w_hh, b_ih, b_hh):
+    """K1's inputs at a slot width d that is not a multiple of 4, zero-padded
+    to the next one, as the CUDA launches take them: k, v and the slots along
+    d, and each gate block of the GRU's weights and biases. Exact when the
+    scale and the update's divisor keep the true d (the kernels take it as
+    ``div``): the padded columns add exact zeros to the dots and the
+    updates, and the GRU keeps them at zero (r = z = 1/2, n = tanh(0) = 0,
+    h' = h/2 = 0)."""
+    d = k.shape[-1]
+    d4 = _up4(d)  # rows load four floats at a time
+    return (_pad_rows(k, d4), _pad_rows(v, d4), _pad_rows(initial_slots, d4),
+            _pad_gates(w_ih, d, d4), _pad_gates(w_hh, d, d4), _pad_gates(b_ih, d, d4),
+            _pad_gates(b_hh, d, d4))
 
 
 def launch_plan(kind: str, b: int, n: int, s: int, d: int, device, bf16: bool = False) -> Plan:
@@ -505,21 +675,38 @@ def launch_tiled_plan(b: int, n: int, s: int, d: int, device, bf16: bool = False
     return TiledPlan(products, n <= products["dots"].tile_cols, scratch, bf16)
 
 
-def launch_tiled_fwd_plan(b: int, n: int, s: int, d: int, device, hist: bool = False,
-                          bf16: bool = False) -> TiledFwdPlan:
-    """The forward's tiled route's plan as the C library makes it on the card
-    that holds ``device`` (``xslot_fwd_tiled_plan`` and
-    ``xslot_fwd_tiled_scratch_floats``)."""
-    lib = _library("xslot_fwd_tiled")
-    out = (ctypes.c_int * (3 * len(TILED_FWD_PRODUCTS)))()
-    with torch.cuda.device(device):
-        err = lib.xslot_fwd_tiled_plan(b, n, s, d, out)
-        scratch = lib.xslot_fwd_tiled_scratch_floats(b, n, s, d, int(hist), int(bf16))
-    _raise_on(lib, -err, "xslot forward tiled plan")
-    products = {name: TiledProduct(*out[3 * i:3 * i + 3])
-                for i, name in enumerate(TILED_FWD_PRODUCTS)}
-    return TiledFwdPlan(products, n <= products["dots"].tile_cols, scratch, hist, bf16)
+def launch_split_fwd_plan(b: int, n: int, s: int, d: int, device,
+                          bf16: bool = False) -> SplitFwdPlan:
+    """``split_fwd_plan`` on the card that holds ``device``, with the C
+    library's shared memory (``xslot_fwd_tiled_smem_bytes``), its counts of
+    the clusters and of the CTAs the card holds at once for the f32 or bf16
+    instance and its scratch size."""
+    dev = device.index if device.index is not None else torch.cuda.current_device()
+    return _device_split_plan(b, n, s, d, dev, bf16)
 
+
+@functools.lru_cache(maxsize=256)
+def _device_split_plan(b, n, s, d, dev, bf16):
+    lib = _library("xslot_fwd_tiled")
+    sms = torch.cuda.get_device_properties(dev).multi_processor_count
+
+    def smem(cs, cn, tile, streamed, spill):
+        return lib.xslot_fwd_tiled_smem_bytes(n, s, d, cs, cn, tile, int(streamed), int(spill))
+
+    def occupancy(query):
+        def count(cs, cn, tile, streamed, spill):
+            with torch.cuda.device(dev):
+                got = query(n, s, d, cs, cn, tile, int(streamed), int(spill), int(bf16))
+            if got < 0:
+                _raise_on(lib, -got, "xslot forward tiled route occupancy query")
+            return got
+        return count
+
+    plan = split_fwd_plan(b, n, s, d, lib.xslot_max_smem(dev), sms, smem,
+                          occupancy(lib.xslot_fwd_tiled_max_clusters),
+                          occupancy(lib.xslot_fwd_tiled_max_ctas))
+    return plan._replace(scratch_floats=lib.xslot_fwd_tiled_scratch_floats(
+        b, s, d, plan.slot_groups, plan.position_groups, int(plan.spill), int(plan.grid)))
 
 def _raise_on(lib, err, what):
     if err != 0:
@@ -528,7 +715,9 @@ def _raise_on(lib, err, what):
 
 
 def _launch(k, v, initial_slots, w_ih, w_hh, b_ih, b_hh, iters, emit_hist):
-    """Run ``csrc/xslot_fwd.cu`` on CUDA tensors: (upd, attn[, hist]), float32."""
+    """Run ``csrc/xslot_fwd.cu`` (or its tiled route) on CUDA tensors: (upd,
+    attn[, hist]), float32. A slot width that is not a multiple of 4 runs
+    zero-padded (``pad_slot_width``), its outputs cut back to d."""
     named = dict(k=k, v=v, initial_slots=initial_slots, w_ih=w_ih, w_hh=w_hh,
                  b_ih=b_ih, b_hh=b_hh)
     if iters < 1:
@@ -540,6 +729,19 @@ def _launch(k, v, initial_slots, w_ih, w_hh, b_ih, b_hh, iters, emit_hist):
                                "w_ih": (3 * d, d), "w_hh": (3 * d, d), "b_ih": (1, 3 * d),
                                "b_hh": (1, 3 * d)}, dtype)
     _check_dim(d)
+    if d % 4 == 0:
+        return _launch_width4(k, v, initial_slots, w_ih, w_hh, b_ih, b_hh, iters, emit_hist, d)
+    outs = _launch_width4(*pad_slot_width(k, v, initial_slots, w_ih, w_hh, b_ih, b_hh), iters,
+                          emit_hist, d)
+    return tuple(o if i == 1 else o[..., :d].contiguous() for i, o in enumerate(outs))
+
+
+def _launch_width4(k, v, initial_slots, w_ih, w_hh, b_ih, b_hh, iters, emit_hist, div):
+    """``_launch`` on checked inputs of a slot width that is a multiple of 4,
+    ``div`` the true one (the scale and the update's divisor)."""
+    b, n, d = k.shape
+    s = initial_slots.shape[0]
+    dtype = k.dtype
     plan = launch_plan("fwd", b, n, s, d, k.device, dtype == torch.bfloat16)
     upd = torch.empty((b, s, d), dtype=torch.float32, device=k.device)
     attn = torch.empty((b, s, n), dtype=torch.float32, device=k.device)
@@ -549,7 +751,7 @@ def _launch(k, v, initial_slots, w_ih, w_hh, b_ih, b_hh, iters, emit_hist):
     if b == 0:
         return outs
     if plan.tiled:
-        _launch_tiled(k, v, initial_slots, w_ih, w_hh, b_ih, b_hh, iters, outs)
+        _launch_tiled(k, v, initial_slots, w_ih, w_hh, b_ih, b_hh, iters, outs, div)
     else:
         lib = _library("xslot_fwd")
         with torch.cuda.device(k.device):
@@ -558,7 +760,7 @@ def _launch(k, v, initial_slots, w_ih, w_hh, b_ih, b_hh, iters, emit_hist):
                                 w_ih.data_ptr(), w_hh.data_ptr(), b_ih.data_ptr(),
                                 b_hh.data_ptr(), upd.data_ptr(), attn.data_ptr(),
                                 hist.data_ptr() if emit_hist else None,
-                                b, n, s, d, iters, float(d) ** -0.5,
+                                b, n, s, d, iters, float(div) ** -0.5, float(div),
                                 int(dtype == torch.bfloat16), plan.cluster, int(plan.resident),
                                 stream)
         _raise_on(lib, err, "xslot forward kernel")
@@ -568,28 +770,29 @@ def _launch(k, v, initial_slots, w_ih, w_hh, b_ih, b_hh, iters, emit_hist):
     return outs
 
 
-def _launch_tiled(k, v, initial_slots, w_ih, w_hh, b_ih, b_hh, iters, outs):
+def _launch_tiled(k, v, initial_slots, w_ih, w_hh, b_ih, b_hh, iters, outs, div):
     """Run ``csrc/xslot_fwd_tiled.cu`` into ``outs`` (upd, attn[, hist]) on
-    checked CUDA tensors: the forward where no cluster of 8 holds an
-    element."""
+    checked CUDA tensors, one launch: the forward where no cluster of 8 holds
+    an element."""
     b, n, d = k.shape
     s = initial_slots.shape[0]
     hist = outs[2] if len(outs) == 3 else None
     bf16 = k.dtype == torch.bfloat16
+    plan = launch_split_fwd_plan(b, n, s, d, k.device, bf16)
     lib = _library("xslot_fwd_tiled")
     with torch.cuda.device(k.device):
-        scratch = torch.empty(
-            lib.xslot_fwd_tiled_scratch_floats(b, n, s, d, int(hist is not None), int(bf16)),
-            dtype=torch.float32, device=k.device)
+        scratch = (torch.empty(plan.scratch_floats, dtype=torch.float32, device=k.device)
+                   if plan.scratch_floats else None)
         stream = torch.cuda.current_stream(k.device).cuda_stream
         err = lib.xslot_fwd_tiled(*(t.data_ptr() for t in (k, v, initial_slots, w_ih, w_hh,
                                                             b_ih, b_hh, outs[0], outs[1])),
                                   hist.data_ptr() if hist is not None else None,
-                                  scratch.data_ptr(), b, n, s, d, iters, float(d) ** -0.5,
-                                  int(bf16), stream)
+                                  scratch.data_ptr() if scratch is not None else None,
+                                  b, n, s, d, iters, float(div) ** -0.5, float(div), int(bf16),
+                                  plan.slot_groups, plan.position_groups, plan.tile,
+                                  int(plan.streamed), int(plan.spill), int(plan.grid), stream)
     _raise_on(lib, err, "xslot forward tiled route")
     xslot_iterations_fused.fwd_tiled_launches += 1
-
 
 def _launch_bwd(k, v, w_ih, w_hh, b_ih, b_hh, hist, du, dattn):
     """Run ``csrc/xslot_bwd.cu`` on CUDA tensors: the gradient kernel, then
@@ -607,10 +810,25 @@ def _launch_bwd(k, v, w_ih, w_hh, b_ih, b_hh, hist, du, dattn):
     _check_cuda_inputs(dict(residuals, hist=hist, du=du, dattn=dattn), want, dtype,
                        float32=("hist", "du", "dattn"))
     _check_dim(d)
-    bf16 = dtype == torch.bfloat16
+    if d % 4 == 0:
+        return _launch_bwd_width4(k, v, w_ih, w_hh, b_ih, b_hh, hist, du, dattn, d)
+    d4 = _up4(d)  # rows load four floats at a time
+    dk, dv, d_init, dwi, dwh, dbi, dbh = _launch_bwd_width4(
+        _pad_rows(k, d4), _pad_rows(v, d4), *(_pad_gates(t, d, d4) for t in (w_ih, w_hh, b_ih, b_hh)),
+        _pad_rows(hist, d4), _pad_rows(du, d4), dattn, d)
+    return (dk[..., :d].contiguous(), dv[..., :d].contiguous(), d_init[:, :d].contiguous(),
+            *(_unpad_gates(g, d, d4) for g in (dwi, dwh, dbi, dbh)))
+
+
+def _launch_bwd_width4(k, v, w_ih, w_hh, b_ih, b_hh, hist, du, dattn, div):
+    """``_launch_bwd`` on checked inputs of a slot width that is a multiple of
+    4, ``div`` the true one (the scale and the update's divisor)."""
+    b, n, d = k.shape
+    iters, s = hist.shape[1], hist.shape[2]
+    bf16 = k.dtype == torch.bfloat16
     plan = launch_plan("bwd", b, n, s, d, k.device, bf16)
     grads = (torch.empty_like(k), torch.empty_like(v),
-             torch.empty((s, d), dtype=dtype, device=k.device), torch.empty_like(w_ih),
+             torch.empty((s, d), dtype=k.dtype, device=k.device), torch.empty_like(w_ih),
              torch.empty_like(w_hh), torch.empty_like(b_ih), torch.empty_like(b_hh))
     if b == 0:
         return tuple(g.zero_() for g in grads)
@@ -623,8 +841,8 @@ def _launch_bwd(k, v, w_ih, w_hh, b_ih, b_hh, hist, du, dattn):
         err = lib.xslot_bwd(*(t.data_ptr() for t in (k, v, w_ih, w_hh, b_ih, b_hh, hist, du,
                                                      dattn)),
                             *(g.data_ptr() for g in grads), scratch.data_ptr(),
-                            b, n, s, d, iters, float(d) ** -0.5, int(bf16), plan.cluster,
-                            stream)
+                            b, n, s, d, iters, float(div) ** -0.5, float(div), int(bf16),
+                            plan.cluster, stream)
     _raise_on(lib, err, "xslot backward kernel")
     fused = xslot_iterations_fused
     if plan.tiled:
@@ -744,15 +962,15 @@ def xslot_iterations_fused(k, v, initial_slots, w_ih, w_hh, b_ih, b_hh, iters: i
     the inputs' dtype; otherwise the forward kernel runs without hist. CPU
     tensors take the plain versions either way.
 
-    Limits of the CUDA kernels: d a multiple of 4 up to 1024 (else
-    ``ValueError``). The forward runs on a cluster where each of at most 8
-    CTAs holds all of k and v and its share of the slots in shared memory:
+    The CUDA kernels take any d >= 1 (one that is not a multiple of 4
+    zero-padded to one). The forward runs on a cluster where each of at most
+    8 CTAs holds all of k and v and its share of the slots in shared memory:
     at d=64 up to N=343 at S=30 and S=1024 at N=81 (S=416 at N=196). The
     backward runs on a cluster where its share fits beside the whole of the
     GRU weights and each thread holds its part of dk and dv (N/4 * d/4 <=
     768, N rounded up): at d=64 up to N=192 at S=30 and S=192 at N=81, and
-    up to d=84 at N=49. Past those, each takes its tiled route, which any
-    (B, N, S) the card's memory holds.
+    up to d=84 at N=49. Past those, and past d=1024, each takes its tiled
+    route, which any (B, N, S) the card's memory holds.
     """
     args = (k, v, initial_slots, w_ih, w_hh, b_ih, b_hh)
     if torch.is_grad_enabled() and any(t.requires_grad for t in args):
@@ -763,7 +981,7 @@ def xslot_iterations_fused(k, v, initial_slots, w_ih, w_hh, b_ih, b_hh, iters: i
 # Counts of the CUDA launches, kept where the kernels launch (a loaded export
 # artifact's calls count too; the CPU path does not count): calls of the
 # forward, with and without hist, on either route, of those the calls that
-# emitted hist and the calls of its tiled route (each its chain of launches),
+# emitted hist and the calls of its tiled route (each one launch),
 # calls of the backward kernel on a cluster (each one gradient launch and its
 # fixed-order sum) and calls of its tiled route, and of these two the calls
 # with bfloat16 residuals

@@ -25,8 +25,11 @@ in it, saved with ``torch.export.save``. K1 and K2 are ``torch.library``
 custom ops with fake implementations, so the program holds them as ops
 (``scouter_tpu_torch::xslot_fwd``) and a loaded artifact launches the same
 kernels, counted as the live function's are. Differences from ``jax.export``:
-- one device kind an artifact: ``platforms`` names ``cuda`` or ``cpu``,
-  where StableHLO can hold several backends in one artifact;
+- one program a device kind: ``platforms`` names ``cuda``, ``cpu`` or both,
+  and an artifact of both holds one ``ExportedProgram`` for each (a zip of
+  their ``torch.export.save`` archives and a ``platforms.json`` naming
+  them), where StableHLO holds several backends in one program;
+  ``load_artifact`` takes the program for its device's kind;
 - an artifact runs under the torch that wrote it (the ``torch.export``
   format is not promised across versions); ``load_artifact`` needs the
   port's ops imported, which it does itself;
@@ -41,18 +44,25 @@ kernels, counted as the live function's are. Differences from ``jax.export``:
 
 from __future__ import annotations
 
+import io
+import json
 import os
-from typing import Mapping, Optional, Sequence, Union
+import zipfile
+from typing import Mapping, Optional, Sequence, Tuple, Union
 
 import numpy as np
 import torch
 from torch import nn
 
-__all__ = ["BATCH_RANGE", "ServingModule", "export_serving", "load_artifact",
-           "make_serving_fn", "save_artifact"]
+__all__ = ["BATCH_RANGE", "DEVICE_KINDS", "ServingModule", "artifact_platforms",
+           "export_serving", "load_artifact", "make_serving_fn", "save_artifact"]
 
 # the batch sizes a dynamic artifact is traced for (the module docstring)
 BATCH_RANGE = (2, 65535)
+# the device kinds an artifact may hold programs for, and the member of a
+# several-kind artifact that names them
+DEVICE_KINDS = ("cuda", "cpu")
+_MANIFEST = "platforms.json"
 
 
 def _render_slot_maps(attn: torch.Tensor, num_classes: int, slots_per_class: int) -> torch.Tensor:
@@ -152,16 +162,16 @@ def make_serving_fn(cfg, state_dict: Mapping[str, torch.Tensor], *,
     return fn
 
 
-def _platform(platforms: Union[None, str, Sequence[str]], device) -> str:
-    """The one device kind an artifact is for: ``platforms`` (one of
-    ``cuda``, ``cpu``) where given, else ``device``'s."""
+def _platforms(platforms: Union[None, str, Sequence[str]], device) -> Tuple[str, ...]:
+    """The device kinds an artifact is for: ``platforms`` (``cuda``, ``cpu``
+    or both, each once) where given, else ``device``'s."""
     if platforms is None:
-        return torch.device(device).type
-    kinds = [platforms] if isinstance(platforms, str) else list(platforms)
-    if len(kinds) != 1 or kinds[0] not in ("cuda", "cpu"):
-        raise ValueError(f"platforms names one device kind, cuda or cpu, got {platforms!r}: "
-                         "a torch.export artifact holds one")
-    return kinds[0]
+        return (torch.device(device).type,)
+    kinds = (platforms,) if isinstance(platforms, str) else tuple(platforms)
+    if not kinds or len(set(kinds)) != len(kinds) or not set(kinds) <= set(DEVICE_KINDS):
+        raise ValueError(f"platforms names device kinds out of {DEVICE_KINDS}, each once, got "
+                         f"{platforms!r}")
+    return kinds
 
 
 def export_serving(cfg, state_dict: Mapping[str, torch.Tensor], *, batch: Optional[int] = None,
@@ -169,25 +179,42 @@ def export_serving(cfg, state_dict: Mapping[str, torch.Tensor], *, batch: Option
                    include_maps: bool = True, device="cuda"):
     """Export the serving function: a ``torch.export.ExportedProgram`` of
     preprocess, model and maps with the weights in it, for the device kind
-    ``platforms`` names (else ``device``'s). ``batch=None`` exports a dynamic
-    batch (``BATCH_RANGE``; ``load_artifact`` pads a batch of 1), an int pins
+    ``platforms`` names (else ``device``'s); where it names both kinds, a
+    dict of one program per kind. ``batch=None`` exports a dynamic batch
+    (``BATCH_RANGE``; ``load_artifact`` pads a batch of 1), an int pins
     it."""
     from ..core.device import resolve_device
 
-    dev = resolve_device(_platform(platforms, device))
-    module = _serving_module(cfg, state_dict, compute_dtype, include_maps, dev)
-    channels = 1 if cfg.dataset == "MNIST" else 3
-    example = torch.zeros((2 if batch is None else int(batch), cfg.img_size, cfg.img_size,
-                           channels), dtype=torch.uint8, device=dev)
-    dynamic = None if batch is not None else (
-        {0: torch.export.Dim("batch", min=BATCH_RANGE[0], max=BATCH_RANGE[1])},)
-    return torch.export.export(module, (example,), dynamic_shapes=dynamic)
+    programs = {}
+    for kind in _platforms(platforms, device):
+        dev = resolve_device(kind)
+        module = _serving_module(cfg, state_dict, compute_dtype, include_maps, dev)
+        channels = 1 if cfg.dataset == "MNIST" else 3
+        example = torch.zeros((2 if batch is None else int(batch), cfg.img_size, cfg.img_size,
+                               channels), dtype=torch.uint8, device=dev)
+        dynamic = None if batch is not None else (
+            {0: torch.export.Dim("batch", min=BATCH_RANGE[0], max=BATCH_RANGE[1])},)
+        programs[kind] = torch.export.export(module, (example,), dynamic_shapes=dynamic)
+    return programs.popitem()[1] if len(programs) == 1 else programs
 
 
 def save_artifact(exported, path: str) -> int:
-    """Write an ExportedProgram to ``path`` (``torch.export.save``); returns
-    the byte size."""
-    torch.export.save(exported, path)
+    """Write an ExportedProgram to ``path`` (``torch.export.save``), or a
+    dict of one per device kind as one zip of their archives with a
+    manifest; returns the byte size."""
+    if not isinstance(exported, Mapping):
+        torch.export.save(exported, path)
+        return os.path.getsize(path)
+    for kind, program in exported.items():
+        if artifact_platform(program) != kind:
+            raise ValueError(f"the program given for {kind} holds tensors on "
+                             f"{artifact_platform(program)}")
+    with zipfile.ZipFile(path, "w", zipfile.ZIP_STORED) as archive:
+        archive.writestr(_MANIFEST, json.dumps({"platforms": list(exported)}))
+        for kind, program in exported.items():
+            buf = io.BytesIO()
+            torch.export.save(program, buf)
+            archive.writestr(f"{kind}.pt2", buf.getvalue())
     return os.path.getsize(path)
 
 
@@ -198,6 +225,32 @@ def artifact_platform(exported) -> str:
     if len(kinds) != 1:
         raise ValueError(f"artifact holds tensors on {sorted(kinds)}, not one device kind")
     return kinds.pop()
+
+
+def artifact_platforms(path: str) -> Tuple[str, ...]:
+    """The device kinds the artifact at ``path`` holds programs for."""
+    with zipfile.ZipFile(path) as archive:
+        if _MANIFEST in archive.namelist():
+            return tuple(json.loads(archive.read(_MANIFEST))["platforms"])
+    return (artifact_platform(torch.export.load(path)),)
+
+
+def _load_program(path: str, kind: str):
+    """The ExportedProgram at ``path`` for device kind ``kind``: the file's
+    one program, or its member for ``kind``; another kind raises and names
+    the kinds the file holds."""
+    with zipfile.ZipFile(path) as archive:
+        if _MANIFEST in archive.namelist():
+            kinds = json.loads(archive.read(_MANIFEST))["platforms"]
+            if kind not in kinds:
+                raise ValueError(f"{path} holds programs for {kinds}, not for {kind}")
+            return torch.export.load(io.BytesIO(archive.read(f"{kind}.pt2")))
+    exported = torch.export.load(path)
+    held = artifact_platform(exported)
+    if held != kind:
+        raise ValueError(f"{path} holds a program for {[held]} (it was exported for {held}), "
+                         f"not for {kind}")
+    return exported
 
 
 def batch_range(exported):
@@ -214,18 +267,16 @@ def batch_range(exported):
 def load_artifact(path: str, device="cuda"):
     """Load an artifact; returns ``call(images_u8) -> dict`` (under
     inference mode, on ``device``) with ``call.exported`` the program. The
-    artifact must have been exported for ``device``'s kind, else
-    ``ValueError``; its input shape guards refuse other image sizes (and
-    another batch, where it is pinned). A dynamic artifact's call pads a
-    batch below its least (1) with zero images and drops their rows."""
+    artifact must hold a program for ``device``'s kind (its one program, or
+    one of several), else ``ValueError`` naming the kinds it holds; the
+    program's input shape guards refuse other image sizes (and another
+    batch, where it is pinned). A dynamic artifact's call pads a batch below
+    its least (1) with zero images and drops their rows."""
     from .. import ops  # noqa: F401  (registers the custom ops the program calls)
     from ..core.device import resolve_device
 
+    exported = _load_program(path, torch.device(device).type)
     dev = resolve_device(device)
-    exported = torch.export.load(path)
-    kind = artifact_platform(exported)
-    if kind != dev.type:
-        raise ValueError(f"{path} was exported for {kind}, not {dev.type}")
     module = exported.module()
     low, pinned = batch_range(exported)
 

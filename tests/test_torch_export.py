@@ -142,13 +142,47 @@ def test_artifact_logits_match_jax(dynamic_artifact):
 
 
 def test_platforms_take_one_device_kind(dynamic_artifact):
+    # each entry of platforms one known device kind, each once: an unknown
+    # kind, a repeated one or none is refused ("cuda", "cpu" together is an
+    # artifact of two programs, checked on the card)
     cfg, sd, path = dynamic_artifact
-    for bad in (("tpu",), ("cuda", "cpu"), "gpu"):
-        with pytest.raises(ValueError, match="one device kind"):
+    for bad in (("tpu",), "gpu", ("cpu", "cpu"), (), ("cuda", "tpu")):
+        with pytest.raises(ValueError, match="device kinds out of"):
             export_serving(cfg, sd, platforms=bad, device="cpu")
-    from scouter_tpu_torch.serve.export import artifact_platform
+    from scouter_tpu_torch.serve.export import artifact_platform, artifact_platforms
 
     assert artifact_platform(torch.export.load(path)) == "cpu"
+    assert artifact_platforms(path) == ("cpu",)
+    with pytest.raises(ValueError, match=r"holds a program for \['cpu'\].*not for cuda"):
+        load_artifact(path, device="cuda")
+
+
+def test_artifact_of_several_kinds_loads_the_program_for_its_device(dynamic_artifact, tmp_path):
+    """An artifact of one program a device kind (what platforms=("cuda",
+    "cpu") writes): a zip of each program's archive and a manifest; the
+    loader takes the program for its device's kind, and refuses a kind the
+    file holds none for, naming the kinds it holds."""
+    import zipfile
+
+    from scouter_tpu_torch.serve.export import artifact_platforms
+
+    cfg, sd, path = dynamic_artifact
+    several = str(tmp_path / "several.pt2")
+    save_artifact({"cpu": torch.export.load(path)}, several)
+    with zipfile.ZipFile(several) as archive:
+        assert sorted(archive.namelist()) == ["cpu.pt2", "platforms.json"]
+    assert artifact_platforms(several) == ("cpu",)
+    imgs = probe_images(3, seed=5)
+    got = load_artifact(several, device="cpu")(imgs)
+    want = load_artifact(path, device="cpu")(imgs)
+    assert set(got) == set(want)
+    for key in got:
+        assert torch.equal(got[key], want[key])
+    with pytest.raises(ValueError, match=r"holds programs for \['cpu'\], not for cuda"):
+        load_artifact(several, device="cuda")
+    # a program saved under another kind's name is refused when written
+    with pytest.raises(ValueError, match="given for cuda holds tensors on cpu"):
+        save_artifact({"cuda": torch.export.load(path)}, str(tmp_path / "wrong.pt2"))
 
 
 def test_export_cli_writes_verified_artifact(tmp_path, capsys):

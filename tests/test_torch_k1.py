@@ -4,7 +4,8 @@ hand-written backward ``xslot_bwd_ref`` against JAX's checkpointed ``_bwd``
 fed the same residuals and cotangents (also at S=1000 and at d=12), and the
 plans of the CUDA kernels: the cluster plan, the backward's tiled route
 wherever the forward plans and the backward's share does not fit, and the
-tiled route's own plan (tile widths, pieces, scratch, launches). Inputs are
+tiled route's own plan (tile widths, pieces, scratch, launches); slot widths
+that are not a multiple of 4, zero-padded for the card exactly. Inputs are
 made from a seed with numpy and fed to both sides."""
 
 import numpy as np
@@ -15,7 +16,8 @@ import torch
 from scouter_tpu.ops.slot_pallas import _bwd as jax_bwd
 from scouter_tpu.ops.slot_pallas import _fused_forward as jax_fused_forward
 from scouter_tpu_torch.ops.slot_kernel import (TILED_PRODUCTS, _check_dim, _plan, _smem_bytes,
-                                               tiled_plan, xslot_bwd_ref, xslot_iterations_fused)
+                                               pad_slot_width, tiled_plan, xslot_bwd_ref,
+                                               xslot_fwd_ref, xslot_iterations_fused)
 
 TOL = dict(rtol=1e-4, atol=1e-5)  # tests/test_slot_pallas.py:30-31
 H100_SMEM, H100_SMS = 232448, 132  # opt-in shared memory per CTA, SMs
@@ -359,12 +361,59 @@ def test_backward_plans_wherever_the_forward_does(n, d):
 @pytest.mark.parametrize("d", [4, 12, 48, 64, 96, 1024])
 def test_any_slot_width_that_is_a_multiple_of_four_runs(d):
     _check_dim(d)
+    args = [torch.from_numpy(a) for a in k1_inputs(0, 1, 3, 2, d)]
+    assert all(torch.equal(x, y) for x, y in zip(pad_slot_width(*args), args))
 
 
-@pytest.mark.parametrize("d", [2, 6, 50, 1028])
+@pytest.mark.parametrize("d", [0, -1, -4, -64])
 def test_other_slot_widths_raise(d):
-    with pytest.raises(ValueError, match="multiple of 4"):
+    # every width from 1 up runs (zero-padded to a multiple of 4 on the
+    # card); only a width below 1 is refused
+    with pytest.raises(ValueError, match="d >= 1"):
         _check_dim(d)
+
+
+@pytest.mark.parametrize("d", [30, 1100, 6, 50])
+def test_slot_widths_off_four_are_taken_and_padded_exactly(d):
+    """Widths the card once refused (d % 4, d > 1024): the CUDA launches take
+    them zero-padded to the next multiple of 4, the scale and the update's
+    divisor on the true d. The padded plain call's outputs, cut back to d,
+    equal the unpadded ones bit for bit (the padded columns add exact
+    zeros, and the GRU keeps them at zero); its hist lies within f32
+    rounding of the unpadded one (the CPU's GEMM blocks a GRU product of
+    another width otherwise: 1 ulp at d = 30); the padded backward's
+    gradients, cut back, match the unpadded ones to f32 rounding (its bias
+    sums reduce rows of another width), and the padded gradients of the
+    padded columns are zero. Past d = 1024 both directions plan their tiled
+    routes."""
+    _check_dim(d)
+    b, n, s = 2, 7, 5
+    args = [torch.from_numpy(a) for a in k1_inputs(3, b, n, s, d, magnitudes="bench")]
+    padded = pad_slot_width(*args)
+    d4 = -(-d // 4) * 4
+    assert padded[0].shape == (b, n, d4) and padded[3].shape == (3 * d4, d4)
+    assert padded[5].shape == (1, 3 * d4)
+    upd, attn, hist = xslot_fwd_ref(*args, emit_hist=True)
+    p_upd, p_attn, p_hist = xslot_fwd_ref(*padded, emit_hist=True, dim=d)
+    assert torch.equal(p_upd[..., :d], upd) and torch.equal(p_attn, attn)
+    np.testing.assert_allclose(p_hist[..., :d].numpy(), hist.numpy(), rtol=1e-6, atol=1e-8)
+    assert not p_upd[..., d:].any() and not p_hist[..., d:].any()
+    rng = np.random.RandomState(4)
+    du = torch.from_numpy(rng.randn(b, s, d).astype(np.float32))
+    dattn = torch.from_numpy(rng.randn(b, s, n).astype(np.float32))
+    res = (args[0], args[1], args[3], args[4], args[5], args[6], hist)
+    want = xslot_bwd_ref(*res, du, dattn)
+    p_res = (padded[0], padded[1], padded[3], padded[4], padded[5], padded[6], p_hist)
+    got = xslot_bwd_ref(*p_res, torch.nn.functional.pad(du, (0, d4 - d)), dattn, dim=d)
+    cut = (got[0][..., :d], got[1][..., :d], got[2][:, :d],
+           *(g.reshape(3, d4, -1)[:, :d, :d if g.shape[0] != 1 else None].reshape(w.shape)
+             if g.shape[0] != 1 else g.reshape(3, d4)[:, :d].reshape(1, 3 * d)
+             for g, w in zip(got[3:], want[3:])))
+    for g, w in zip(cut, want):
+        np.testing.assert_allclose(g.numpy(), w.numpy(), rtol=1e-5, atol=1e-6)
+    assert not got[0][..., d:].any() and not got[1][..., d:].any()
+    if d > 1024:
+        assert h100_plan(b, n, s, "fwd", d4).tiled and h100_plan(b, n, s, "bwd", d4).tiled
 
 
 def test_plan_takes_the_cards_footprint_and_occupancy():

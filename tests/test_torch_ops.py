@@ -110,6 +110,25 @@ def test_xslot_attention(fused, spc, power, loss_status, to_k_layer):
         np.testing.assert_allclose(a.numpy(), np.asarray(b), **TOL)
 
 
+@pytest.mark.parametrize("fused", [False, True])
+def test_xslot_attention_at_a_slot_width_off_four(fused):
+    # --hidden_dim 30, which the card's kernels take zero-padded to 32: the
+    # slot head against JAX's at the true width (fused: the op's CPU path)
+    cfg_kw = dict(num_classes=3, slots_per_class=2, dim=30, power=2, loss_status=1,
+                  to_k_layer=1)
+    rng = np.random.RandomState(6)
+    params = xslot_params(rng, jax_sa.XSlotConfig(**cfg_kw))
+    x_pe, x = rng.randn(2, 16, 30), rng.randn(2, 16, 30)
+    want = jax_sa.xslot_attention(tree(params, lambda a: jnp.asarray(a, jnp.float32)),
+                                  jax_sa.XSlotConfig(**cfg_kw),
+                                  jnp.asarray(x_pe, jnp.float32), jnp.asarray(x, jnp.float32))
+    with torch.no_grad():
+        got = sa.xslot_attention(tree(params, t), sa.XSlotConfig(**cfg_kw), t(x_pe), t(x),
+                                 fused=fused)
+    for a, b in zip(got, want):
+        np.testing.assert_allclose(a.numpy(), np.asarray(b), **TOL)
+
+
 def test_class_attention_maps():
     attn = np.random.RandomState(3).rand(2, 6, 9)
     np.testing.assert_allclose(sa.class_attention_maps(t(attn), 3, 2).numpy(),

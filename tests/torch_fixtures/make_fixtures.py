@@ -17,8 +17,12 @@ The images are made from a seed with numpy and written with Pillow:
   (inverted, under an Adobe marker with transform 0), and
   ``ycck_400x300.jpg``, the same file with the marker's transform set to 2,
   which makes its stored planes YCCK to every decoder (Pillow cannot write
-  YCCK, and this host has no ``cjpeg``); ``staged_cmyk_260.npz`` holds
-  Pillow's staged 260 px of both.
+  YCCK, and no ``cjpeg`` is at hand); ``cmyk420_160x120.jpg`` and
+  ``cmyk422_160x120.jpg``, CMYK with the first component sampled 2x2 and
+  2x1 (Pillow's ``subsampling=2`` and ``1``), so that the other three are
+  subsampled; ``staged_cmyk_260.npz`` holds Pillow's staged pixels of all
+  four, at ``CMYK_STAGE``'s size each (260 px, and 120 for the small ones:
+  the fixtures stay under 2 MiB).
 
 A CPU test regenerates ``staged_260.npz`` with Pillow and checks it.
 """
@@ -83,32 +87,44 @@ def png_all_filters(pixels):
             + chunk(b"IDAT", zlib.compress(b"".join(out), 9)) + chunk(b"IEND", b""))
 
 
-def staged(path):
+def staged(path, size=STAGE):
     with Image.open(path) as im:
-        return np.asarray(im.convert("RGB").resize((STAGE, STAGE), Image.BILINEAR))
+        return np.asarray(im.convert("RGB").resize((size, size), Image.BILINEAR))
 
 
-CMYK_JPEGS = ("cmyk_400x300.jpg", "ycck_400x300.jpg")
+CMYK_JPEGS = ("cmyk_400x300.jpg", "ycck_400x300.jpg", "cmyk420_160x120.jpg",
+              "cmyk422_160x120.jpg")
+CMYK_STAGE = dict(zip(CMYK_JPEGS, (STAGE, STAGE, 120, 120)))  # the staged size of each
+
+
+def cmyk_scene(width, height, seed):
+    """A CMYK scene: ``scene``'s colours, with a black plane that varies."""
+    cmy = 255 - scene(width, height, seed).astype(np.int32)
+    k = (cmy.min(axis=-1) * 3) // 4
+    return np.dstack([cmy - k[..., None], k]).astype(np.uint8)
 
 
 def write_cmyk():
     """The four-component fixtures and their staged pixels."""
-    rgb = scene(400, 300, 20).astype(np.int32)
-    cmy = 255 - rgb
-    k = (cmy.min(axis=-1) * 3) // 4  # a black plane that varies over the scene
-    cmyk = np.dstack([cmy - k[..., None], k]).astype(np.uint8)
     buf = io.BytesIO()
-    Image.fromarray(cmyk, "CMYK").save(buf, "JPEG", quality=90)
+    Image.fromarray(cmyk_scene(400, 300, 20), "CMYK").save(buf, "JPEG", quality=90)
     data = buf.getvalue()
     at = data.index(b"Adobe") + 11  # the APP14 payload's transform byte
     if data[at] != 0:
         raise ValueError("Pillow wrote a CMYK JPEG without Adobe transform 0")
     ycck = data[:at] + b"\x02" + data[at + 1:]
-    for name, blob in zip(CMYK_JPEGS, (data, ycck)):
+    blobs = [data, ycck]
+    for subsampling in (2, 1):
+        buf = io.BytesIO()
+        Image.fromarray(cmyk_scene(160, 120, 21), "CMYK").save(buf, "JPEG", quality=85,
+                                                               subsampling=subsampling)
+        blobs.append(buf.getvalue())
+    for name, blob in zip(CMYK_JPEGS, blobs):
         with open(os.path.join(HERE, name), "wb") as f:
             f.write(blob)
     np.savez_compressed(os.path.join(HERE, "staged_cmyk_260.npz"),
-                        **{name: staged(os.path.join(HERE, name)) for name in CMYK_JPEGS})
+                        **{name: staged(os.path.join(HERE, name), CMYK_STAGE[name])
+                           for name in CMYK_JPEGS})
 
 
 def main():
