@@ -1,0 +1,3 @@
+"""Share of the traced open-loop serving window with no device work."""
+
+from gpubench.layers import idle_share_pct as read  # noqa: F401
