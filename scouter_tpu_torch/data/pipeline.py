@@ -25,6 +25,9 @@ BatchSampler(drop_last=True), DataLoaderX thread prefetch):
   each batch, which the consumer's stream waits on before the batch is
   used; each batch tensor is marked as used on the consumer's stream, so
   the allocator does not hand its memory back to the producer's too soon.
+  While a profiler session runs, the consumer's wait for a batch shows as a
+  ``loader.wait`` span and the producer's host gather and pinning of one as
+  ``loader.gather`` (``utils/tracing.py``).
   Which batches an epoch holds, and in which order, does not depend on the
   thread: every batch is a function of (epoch, index) alone.
 - several processes (``shard_by_host``, the JAX package's multi-process
@@ -51,6 +54,7 @@ import torch
 from ..core import distributed
 from ..core.device import resolve_device
 from ..parallel.mesh import host_shard_bounds
+from ..utils.tracing import span
 from .native_stager import gather_items
 from .transforms import preprocess_batch
 
@@ -156,16 +160,26 @@ class Loader:
         base = (self.seed * 7919 + epoch) % (2**31)
         return torch.Generator().manual_seed(base * 1_000_003 + batch_index)
 
-    def _to_device(self, host: Dict[str, np.ndarray], batch_index: int, epoch: int):
+    def _pinned(self, host: Dict[str, np.ndarray]) -> Dict[str, torch.Tensor]:
+        """A host batch as tensors of the batch's dtypes, pinned for the
+        card (a tensor already on a device is left there)."""
         pin = self.device.type == "cuda"
         out = {}
         for key, dtype in (("image", torch.uint8), ("label", torch.int64),
                            ("mask", torch.float32)):
             t = host[key]
             t = (t if torch.is_tensor(t) else torch.from_numpy(np.ascontiguousarray(t))).to(dtype)
-            if pin and t.device.type == "cpu":
-                t = t.pin_memory()
-            out[key] = t.to(self.device, non_blocking=pin)  # no copy if already there
+            out[key] = t.pin_memory() if pin and t.device.type == "cpu" else t
+        return out
+
+    def _to_device(self, host: Dict[str, np.ndarray], batch_index: int, epoch: int):
+        return self._upload(self._pinned(host), batch_index, epoch)
+
+    def _upload(self, pinned: Dict[str, torch.Tensor], batch_index: int, epoch: int):
+        """Copy a pinned batch to the device and preprocess it there."""
+        pin = self.device.type == "cuda"
+        out = {k: t.to(self.device, non_blocking=pin)  # no copy if already there
+               for k, t in pinned.items()}
         rank, ranks = self._shard if self._multi else (0, 1)
         x = preprocess_batch(out["image"], dataset=self.ds.dataset_name,
                              img_size=self.img_size, train=self.train, aug=self.aug,
@@ -184,8 +198,10 @@ class Loader:
             self._stream = torch.cuda.Stream(self.device)
         stream = self._stream
         q: "queue.Queue" = queue.Queue(maxsize=self.prefetch)
-        stop = object()
         cancel = threading.Event()
+        # the producer makes exactly the epoch's steps (_host_batches yields
+        # one a step), so the consumer takes that many items and no end mark
+        steps = self.steps_per_epoch()
 
         def qput(item) -> bool:
             # a bounded put that gives up once the consumer has left the
@@ -200,15 +216,17 @@ class Loader:
             return False
 
         def produce():
-            for bi, hb in enumerate(self._host_batches(epoch)):
-                batch = self._to_device(hb, bi, epoch)
+            host = self._host_batches(epoch)
+            for bi in range(steps):
+                with span("loader.gather"):
+                    pinned = self._pinned(next(host))
+                batch = self._upload(pinned, bi, epoch)
                 ready = None
                 if cuda:
                     ready = torch.cuda.Event()
                     ready.record(stream)
                 if not qput((batch, ready)):
                     return
-            qput(stop)
 
         def worker():
             try:
@@ -223,10 +241,9 @@ class Loader:
         thread = threading.Thread(target=worker, name="loader-producer", daemon=True)
         thread.start()
         try:
-            while True:
-                item = q.get()
-                if item is stop:
-                    return
+            for _ in range(steps):
+                with span("loader.wait"):
+                    item = q.get()
                 if isinstance(item, BaseException):
                     raise item
                 batch, ready = item

@@ -14,6 +14,11 @@ while the dispatcher forms the next batch. At most ``max_inflight`` batches
 are dispatched and not yet fetched: the dispatcher takes a slot before it
 dispatches and the resolver gives it back after the fetch.
 
+Each request answered leaves a row in ``utils/tracing.py``'s request record
+(its id, its batch's, five stamps on the profiler's clock), which
+``stage_samples`` reads; while a profiler session runs, the dispatcher's and
+resolvers' waits and host work show as ``engine.*`` spans.
+
 With ``mesh=`` (``parallel/mesh.py::make_mesh``) each bucket batch is
 split over the mesh's ``data`` devices in this process, each block served on
 its device, and the rows joined again: what the unmeshed engine returns
@@ -29,7 +34,6 @@ in-flight bound counts batches held by resolvers too.
 
 from __future__ import annotations
 
-import collections
 import queue
 import threading
 import time
@@ -40,6 +44,8 @@ import numpy as np
 import torch
 
 from ..core.device import resolve_device
+from ..utils import tracing
+from ..utils.tracing import span
 from .export import make_serving_fn
 
 __all__ = ["InferenceEngine"]
@@ -117,10 +123,7 @@ class InferenceEngine:
         self._queue: "queue.Queue" = queue.Queue()
         # bucket_fill["b/n"] counts batches that ran bucket b carrying n live images
         self._stats = {"requests": 0, "batches": 0, "padded": 0, "bucket_fill": {}}
-        # per-request stage samples (seconds): queue_wait (submit -> batch
-        # formed), dispatch (the serving call), inflight_wait (dispatched ->
-        # resolver pickup), fetch (device finish + device->host copy)
-        self._samples: "collections.deque" = collections.deque(maxlen=8192)
+        self._id = tracing.new_id()  # this engine's rows in the request record
         self._lock = threading.Lock()
         self._closed = threading.Event()
         self._max_inflight = max(1, max_inflight)
@@ -159,7 +162,7 @@ class InferenceEngine:
             raise RuntimeError("engine is closed")
         image_u8 = self._validate(np.asarray(image_u8), batched=False)
         fut: Future = Future()
-        self._queue.put((image_u8, fut, time.monotonic()))
+        self._queue.put((image_u8, fut, tracing.now_ns(), tracing.new_id()))
         if self._closed.is_set():
             # close() raced us past the check above: fail what is still queued
             # so this request cannot strand; the resolvers' queue is not ours
@@ -185,9 +188,19 @@ class InferenceEngine:
             return out
 
     def stage_samples(self):
-        """Per-request engine stage timings (see ``_samples`` above)."""
-        with self._lock:
-            return list(self._samples)
+        """Per-request stage timings of this engine's requests still in the
+        request record, oldest first, in seconds: ``queue_wait`` (submit ->
+        batch formed, an in-flight slot held), ``dispatch`` (the serving
+        call), ``inflight_wait`` (dispatched -> resolver pickup), ``fetch``
+        (device finish + device->host copy); with the batch's ``live`` rows
+        and ``bucket``, and the ``request`` and ``batch`` ids."""
+        r = tracing.records(engine=self._id)
+        cols = {"queue_wait": (r["formed"] - r["submitted"]) * 1e-9,
+                "dispatch": (r["launched"] - r["formed"]) * 1e-9,
+                "inflight_wait": (r["picked"] - r["launched"]) * 1e-9,
+                "fetch": (r["answered"] - r["picked"]) * 1e-9,
+                **{k: r[k] for k in ("live", "bucket", "request", "batch")}}
+        return [dict(zip(cols, row)) for row in zip(*(c.tolist() for c in cols.values()))]
 
     def close(self):
         self._closed.set()
@@ -227,14 +240,18 @@ class InferenceEngine:
                 return b
         raise AssertionError(f"internal: batch {n} exceeds largest bucket {self.buckets[-1]}")
 
-    def _dispatch_padded(self, images_u8: np.ndarray):
-        """Pad to the bucket and run the serving function; returns device
-        outputs (the card may still be computing them)."""
-        n = images_u8.shape[0]
+    def _dispatch_padded(self, images_u8):
+        """Stack (an array or a list of images), pad to the bucket and run
+        the serving function; returns device outputs (the card may still be
+        computing them)."""
+        n = len(images_u8)
         bucket = self._bucket_for(n)
-        if n < bucket:
-            pad = np.zeros((bucket - n,) + images_u8.shape[1:], np.uint8)
-            images_u8 = np.concatenate([images_u8, pad], axis=0)
+        with span("engine.stage"):
+            if not isinstance(images_u8, np.ndarray):
+                images_u8 = np.stack(images_u8)
+            if n < bucket:
+                pad = np.zeros((bucket - n,) + images_u8.shape[1:], np.uint8)
+                images_u8 = np.concatenate([images_u8, pad], axis=0)
         out = self._fn(images_u8)
         with self._lock:
             self._stats["batches"] += 1
@@ -244,7 +261,7 @@ class InferenceEngine:
         return out
 
     def _take_slot(self):
-        with self._slot_free:
+        with span("engine.slot"), self._slot_free:
             while self._n_inflight >= self._max_inflight:
                 self._slot_free.wait()
             self._n_inflight += 1
@@ -272,7 +289,8 @@ class InferenceEngine:
         max_bucket = self.buckets[-1]
         while True:
             try:
-                item = self._queue.get(timeout=0.1)
+                with span("engine.await"):
+                    item = self._queue.get(timeout=0.1)
             except queue.Empty:
                 if self._closed.is_set():
                     return
@@ -281,69 +299,67 @@ class InferenceEngine:
                 if self._queue.empty():
                     return
                 continue
-            batch = [item]
-            deadline = time.monotonic() + self.max_wait_s
-            while len(batch) < max_bucket:
-                remaining = deadline - time.monotonic()
-                if remaining <= 0 and not self._saturated():
-                    break  # window elapsed and the card has room: dispatch
-                try:
-                    # while max_inflight batches are out, waiting to fill the
-                    # bucket costs nothing: a partial batch would only spend a
-                    # dispatch on padding
-                    nxt = self._queue.get(timeout=remaining if remaining > 0 else self.max_wait_s)
-                except queue.Empty:
-                    if self._saturated():
-                        continue
-                    break
-                if nxt is None:
-                    break
-                batch.append(nxt)
-            # drop client-cancelled requests; mark the rest running so a late
-            # cancel() can no longer make set_result raise
-            live = [b for b in batch if b[1].set_running_or_notify_cancel()]
+            with span("engine.form"):
+                batch = [item]
+                deadline = time.monotonic() + self.max_wait_s
+                while len(batch) < max_bucket:
+                    remaining = deadline - time.monotonic()
+                    if remaining <= 0 and not self._saturated():
+                        break  # window elapsed and the card has room: dispatch
+                    try:
+                        # while max_inflight batches are out, waiting to fill
+                        # the bucket costs nothing: a partial batch would only
+                        # spend a dispatch on padding
+                        nxt = self._queue.get(
+                            timeout=remaining if remaining > 0 else self.max_wait_s)
+                    except queue.Empty:
+                        if self._saturated():
+                            continue
+                        break
+                    if nxt is None:
+                        break
+                    batch.append(nxt)
+                # drop client-cancelled requests; mark the rest running so a
+                # late cancel() can no longer make set_result raise
+                live = [b for b in batch if b[1].set_running_or_notify_cancel()]
+                with self._lock:
+                    self._stats["requests"] += len(live)
             if not live:
                 continue
-            with self._lock:
-                self._stats["requests"] += len(live)
             self._take_slot()
             try:
-                t_formed = time.monotonic()
-                out = self._dispatch_padded(np.stack([b[0] for b in live]))
-                self._inflight.put((out, live, (t_formed, time.monotonic())))
+                t_formed = tracing.now_ns()
+                out = self._dispatch_padded([b[0] for b in live])
+                self._inflight.put((out, live, tracing.new_id(), t_formed, tracing.now_ns()))
             except Exception as exc:  # resolve, never hang callers
                 self._give_slot()
-                for _, fut, _t in live:
+                for _, fut, _t, _r in live:
                     fut.set_exception(exc)
 
     def _resolve_loop(self):
-        """Fetch dispatched batches to the host and resolve their futures."""
+        """Fetch dispatched batches to the host, record them and resolve
+        their futures."""
         while True:
-            item = self._inflight.get()
+            with span("engine.pick"):
+                item = self._inflight.get()
             if item is None:
                 return
-            out, live, (t_formed, t_disp) = item
-            t_pick = time.monotonic()
+            out, live, batch, t_formed, t_launched = item
+            t_pick = tracing.now_ns()
             try:
-                host = {k: _host(v) for k, v in out.items()}
+                with span("engine.fetch", batch=batch):
+                    host = {k: _host(v) for k, v in out.items()}
             except Exception as exc:
-                for _, fut, _t in live:
+                for _, fut, _t, _r in live:
                     fut.set_exception(exc)
                 continue
             finally:
                 self._give_slot()
-            t_done = time.monotonic()
             # record before resolving: a caller woken by the last set_result
             # may read stage_samples() at once
-            with self._lock:
-                for _, _fut, t_sub in live:
-                    self._samples.append({
-                        "queue_wait": t_formed - t_sub,
-                        "dispatch": t_disp - t_formed,
-                        "inflight_wait": t_pick - t_disp,
-                        "fetch": t_done - t_pick,
-                        "live": len(live),
-                        "bucket": int(host["logits"].shape[0]),
-                    })
-            for i, (_, fut, _t) in enumerate(live):
-                fut.set_result({k: v[i] for k, v in host.items()})
+            tracing.record_batch(self._id, batch, [b[3] for b in live], [b[2] for b in live],
+                                 t_formed, t_launched, t_pick, tracing.now_ns(),
+                                 int(host["logits"].shape[0]))
+            with span("engine.resolve", batch=batch):
+                for i, (_, fut, _t, _r) in enumerate(live):
+                    fut.set_result({k: v[i] for k, v in host.items()})

@@ -1,7 +1,9 @@
 """Tracing and profiling (counterpart of ``scouter_tpu/utils/profiling.py``).
 
-- :func:`trace`: a ``torch.profiler`` session around a region, written as a
-  Chrome/TensorBoard trace file into ``log_dir``;
+- :func:`trace`: a ``torch.profiler`` session around a region, over every
+  thread, written as a Chrome/TensorBoard trace file into ``log_dir``: the
+  kernels, the program's spans (``utils/tracing.py``) and the stages of each
+  request the engine answered in the region;
 - :class:`Timer`: host-clock timing of a region, the card drained with
   ``torch.cuda.synchronize()`` before and after it (nothing extra on the
   CPU);
@@ -14,34 +16,84 @@
 from __future__ import annotations
 
 import contextlib
+import json
 import os
 import socket
 import time
 from typing import Any, Callable, Dict, Optional
 
+import numpy as np
 import torch
 from torch.utils._python_dispatch import TorchDispatchMode
 from torch.utils._pytree import tree_flatten
 from torch.utils.flop_counter import FlopCounterMode, flop_registry
 
 from ..core.device import resolve_device
+from . import tracing
 
-__all__ = ["Timer", "model_cost_analysis", "trace"]
+__all__ = ["REQUESTS_PID", "Timer", "model_cost_analysis", "request_events", "trace"]
+
+REQUESTS_PID = 1 << 30  # the trace's process of request events: no real pid or device
+_STAGES = ("formed", "launched", "picked", "answered")
 
 
 @contextlib.contextmanager
 def trace(log_dir: str):
-    """Profile the region (CPU, and the card where there is one) and write
-    ``<host>.<pid>.<ns>.pt.trace.json`` into ``log_dir``. Yields the
-    ``torch.profiler.profile`` object."""
+    """Profile the region (CPU on every thread, and the card where there is
+    one) and write ``<host>.<pid>.<ns>.pt.trace.json`` into ``log_dir``: the
+    profiler's events, the program's ``engine.*`` and ``loader.*`` spans
+    among them, and each request the engine answered in the region (see
+    :func:`request_events`). Yields the ``torch.profiler.profile`` object."""
     activities = [torch.profiler.ProfilerActivity.CPU]
     if torch.cuda.is_available():
         activities.append(torch.profiler.ProfilerActivity.CUDA)
     os.makedirs(log_dir, exist_ok=True)
-    with torch.profiler.profile(activities=activities) as prof:
+    # every thread: the engine's dispatcher and resolvers and the Loader's
+    # producer are threads the region's own thread did not start
+    every_thread = torch._C._profiler._ExperimentalConfig(profile_all_threads=True)
+    start = tracing.now_ns()
+    with torch.profiler.profile(activities=activities, experimental_config=every_thread) as prof:
         yield prof
-    name = f"{socket.gethostname()}.{os.getpid()}.{time.time_ns()}.pt.trace.json"
-    prof.export_chrome_trace(os.path.join(log_dir, name))
+    end = tracing.now_ns()
+    path = os.path.join(log_dir, f"{socket.gethostname()}.{os.getpid()}.{end}.pt.trace.json")
+    prof.export_chrome_trace(path)
+    with open(path) as f:
+        chrome = json.load(f)
+    chrome["traceEvents"] += request_events(tracing.records(start, end),
+                                            chrome.get("baseTimeNanoseconds", 0))
+    with open(path, "w") as f:
+        json.dump(chrome, f)
+
+
+def request_events(r, base_ns: int = 0) -> list:
+    """Chrome trace complete events of request records (``tracing.records``)
+    on the profiler's clock (``ts`` in us after ``base_ns``), in a process
+    named "requests": one track a batch in flight, reused once the batch is
+    answered, holding a ``queue`` event a request (submitted -> batch
+    formed) and the batch's ``dispatch``, ``inflight`` and ``fetch``; the
+    arguments carry the ids, ``live`` and ``bucket``."""
+    events = [{"ph": "M", "name": "process_name", "pid": REQUESTS_PID,
+               "args": {"name": "requests"}}]
+    rows = {}  # batch -> its rows, by submission; batches by their first
+    for i in np.argsort(r["submitted"], kind="stable"):
+        rows.setdefault(int(r["batch"][i]), []).append(i)
+    answered_at: list = []  # a track's last batch's answer
+    for batch, mine in rows.items():
+        j = mine[0]
+        formed, launched, picked, answered = (int(r[k][j]) for k in _STAGES)
+        tid = next((t for t, end in enumerate(answered_at) if end <= r["submitted"][j]),
+                   len(answered_at))
+        answered_at[tid:tid + 1] = [answered]
+        args = {"batch": batch, "engine": int(r["engine"][j]), "live": int(r["live"][j]),
+                "bucket": int(r["bucket"][j])}
+        spans = [("queue", int(r["submitted"][i]), formed, dict(args, request=int(r["request"][i])))
+                 for i in mine]
+        spans += [("dispatch", formed, launched, args), ("inflight", launched, picked, args),
+                  ("fetch", picked, answered, args)]
+        events += [{"ph": "X", "name": name, "cat": "request", "pid": REQUESTS_PID, "tid": tid,
+                    "ts": (t0 - base_ns) / 1e3, "dur": (t1 - t0) / 1e3, "args": a}
+                   for name, t0, t1, a in spans]
+    return events
 
 
 class Timer:
